@@ -1,0 +1,181 @@
+"""GAE + side array + episode-stat partials: plain torch + CUDA kernel C.
+
+Port of `madrona_basketball_tpu/ops/fused_gae.py`.  One pass over the
+trajectory's value/reward/done rows:
+
+  * unnormalize the values with the pre-update value_rms (clamp +-5),
+  * run the reverse GAE recursion with the t == T-1 quirk
+    (fused_gae.py:118-121),
+  * write the raw side array (T, SIDE_ROWS, W) = [value_un, adv, ret, 0..],
+  * emit per world-block two-pass (mean, M2) of value_un / adv / ret,
+  * run the episode-stat carry (current reward, length) forward and emit
+    per (block, tick) [done count, sum(curr * done), sum(lens * done)].
+
+`gae_plain` is the plain version; `fused_gae` is kernel C
+(csrc/fused_gae.cu), replacing the Pallas kernel `make_fused_gae`
+(madrona_basketball_tpu/ops/fused_gae.py:58, pallas_call :178).  One
+thread per world runs the recursions; the block sums are shared-memory
+reductions.  It is bound by bytes: per world it reads 3 T + 3 floats and
+writes 8 T + 2 (~1.4 KB at T = 32).
+
+The port's world block (`pick_gae_block(W)`, at most GAE_BLOCK_CAP = 128)
+is smaller than the TPU's 1024; it is chosen here and nowhere else, and a
+caller of `combine_block_moments` takes n_per = T * W / nb from the
+shape of `moments` (nb, 8).
+"""
+
+from __future__ import annotations
+
+import torch
+
+F32 = torch.float32
+
+VSTAT_COLS = 8       # vstats (1, 8): [value_mean, value_sigma, 0...]
+SIDE_VALUE = 0
+SIDE_ADV = 1
+SIDE_RET = 2
+SIDE_ROWS = 8
+GAE_BLOCK_CAP = 128  # threads (worlds) per CUDA block
+
+
+def pick_gae_block(W: int) -> int:
+    """Largest power-of-two worlds-per-block <= GAE_BLOCK_CAP dividing W."""
+    for cand in (1024, 512, 256, 128, 64, 32, 16, 8, 4, 2, 1):
+        if cand <= GAE_BLOCK_CAP and W % cand == 0:
+            return cand
+    raise AssertionError("unreachable: 1 divides every W")
+
+
+def chan_fold(acc, x):
+    """Fold one (rows, n) tile's per-row (mean, M2) into a running
+    (rows, 8) [mean, M2, n, 0...] accumulator (None starts one): the
+    sequential Chan merge of the JAX `chan_fold` (fused_gae.py:219)."""
+    rows, n_tile = x.shape
+    m_b = x.sum(dim=1, keepdim=True) * (1.0 / n_tile)
+    m2_b = ((x - m_b) * (x - m_b)).sum(dim=1, keepdim=True)
+    out = torch.zeros((rows, 8), dtype=F32, device=x.device)
+    if acc is None:
+        out[:, 0:1], out[:, 1:2], out[:, 2] = m_b, m2_b, float(n_tile)
+        return out
+    m_run, m2_run, n_run = acc[:, 0:1], acc[:, 1:2], acc[:, 2:3]
+    n_new = n_run + n_tile
+    delta = m_b - m_run
+    out[:, 0:1] = m_run + delta * (n_tile / n_new)
+    out[:, 1:2] = m2_run + m2_b + delta * delta * (n_run * n_tile / n_new)
+    out[:, 2:3] = n_new
+    return out
+
+
+def combine_block_moments(means, m2s, n_per: float):
+    """Chan combine of equal-count per-block (mean, M2) pairs ->
+    (mean, unbiased variance, count) of the full batch."""
+    k = means.shape[0]
+    n_total = n_per * k
+    gmean = means.mean()
+    m2 = m2s.sum() + n_per * ((means - gmean) ** 2).sum()
+    var = m2 / max(n_total - 1.0, 1.0)
+    return gmean, var, n_total
+
+
+def _check(traj, carry, next_value_n, vstats, r_done):
+    T, rows, W = traj.shape
+    if traj.dtype != F32 or rows <= r_done:
+        raise ValueError("traj must be (T, rows > r_done, W) float32")
+    if carry.shape != (2, W) or next_value_n.shape != (1, W):
+        raise ValueError("carry must be (2, W), next_value (1, W)")
+    if vstats.shape != (1, VSTAT_COLS):
+        raise ValueError(f"vstats must be (1, {VSTAT_COLS})")
+    if any(x.dtype != F32 for x in (carry, next_value_n, vstats)):
+        raise ValueError("carry, next_value and vstats must be float32")
+    return T, W
+
+
+@torch.no_grad()
+def gae_plain(traj, carry, next_value_n, vstats, *, gamma: float,
+              lam: float, r_value: int, r_rew: int, r_done: int):
+    """Plain version of kernel C.  Returns (side (T, 8, W), moments
+    (nb, 8) [v_mean, v_M2, a_mean, a_M2, r_mean, r_M2, 0, 0], carry'
+    (2, W), ticks (nb, T, 8) [done count, sum(curr*d), sum(lens*d), 0..])."""
+    T, W = _check(traj, carry, next_value_n, vstats, r_done)
+    gb = pick_gae_block(W)
+    nb = W // gb
+    vmean, vsig = vstats[0, 0], vstats[0, 1]
+    vals, rew, dn = traj[:, r_value], traj[:, r_rew], traj[:, r_done]
+    v_un = vmean + vsig * torch.clamp(vals, -5.0, 5.0)
+    next_un = vmean + vsig * torch.clamp(next_value_n, -5.0, 5.0)
+    nd = 1.0 - dn
+    nvs = torch.cat([v_un[1:], next_un], dim=0)
+    nnt = torch.cat([nd[1:], nd[T - 1:T]], dim=0)
+    deltas = rew + gamma * nvs * nnt - v_un
+    adv = torch.empty_like(deltas)
+    last = torch.zeros_like(deltas[0])
+    for t in reversed(range(T)):
+        last = deltas[t] + (gamma * lam) * nnt[t] * last
+        adv[t] = last
+    ret = adv + v_un
+
+    side = torch.zeros((T, SIDE_ROWS, W), dtype=F32, device=traj.device)
+    side[:, SIDE_VALUE], side[:, SIDE_ADV], side[:, SIDE_RET] = v_un, adv, ret
+
+    moments = torch.zeros((nb, 8), dtype=F32, device=traj.device)
+    n_per = float(T * gb)
+    for c, x in enumerate((v_un, adv, ret)):
+        xb = x.reshape(T, nb, gb)
+        m = xb.sum(dim=(0, 2)) * (1.0 / n_per)
+        moments[:, 2 * c] = m
+        moments[:, 2 * c + 1] = ((xb - m[None, :, None]) ** 2).sum(
+            dim=(0, 2))
+
+    curr, lens = carry[0], carry[1]
+    ticks = torch.zeros((nb, T, 8), dtype=F32, device=traj.device)
+    for t in range(T):
+        d = dn[t]
+        curr = curr + rew[t]
+        lens = lens + 1.0
+        ticks[:, t, 0] = d.reshape(nb, gb).sum(dim=1)
+        ticks[:, t, 1] = (curr * d).reshape(nb, gb).sum(dim=1)
+        ticks[:, t, 2] = (lens * d).reshape(nb, gb).sum(dim=1)
+        curr = curr * (1.0 - d)
+        lens = lens * (1.0 - d)
+    return side, moments, torch.stack([curr, lens]), ticks
+
+
+launches = 0  # kernel C launches (the wrapper counts, the caller resets)
+
+
+def fused_gae(traj, carry, next_value_n, vstats, *, gamma: float,
+              lam: float, r_value: int, r_rew: int, r_done: int):
+    """Kernel C on CUDA tensors, `gae_plain` on CPU tensors."""
+    global launches
+    T, W = _check(traj, carry, next_value_n, vstats, r_done)
+    if traj.device.type == "cpu":
+        return gae_plain(traj, carry, next_value_n, vstats, gamma=gamma,
+                         lam=lam, r_value=r_value, r_rew=r_rew,
+                         r_done=r_done)
+    if traj.device.type != "cuda":
+        raise ValueError(f"unsupported device {traj.device}")
+    gb = pick_gae_block(W)
+    if gb % 32 or gb > 1024:
+        raise ValueError("kernel C needs a world block that is a multiple "
+                         "of 32 and at most 1024")
+    from .. import _build
+    dev = traj.device
+    _build.check_device(dev, carry=carry, next_value=next_value_n,
+                        vstats=vstats)
+    lib = _build.load("fused_gae")
+    nb = W // gb
+    traj, carry, next_value_n, vstats = (
+        x.contiguous() for x in (traj, carry, next_value_n, vstats))
+    side = torch.empty((T, SIDE_ROWS, W), dtype=F32, device=dev)
+    moments = torch.empty((nb, 8), dtype=F32, device=dev)
+    carry2 = torch.empty((2, W), dtype=F32, device=dev)
+    ticks = torch.empty((nb, T, 8), dtype=F32, device=dev)
+    err = lib.mbb_fused_gae(
+        _build.ptr(traj), _build.ptr(carry), _build.ptr(next_value_n),
+        _build.ptr(vstats), _build.ptr(side), _build.ptr(moments),
+        _build.ptr(carry2), _build.ptr(ticks), T, traj.shape[1], W, gb,
+        r_value, r_rew, r_done, float(gamma), float(gamma * lam),
+        _build.stream(dev))
+    _build.check(err, "fused_gae")
+    launches += 1
+    return side, moments, carry2, ticks
