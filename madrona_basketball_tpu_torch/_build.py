@@ -33,7 +33,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-KERNELS = ("fused_step", "fused_rollout", "fused_gae", "meter_scan")
+KERNELS = ("fused_step", "fused_rollout", "fused_gae", "meter_scan",
+           "fused_update")
 NVCC_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-lineinfo", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -158,13 +159,20 @@ def load(name: str):
     return _LIBS[name]
 
 
+def entries(name: str) -> list[str]:
+    """The `extern "C" int mbb_*` entries of csrc/<name>.cu."""
+    src = _strip_comments((CSRC / f"{name}.cu").read_text())
+    return re.findall(r'extern "C" int (mbb_\w+)\(', src)
+
+
 def open_lib(path: Path, name: str):
-    """Load one kernel library and type its entry `mbb_<name>` from the
-    signature in csrc/<name>.cu."""
+    """Load one kernel library and type each of its `extern "C" int
+    mbb_*` entries from its signature in csrc/<name>.cu."""
     lib = ctypes.CDLL(str(path))
-    fn = getattr(lib, f"mbb_{name}")
-    fn.argtypes = c_signature(CSRC / f"{name}.cu", f"mbb_{name}")
-    fn.restype = ctypes.c_int
+    for entry in entries(name):
+        fn = getattr(lib, entry)
+        fn.argtypes = c_signature(CSRC / f"{name}.cu", entry)
+        fn.restype = ctypes.c_int
     lib.mbb_error_string.argtypes = [ctypes.c_int]
     lib.mbb_error_string.restype = ctypes.c_char_p
     return lib

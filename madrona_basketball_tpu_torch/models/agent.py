@@ -62,6 +62,12 @@ class ActorCritic(nn.Module):
         return self.actor(h), self.critic(h)[..., 0]
 
 
+def layers(net: ActorCritic):
+    """The backbone's Linear and LayerNorm modules, each list in order."""
+    return ([m for m in net.backbone if isinstance(m, nn.Linear)],
+            [m for m in net.backbone if isinstance(m, nn.LayerNorm)])
+
+
 @dataclasses.dataclass
 class Agent:
     """Network weights + both normalizer states (what the reference

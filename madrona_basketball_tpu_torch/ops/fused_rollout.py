@@ -40,6 +40,7 @@ import torch
 
 from .. import constants as C
 from ..config import SimConfig
+from ..models.agent import layers
 from .fused_step import check_rows, step_rows_plain
 from .layout import (ACTION_ROWS, F_IDX, N_NOISE_ROWS, N_OBS_ROWS)
 
@@ -79,23 +80,28 @@ POLICY_FLOATS = sum(r * c for r, c in POLICY_SHAPES)  # 6272
 
 
 @torch.no_grad()
-def pack_policy(ap) -> tuple:
-    """Agent -> (nrm, w1t, w2t, wht, bias) as in the JAX `pack_policy`:
-    nrm (128,2) [mean, rsqrt(var + 1e-5)]; w1t (32,128), w2t (32,32);
-    wht (20,32) actor rows + value row; bias (32,8) cols b1, ln1 scale,
-    ln1 bias, b2, ln2 scale, ln2 bias, head bias (zero-padded), 0."""
-    lin = [m for m in ap.net.backbone if isinstance(m, torch.nn.Linear)]
-    ln = [m for m in ap.net.backbone if isinstance(m, torch.nn.LayerNorm)]
-    nrm = torch.stack([ap.obs_rms.mean,
-                       torch.rsqrt(ap.obs_rms.var + RMS_EPS)], dim=1)
-    wht = torch.cat([ap.net.actor.weight, ap.net.critic.weight], dim=0)
-    head_b = torch.cat([ap.net.actor.bias, ap.net.critic.bias])
+def pack_net(net) -> tuple:
+    """ActorCritic -> (w1t (32,128), w2t (32,32), wht (20,32) actor rows +
+    value row, bias (32,8) cols b1, ln1 scale, ln1 bias, b2, ln2 scale,
+    ln2 bias, head bias (zero-padded), 0)."""
+    lin, ln = layers(net)
+    wht = torch.cat([net.actor.weight, net.critic.weight], dim=0)
+    head_b = torch.cat([net.actor.bias, net.critic.bias])
     head_b = torch.nn.functional.pad(head_b, (0, H - head_b.shape[0]))
     bias = torch.stack([lin[0].bias, ln[0].weight, ln[0].bias, lin[1].bias,
                         ln[1].weight, ln[1].bias, head_b,
                         torch.zeros_like(head_b)], dim=1)
     return tuple(x.detach().to(F32).contiguous() for x in
-                 (nrm, lin[0].weight, lin[1].weight, wht, bias))
+                 (lin[0].weight, lin[1].weight, wht, bias))
+
+
+@torch.no_grad()
+def pack_policy(ap) -> tuple:
+    """Agent -> (nrm, w1t, w2t, wht, bias) as in the JAX `pack_policy`:
+    nrm (128,2) [mean, rsqrt(var + 1e-5)], then `pack_net`."""
+    nrm = torch.stack([ap.obs_rms.mean,
+                       torch.rsqrt(ap.obs_rms.var + RMS_EPS)], dim=1)
+    return (nrm.detach().to(F32).contiguous(),) + pack_net(ap.net)
 
 
 def flat_policy(mats) -> torch.Tensor:

@@ -1,14 +1,27 @@
-"""Episode statistics of the trainer (port of the stats part of
-`madrona_basketball_tpu.ppo.train`, train.py:51-96): the reference's
-PPOStats + AverageMeter(window=100) (scripts/ppo_stats.py:8-50,153-172),
-and the fused path's windowed-meter scan with its CUDA kernel
-(csrc/meter_scan.cu)."""
+"""Episode statistics, optimizer and loss of the trainer (port of
+`madrona_basketball_tpu.ppo.train`):
+
+  * the reference's PPOStats + AverageMeter(window=100)
+    (train.py:51-96, scripts/ppo_stats.py:8-50,153-172), and the fused
+    path's windowed-meter scan with its CUDA kernel (csrc/meter_scan.cu);
+  * `AdamState` / `init_adam` / `clip_adam_step`: optax's
+    clip_by_global_norm + adam(eps=1e-8) (train.py:108-112) on the four
+    kernel-orientation matrices of ops/fused_update.py;
+  * `loss_fn`: the clipped PPO loss on packed obs (train.py:256-300),
+    differentiable by autograd.  The tests hold the hand-derived backward
+    of ops/fused_update.py against it; the training path never calls it.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import torch
+
+from .. import constants as C
+from ..models.agent import LN_EPS, layers
+from ..models.normalize import EPS as RMS_EPS
 
 F32 = torch.float32
 
@@ -107,3 +120,108 @@ def _stats_step(st: EpisodeStats, rew, done) -> EpisodeStats:
                         episode_lengths=lens * (1.0 - done),
                         mean_reward=r_mean, reward_size=r_size,
                         mean_length=l_mean, length_size=l_size)
+
+
+# ---------------------------------------------------------------------
+# Optimizer: optax.chain(clip_by_global_norm(c), adam(lr, eps=1e-8))
+# ---------------------------------------------------------------------
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+@dataclasses.dataclass
+class AdamState:
+    """Adam step count (a host int) and the first / second moments, each
+    a tuple of the four kernel-orientation matrices
+    (ops/fused_update.SHAPES), float32."""
+    count: int
+    mu: tuple
+    nu: tuple
+
+
+def init_adam(params: Sequence[torch.Tensor]) -> AdamState:
+    return AdamState(count=0,
+                     mu=tuple(torch.zeros_like(p) for p in params),
+                     nu=tuple(torch.zeros_like(p) for p in params))
+
+
+@torch.no_grad()
+def clip_adam_step(params, mu, nu, grads, t: int, *, lr: float,
+                   max_norm: float):
+    """One optimizer step at Adam step t (count after the step), optax's
+    formulas exactly:
+      u  = g if |g| < c else g / |g| * c     (|g| over all leaves)
+      m' = (1 - b1) u + b1 m;   v' = (1 - b2) u^2 + b2 v
+      p' = p - lr * (m' / (1 - b1^t)) / (sqrt(v' / (1 - b2^t)) + eps).
+    Returns (params', mu', nu') as tuples."""
+    gn = torch.sqrt(sum((g * g).sum() for g in grads))
+    small = gn < max_norm
+    tt = torch.tensor(float(t), dtype=F32)
+    bc1 = (1.0 - torch.tensor(ADAM_B1, dtype=F32) ** tt).to(gn.device)
+    bc2 = (1.0 - torch.tensor(ADAM_B2, dtype=F32) ** tt).to(gn.device)
+    out_p, out_m, out_v = [], [], []
+    for p, m, v, g in zip(params, mu, nu, grads):
+        u = torch.where(small, g, (g / gn) * max_norm)
+        m2 = (1.0 - ADAM_B1) * u + ADAM_B1 * m
+        v2 = (1.0 - ADAM_B2) * (u * u) + ADAM_B2 * v
+        out_p.append(p - lr * ((m2 / bc1) / (torch.sqrt(v2 / bc2) +
+                                             ADAM_EPS)))
+        out_m.append(m2)
+        out_v.append(v2)
+    return tuple(out_p), tuple(out_m), tuple(out_v)
+
+
+# ---------------------------------------------------------------------
+# The PPO loss (autograd oracle of the hand-derived backward)
+# ---------------------------------------------------------------------
+
+def _layer_norm_fast(z, scale, bias):
+    """flax LayerNorm over the last axis with its fast variance
+    max(E[z^2] - E[z]^2, 0)."""
+    mu = z.mean(dim=-1, keepdim=True)
+    var = torch.clamp((z * z).mean(dim=-1, keepdim=True) - mu * mu,
+                      min=0.0)
+    return (z - mu) * torch.rsqrt(var + LN_EPS) * scale + bias
+
+
+def policy_stats(net, obs_rms, o, a, buckets=C.ACTION_BUCKETS):
+    """(summed log-prob, summed entropy, value) of actions `a` (B, K) under
+    the policy, on PACKED observations o (B, d): the features >= d are
+    structural zeros, so normalizing the first d slots and applying the
+    first layer's first d columns equals the full-width forward
+    (train.py:256-280)."""
+    d = o.shape[-1]
+    x = torch.clamp((o - obs_rms.mean[:d]) *
+                    torch.rsqrt(obs_rms.var[:d] + RMS_EPS), -5.0, 5.0)
+    lin, ln = layers(net)
+    h = x
+    for k, (li, nm) in enumerate(zip(lin, ln)):
+        w = li.weight[:, :d] if k == 0 else li.weight
+        h = torch.relu(_layer_norm_fast(h @ w.T + li.bias, nm.weight,
+                                        nm.bias))
+    logits = net.actor(h)
+    value = net.critic(h)[..., 0]
+    lps, ents, off = [], [], 0
+    for i, n in enumerate(buckets):
+        logp = torch.log_softmax(logits[:, off:off + n], dim=-1)
+        lps.append(torch.gather(logp, -1, a[:, i:i + 1].long())[:, 0])
+        ents.append(-(logp.exp() * logp).sum(dim=-1))
+        off += n
+    return sum(lps), sum(ents), value
+
+
+def loss_fn(hp, net, obs_rms, o, a, lp, v, adv, ret):
+    """Clipped PPO surrogate + clipped value loss + entropy
+    (train.py:282-300, scripts/ppo.py:192-210); returns the scalar loss."""
+    lp_, ent, v_ = policy_stats(net, obs_rms, o, a)
+    ratio = torch.exp(lp_ - lp)
+    surr1 = -adv * ratio
+    surr2 = -adv * torch.clamp(ratio, 1 - hp.clip_coef, 1 + hp.clip_coef)
+    pg_loss = torch.maximum(surr1, surr2).mean()
+    vf_loss = (v_ - ret) ** 2
+    v_clip = v + torch.clamp(v_ - v, -hp.clip_coef, hp.clip_coef)
+    if hp.clip_vloss:
+        c_loss = 0.5 * torch.maximum(vf_loss, (v_clip - ret) ** 2).mean()
+    else:
+        c_loss = 0.5 * vf_loss.mean()
+    return pg_loss + c_loss * hp.vf_coef - ent.mean() * hp.ent_coef

@@ -1,5 +1,6 @@
-"""Experience collection of the flagship PPO iteration (port of
-`madrona_basketball_tpu/ppo/train_fused.py:36-71,190-223,547-655`).
+"""The flagship PPO iteration (port of
+`madrona_basketball_tpu/ppo/train_fused.py:36-71,190-223,521-677`):
+experience collection, then the update phase.
 
 `make_collect(cfg, hp, device)` returns `collect(state) -> (state', out)`
 which runs, in order:
@@ -17,14 +18,26 @@ which runs, in order:
 
 `out` holds what the JAX iteration hands to `update_policy_traj` at
 train_fused.py:660 - traj, side, ustats, the new obs_rms / value_rms -
-plus the episode stats and the metrics.  The update phase itself is not
-ported yet; `state'` carries the new normalizers and unchanged weights.
+plus the episode stats and the metrics; `state'` carries the new
+normalizers and unchanged weights.
+
+`make_train_iteration(cfg, hp, device)` returns
+`train_iteration(state, noise=None, perms=None, mark=None) ->
+(state', out)` which runs
+`collect` and then the update phase (kernel D, ops/fused_update.py) on
+its trajectory with the post-collect obs normalizer: E epochs, each a
+permutation of the T * W / wb (tick, world-block) blocks dealt into M
+minibatches, gradient + global-norm clip + Adam per minibatch.  The new
+weights are written back into the agent's module in place and the Adam
+state is replaced; `out` is the collect's.
 
 Noise: by default the pulse draws its 9 rows from a torch.Generator
 seeded by (seed, counter) and the rollout uses kernel B's in-kernel
 Philox with key = seed and tick_base = counter * T, so every iteration
-gets fresh, reproducible streams.  `collect(state, noise=...)` injects
-all draws instead (the tests' path).
+gets fresh, reproducible streams; the update's block permutations come
+from a second generator seeded by (seed, counter).
+`collect(state, noise=...)` and `train_iteration(state, noise=...,
+perms=...)` inject all draws instead (the tests' path).
 """
 
 from __future__ import annotations
@@ -44,10 +57,11 @@ from ..models.normalize import EPS as RMS_EPS
 from ..models.normalize import _rms_merge, rms_update_padded_moments
 from ..ops import fused_gae as FG
 from ..ops import fused_rollout as FR
+from ..ops import fused_update as FU
 from ..ops.fused_step import fused_step
 from ..ops.layout import ACTION_ROWS, N_OBS_ROWS, RESET_ROWS
 from .hparams import PPOParams
-from .train import EpisodeStats, init_stats, meter_scan
+from .train import AdamState, EpisodeStats, init_adam, init_stats, meter_scan
 
 F32 = torch.float32
 I32 = torch.int32
@@ -212,3 +226,90 @@ def make_collect(cfg: SimConfig, hp: PPOParams, device="cuda"):
         return state, out
 
     return collect
+
+
+# ---------------------------------------------------------------------
+# The whole iteration: collect, then the update phase
+# ---------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TrainState(RolloutState):
+    opt: AdamState
+    iteration: int = 0
+
+
+def init_train_state(cfg: SimConfig, hp: PPOParams, seed: int,
+                     device="cuda", agent: Optional[Agent] = None,
+                     frozen: Optional[Agent] = None) -> TrainState:
+    rs = init_rollout_state(cfg, hp, seed, device, agent, frozen)
+    opt = init_adam(FU.pack_weights(rs.agent.net))
+    return TrainState(**{f.name: getattr(rs, f.name)
+                         for f in dataclasses.fields(RolloutState)},
+                      opt=opt, iteration=0)
+
+
+def update_block(hp: PPOParams) -> int:
+    """The update's block width: `hp.update_block`, else the JAX default
+    `pick_update_block(W, mb)` (it sets which samples share a minibatch,
+    so it is training semantics, not a tuning knob)."""
+    wb = hp.update_block or FU.pick_update_block(hp.num_envs,
+                                                 hp.minibatch_size)
+    if hp.num_envs % wb or hp.minibatch_size % wb:
+        raise ValueError(f"update_block={wb} must divide both num_envs="
+                         f"{hp.num_envs} and minibatch_size="
+                         f"{hp.minibatch_size}")
+    return wb
+
+
+def make_train_iteration(cfg: SimConfig, hp: PPOParams, device="cuda"):
+    T = hp.num_rollout_steps
+    if hp.num_minibatches * hp.minibatch_size != T * hp.num_envs:
+        raise ValueError(
+            f"num_minibatches={hp.num_minibatches} must divide the rollout "
+            f"batch ({T}*{hp.num_envs}={T * hp.num_envs} samples) exactly "
+            f"for the update phase")
+    wb = update_block(hp)
+    n_blocks = T * (hp.num_envs // wb)
+    n_updates = hp.update_epochs * hp.num_minibatches
+    dev = torch.device(device)
+    collect = make_collect(cfg, hp, device)
+
+    def draw_perms(state: TrainState):
+        gen = torch.Generator(device=dev).manual_seed(
+            ((state.seed * 1_000_003 + state.counter) * 1_000_033 + 7) %
+            (2 ** 63))
+        return torch.stack([torch.randperm(n_blocks, generator=gen,
+                                           device=dev)
+                            for _ in range(hp.update_epochs)])
+
+    def train_iteration(state: TrainState,
+                        noise: Optional[CollectNoise] = None,
+                        perms: Optional[torch.Tensor] = None,
+                        mark: Optional[Callable[[str], None]] = None):
+        """One iteration.  perms (E, T * W / wb) injects the epochs' block
+        permutations; `mark(name)` is called after each phase (the
+        collect's, then "update").  Returns (state', out), `out` as
+        `collect` gives it, the metrics at out["metrics"]."""
+        mark_ = mark or (lambda name: None)
+        if perms is None:
+            perms = draw_perms(state)
+        if tuple(perms.shape) != (hp.update_epochs, n_blocks):
+            raise ValueError(f"perms must be ({hp.update_epochs}, "
+                             f"{n_blocks})")
+        state, out = collect(state, noise, mark)
+        agent = state.agent
+        with torch.no_grad():
+            params, mu, nu = FU.fused_update_phase(
+                hp, perms.to(device=dev, dtype=I32).reshape(-1),
+                state.opt.count, out["traj"], out["side"],
+                FU.pack_norm(agent.obs_rms), out["ustats"],
+                FU.pack_weights(agent.net), state.opt.mu, state.opt.nu,
+                wb=wb)
+            FU.unpack_weights(agent.net, *params)
+        mark_("update")
+        opt = AdamState(count=state.opt.count + n_updates, mu=mu, nu=nu)
+        state = dataclasses.replace(state, opt=opt,
+                                    iteration=state.iteration + 1)
+        return state, out
+
+    return train_iteration

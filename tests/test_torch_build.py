@@ -24,10 +24,23 @@ def test_kernel_signatures_parse_from_sources():
         "fused_gae": [P] * 8 + [I] * 7 + [F, F, P],
         "meter_scan": [P] * 3 + [I] * 2 + [P],
     }
-    assert set(want) == set(_build.KERNELS)
+    # one source, three entries: kernels D, G and H
+    update = {
+        "mbb_fused_update_phase": [P, I] + [P] * 8 + [I] * 6 + [F] * 3 +
+        [I, F, F, P],
+        "mbb_fused_minibatch_grad_prefetch": [P] * 7 + [I] * 5 + [F] * 3 +
+        [I, P],
+        "mbb_fused_minibatch_grad": [P] * 5 + [I] * 3 + [F] * 3 + [I, P],
+    }
+    assert set(want) | {"fused_update"} == set(_build.KERNELS)
     for name, types in want.items():
         got = _build.c_signature(_build.CSRC / f"{name}.cu", f"mbb_{name}")
         assert got == types, name
+        assert _build.entries(name) == [f"mbb_{name}"]
+    assert _build.entries("fused_update") == list(update)
+    for entry, types in update.items():
+        got = _build.c_signature(_build.CSRC / "fused_update.cu", entry)
+        assert got == types, entry
     host = _build.c_signature(_build.CSRC / "host_step.cpp", "mbb_host_step")
     assert host == [sp] + [P] * 6 + [I]
 
