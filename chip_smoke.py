@@ -4,16 +4,24 @@
     python3 chip_smoke.py
 
 Builds every kernel of madrona_basketball_tpu_torch/csrc - A (fused_step),
-B (fused_rollout), C (fused_gae), the meter scan (meter_scan) and the
-update kernels D, G and H (fused_update) - holds each against its plain
-torch version on the card at the flagship shapes, then drives the port's
-main path: `init_train_state` and three `train_iteration`s of the
+B (fused_rollout), C (fused_gae), the meter scan (meter_scan), the
+update kernels D, G and H (fused_update) and the K-tick kernel F
+(fused_multistep, both instances) - holds each against its plain torch
+version on the card at the flagship shapes, then drives the port's
+training path: `init_train_state` and three `train_iteration`s of the
 flagship shape (8192 worlds x 32 ticks, then 4 epochs x 4 minibatches of
 65536 samples; trainee 1, no frozen opponent, in-kernel Philox noise),
 checks the results, counts the kernel launches of that run and times
 every phase with CUDA events.  Then 600 training iterations must reach
 the JAX package's learning band, and the training CLI runs as a
-subprocess and writes a loadable checkpoint.  Each kernel's own device
+subprocess and writes a loadable checkpoint.  The stepping path comes
+next: `FusedEngine` (kernel A's `step`, kernel F's `step_many`), the
+state view and the export at 8192 worlds, held against the plain path on
+the CPU at 256 worlds, the env's reset and step (one with a frozen
+policy), and the stepping bench (`python -m
+madrona_basketball_tpu_torch.bench 8192`) as a subprocess, whose JSON
+line is re-emitted; each path's kernel launches are counted from 0
+around that path alone.  Each kernel's own device
 time comes from torch.profiler, beside the CUDA-event time of
 back-to-back wrapper calls and of its plain version.  Every phase prints
 one JSON line; any failure raises and the exit code is non-zero.  The
@@ -26,7 +34,10 @@ max(1, |x|)) for the short runs; over 32 ticks of in-kernel Philox noise
 at most 0.1% of worlds may diverge in integer state or actions, and every
 float of sf', obs' and the trajectory in the other worlds stays within
 1e-4 absolute; one 32-tick launch equals 32 one-tick launches bit for bit;
-the meter scan within 1e-5 of max(1, |x|).  The whole collect on a small
+the meter scan within 1e-5 of max(1, |x|).  Kernel F at A's tier over 8
+ticks of external noise (held obs, obs every tick with agent 0 blanked,
+agent 1 blanked) and at B's Philox tier over 32 ticks; one 32-tick F
+launch equals 32 one-tick launches bit for bit.  The whole collect on a small
 input (256 worlds x 8 ticks, two iterations) on the card vs the plain
 path on the CPU: integer state and actions exact, every float output
 within 1e-4 of max(1, |x|).  Update kernels on a real flagship collect
@@ -216,7 +227,11 @@ def main():
     from madrona_basketball_tpu_torch import _build
     from madrona_basketball_tpu_torch.config import SimConfig
     from madrona_basketball_tpu_torch.engine import init_rows
-    from madrona_basketball_tpu_torch.engine_fused import draw_noise_rows
+    from madrona_basketball_tpu_torch.engine_fused import (FusedEngine,
+                                                           draw_noise_rows)
+    from madrona_basketball_tpu_torch.env import BasketballEnv
+    from madrona_basketball_tpu_torch.export import export_tensors
+    from madrona_basketball_tpu_torch.models.agent import forward as act
     from madrona_basketball_tpu_torch.models.agent import init_agent
     from madrona_basketball_tpu_torch.models.normalize import rms_update
     from madrona_basketball_tpu_torch.ops import fused_gae as FG
@@ -252,7 +267,9 @@ def main():
     errs = {"fused_step": 0.0, "fused_rollout": 0.0, "fused_gae": 0.0,
             "meter_scan": 0.0, "fused_update_phase": 0.0,
             "fused_minibatch_grad_prefetch": 0.0,
-            "fused_minibatch_grad": 0.0}
+            "fused_minibatch_grad": 0.0,
+            "fused_multistep_every_tick_obs": 0.0,
+            "fused_multistep_held_obs": 0.0}
 
     # ---------------------------------------------------------- parity A
     sf, si = init_rows(cfg, W, gen, dev)
@@ -519,6 +536,68 @@ def main():
           "params_off_by_more_than_1e-5": n_off,
           "of_params": 2 * FU.N_PARAMS, "bit_identical_relaunch": bitwise})
 
+    # ---------------------------------------------------------- parity F
+    # from parity A's state with random actions for both agents, after the
+    # other parity phases so that its draws leave their inputs as they were
+    # (kernels A and B above ran on the compute_obs build of sim_world.cuh)
+    f_si = k_si.clone()
+    for i in range(2):
+        for r, n in zip(ACTION_ROWS[i], buckets):
+            f_si[r] = torch.randint(0, n, (W,), generator=gen, device=dev,
+                                    dtype=torch.int32)
+    f_in = (k_sf, f_si)
+    variants = {"held_obs": (False, None),
+                "every_tick_obs_blank_0": (True, 0),
+                "held_obs_blank_1": (False, 1)}
+    ext8 = FS.pack_multistep_noise([draw_noise_rows(W, gen, dev)
+                                    for _ in range(8)])
+    f_err = {}
+    for label, (every, blank) in variants.items():
+        k = FS.fused_multistep(cfg, *f_in, 8, noise=ext8,
+                               obs_every_tick=every, blank_agent=blank)
+        p = FS.multistep_rows_plain(cfg, *f_in, ext8, 8, every, blank)
+        torch.cuda.synchronize()
+        f_err[label] = compare(f"fused_multistep {label} K=8", k, p)
+        key = "fused_multistep_" + ("every_tick_obs" if every else
+                                    "held_obs")
+        errs[key] = max(errs[key], f_err[label])
+    f_seed = (5 << 32) | 12345
+    f_philox = {}
+    for label in ("held_obs", "every_tick_obs_blank_0"):
+        every, blank = variants[label]
+        kw = dict(obs_every_tick=every, blank_agent=blank)
+        k = FS.fused_multistep(cfg, *f_in, T, seed=f_seed, **kw)
+        p = FS.multistep_rows_plain(
+            cfg, *f_in, FS.philox_multistep_noise(f_seed, 0, T, W, dev), T,
+            every, blank)
+        steps = f_in
+        for t in range(T):
+            steps = FS.fused_multistep(cfg, *steps[:2], 1, seed=f_seed,
+                                       tick_base=t, **kw)
+        torch.cuda.synchronize()
+        div = (k[1] != p[1]).any(dim=0)
+        frac = float(div.float().mean())
+        e = max(float((k[i][:, ~div] - p[i][:, ~div]).abs().max())
+                for i in (0, 2))
+        if frac > 1e-3:
+            raise Fail(f"32-tick Philox multistep {label}: {frac:.4%} of "
+                       "worlds diverged")
+        if not e <= 1e-4:
+            raise Fail(f"32-tick Philox multistep {label}: float error {e} "
+                       "above 1e-4 in the worlds that agree")
+        if not all(torch.equal(a, b) for a, b in zip(k, steps)):
+            raise Fail(f"multistep {label}: one 32-tick launch != 32 "
+                       "one-tick launches")
+        key = "fused_multistep_" + ("every_tick_obs" if every else
+                                    "held_obs")
+        errs[key] = max(errs[key], e)
+        f_philox[label] = {"diverged_world_fraction": frac,
+                           "max_abs_err_agreeing_worlds": e,
+                           "composes": True}
+    emit({"phase": "parity_multistep", "worlds": W,
+          "external_noise_ticks": 8, "max_abs_err": f_err,
+          "philox_ticks": T, "philox": f_philox})
+
     # ---------------------------------------------------------- main path
     state = init_train_state(cfg, hp, seed=1, device=dev)
     train_iteration = make_train_iteration(cfg, hp, device=dev)
@@ -685,6 +764,122 @@ def main():
           "checkpoint": CK.checkpoint_path("chip_smoke", 4),
           "checkpoint_tensors": len(saved), "log": logs})
 
+    # ---------------------------------------------------------- engine
+    # the stepping path at 256 worlds on the card vs the plain path on
+    # the CPU (tests/test_torch_engine.py holds that against the JAX
+    # package), same rows and noise: integers exact, floats 1e-4
+    ws = 256
+    e_g = FusedEngine(cfg, ws, seed=3, device=dev)
+    e_c = FusedEngine(cfg, ws, seed=3, device="cpu")
+    e_c.sf, e_c.si = e_g.sf.cpu(), e_g.si.cpu()
+    n1 = draw_noise_rows(ws, gen_cpu, "cpu")
+    n8 = FS.pack_multistep_noise([draw_noise_rows(ws, gen_cpu, "cpu")
+                                  for _ in range(8)])
+    for e_, dv in ((e_g, dev), (e_c, "cpu")):
+        e_.step(noise=n1.to(dv))
+        e_.step_many(8, noise=n8.to(dv))
+    torch.cuda.synchronize()
+    t_g, t_c = export_tensors(e_g.state()), export_tensors(e_c.state())
+    eng_err = compare("engine step + step_many(8)",
+                      [t_g[k].cpu() for k in sorted(t_c)],
+                      [t_c[k] for k in sorted(t_c)])
+    # the flagship width, launches counted from 0 around this path
+    FS.launches = 0
+    FS.multistep_launches = dict.fromkeys(FS.multistep_launches, 0)
+    eng = FusedEngine(cfg, W, seed=11, device=dev)
+    eng.step()
+    eng.step_many(64)
+    view = eng.state()
+    tens = export_tensors(view)
+    A_, H_, F32 = 2, 2, torch.float32
+    want_t = {
+        "reset": ((W, A_, 1), torch.int32), "game_state": ((W, 14), F32),
+        "action": ((W, A_, 6), torch.int32),
+        "action_mask": ((W, A_, 4), torch.int32),
+        "observations": ((W, A_, 128), F32), "reward": ((W, A_), F32),
+        "done": ((W, A_), F32), "agent_pos": ((W, A_, 3), F32),
+        "orientation": ((W, A_, 4), F32),
+        "agent_possession": ((W, A_, 3), torch.int32),
+        "agent_team": ((W, A_, 5), torch.int32),
+        "agent_stats": ((W, A_, 2), torch.int32),
+        "agent_entity_id": ((W, A_), torch.int32),
+        "basketball_pos": ((W, 1, 3), F32),
+        "ball_physics": ((W, 1, 7), torch.int32),
+        "ball_grabbed": ((W, 1, 2), torch.int32),
+        "ball_velocity": ((W, 1, 3), F32),
+        "ball_entity_id": ((W, 1), torch.int32),
+        "hoop_pos": ((W, H_, 3), F32)}
+    if set(tens) != set(want_t):
+        raise Fail(f"export keys {sorted(tens)}")
+    for name, (shape, dtype) in want_t.items():
+        t_ = tens[name]
+        if tuple(t_.shape) != shape or t_.dtype != dtype:
+            raise Fail(f"export {name}: {tuple(t_.shape)} {t_.dtype}, want "
+                       f"{shape} {dtype}")
+        if dtype == F32 and not bool(torch.isfinite(t_).all()):
+            raise Fail(f"export {name}: non-finite values")
+    benv = BasketballEnv(W, cfg, seed=12, device=dev)
+    _, _, r_done = benv.reset()
+    if not bool((r_done == 1.0).all()):
+        raise Fail("env.reset: not every world reports done")
+    e_obs, e_rew, e_done = benv.step(benv.get_blank_actions())
+    frozen_net = init_agent(torch.Generator().manual_seed(4), dev)
+    env_f = BasketballEnv(W, cfg, seed=13, trainee_agent_idx=1, device=dev,
+                          frozen_policy=lambda o: act(frozen_net, o)[0])
+    env_f.reset()
+    f_obs, f_rew, f_done = env_f.step(env_f.get_blank_actions())
+    torch.cuda.synchronize()
+    for name, t_ in (("obs", e_obs), ("reward", e_rew), ("frozen obs", f_obs),
+                     ("frozen reward", f_rew)):
+        if not bool(torch.isfinite(t_).all()):
+            raise Fail(f"env {name}: non-finite values")
+    if e_obs.shape != (W, 128) or e_done.shape != (W,):
+        raise Fail(f"env.step shapes {tuple(e_obs.shape)}, "
+                   f"{tuple(e_done.shape)}")
+    eng_launches = {"fused_step": FS.launches, **FS.multistep_launches}
+    if eng_launches["fused_step"] < 1 or eng_launches["held_obs"] < 1:
+        raise Fail(f"stepping path skipped a kernel: {eng_launches}")
+    emit({"phase": "engine", "worlds": W, "step_many": 64,
+          "export_tensors": len(tens),
+          "launches": eng_launches, "small_worlds": ws,
+          "small_vs_cpu_plain_max_abs_err": eng_err,
+          "env_reset_done_all": True,
+          "env_step_mean_reward": float(e_rew.mean()),
+          "env_frozen_step_mean_reward": float(f_rew.mean())})
+
+    # ---------------------------------------------------------- bench
+    # the stepping bench as a user runs it; its launches are counted by
+    # the subprocess from 0 and reported per engine on stderr
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "madrona_basketball_tpu_torch.bench", str(W)],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    bench_secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise Fail(f"bench exited {proc.returncode}: {proc.stderr[-3000:]}")
+    bench_line = json.loads(proc.stdout.strip().splitlines()[-1])
+    engines = {e["engine"]: e for e in
+               (json.loads(ln) for ln in proc.stderr.splitlines()
+                if ln.startswith("{"))}
+    for name in ("kernel_a_dispatch", "kernel_a_cuda_graph",
+                 "kernel_f_every_tick_obs", "kernel_f_held_obs"):
+        if not engines.get(name, {}).get("env_steps_per_s", 0) > 0:
+            raise Fail(f"bench engine {name}: {engines.get(name)}")
+    if bench_line["metric"] != f"env_steps_per_sec_{W}" or \
+            not bench_line["value"] > 0:
+        raise Fail(f"bench line {bench_line}")
+    bench_launches = {
+        "fused_multistep_every_tick_obs":
+            engines["kernel_f_every_tick_obs"]["launches"].get(
+                "every_tick_obs", 0),
+        "fused_multistep_held_obs":
+            engines["kernel_f_held_obs"]["launches"].get("held_obs", 0)}
+    if min(bench_launches.values()) < 1:
+        raise Fail(f"bench skipped kernel F: {bench_launches}")
+    emit(bench_line)
+    emit({"phase": "bench", "seconds": bench_secs,
+          "engines": list(engines.values())})
+
     # ---------------------------------------------------------- kernel times
     pulse_si = state.si.clone()
     for r in RESET_ROWS:
@@ -701,6 +896,21 @@ def main():
     d_args = (hp, u_idx, 0, u_traj, u_side, u_nrm, u_ustats, u_params,
               mom.mu, mom.nu)
     grad_k = {"update_grad_kernel<0>": 1, "update_reduce_kernel": 1}
+    # kernel F at bench.py's K, one seed per call; the plain version at
+    # K = 8 on 8 ticks of external noise (~35 ms a tick on the card)
+    KB = 5000
+    f_args = (cfg, state.sf, state.si)
+    f_ext = FS.pack_multistep_noise([draw_noise_rows(W, gen, dev)
+                                     for _ in range(8)])
+    f_seeds = iter(range(1, 1 << 30))
+
+    def f_calls(every):
+        kw = dict(obs_every_tick=every, blank_agent=0 if every else None)
+        return (lambda: FS.fused_multistep(*f_args, KB, seed=next(f_seeds),
+                                           **kw),
+                lambda: FS.multistep_rows_plain(*f_args, f_ext, 8, every,
+                                                kw["blank_agent"]), 3, 1,
+                {f"fused_multistep_kernel<{str(every).lower()}>": 1})
     # name: (wrapper call, plain call, reps, plain reps, profiled kernels)
     calls = {
         "fused_step": (lambda: FS.fused_step(*a_args),
@@ -730,6 +940,8 @@ def main():
             lambda: FU.fused_minibatch_grad(*h_args),
             lambda: FU.minibatch_grad_plain(*h_args), 10, 2,
             {"update_grad_kernel<1>": 1, "update_reduce_kernel": 1}),
+        "fused_multistep_every_tick_obs": f_calls(True),
+        "fused_multistep_held_obs": f_calls(False),
     }
     # ms: the kernels' own device time per call; wrapper_ms: CUDA events
     # around back-to-back wrapper calls (median of 5 windows), which also
@@ -745,6 +957,8 @@ def main():
     sf_s, si_s = init_rows(cfg, ws, torch.Generator().manual_seed(0), cpu)
     n_s = draw_noise_rows(ws, torch.Generator().manual_seed(1), cpu)
     ops_a = count_ops(FS.step_rows_plain, cfg, sf_s, si_s, n_s) / ws
+    ops_a_no_obs = count_ops(FS.step_rows_plain, cfg, sf_s, si_s, n_s,
+                             compute_obs=False) / ws
     obs_s = torch.zeros((256, ws))
     mats_s = FR.pack_policy(init_agent(torch.Generator().manual_seed(0),
                                        cpu))
@@ -776,6 +990,10 @@ def main():
     ops_d = ops_g_per * hp.update_epochs * T * W + ops_adam * n_mb
     nb = ticks.shape[0]
     bytes_a = W * (9 + 72 + 59) * 4 + W * (72 + 59 + 256) * 4
+    # kernel F: state read and written once, obs written once (the
+    # every-tick instance's K obs writes, which may stay in L2, go beside)
+    bytes_f = W * (72 + 59) * 4 * 2 + W * 256 * 4
+    ms_src = "madrona_basketball_tpu_torch/csrc/fused_multistep.cu"
     bytes_b = (W * (72 + 59 + 256) * 4 * 2 + FR.POLICY_FLOATS * 4 +
                T * 128 * W * 4 + T * (W // 32) * FR.ROLL_OBS * 2 * 4)
     bytes_c = (3 * T * W * 4 + 3 * W * 4 + 8 * 4 + T * 8 * W * 4 +
@@ -824,11 +1042,34 @@ def main():
                      "plain_ms": ms[name][2], "bound_ms": bms,
                      "bound_by": by, "library_ms": None,
                      "bytes": nbytes, "ops": nops})
+    # kernel F: launches from the bench path; ms per launch of K ticks
+    for name, nops in (
+            ("fused_multistep_every_tick_obs", ops_a * W * KB),
+            ("fused_multistep_held_obs",
+             (ops_a_no_obs * (KB - 1) + ops_a) * W)):
+        bms, by = bound(bytes_f, nops)
+        obs_all = KB * W * 256 * 4 if "every" in name else W * 256 * 4
+        rows.append({"name": name, "route": "cuda", "source": ms_src,
+                     "replaces": "madrona_basketball_tpu/ops/fused_step.py"
+                                 ":1134",
+                     "launches": bench_launches[name],
+                     "max_abs_err": errs[name], "ms": ms[name][0],
+                     "ticks_per_launch": KB, "ms_per_tick": ms[name][0] / KB,
+                     "wrapper_ms": ms[name][1], "plain_ms": ms[name][2],
+                     "plain_ticks": 8, "plain_ms_per_tick": ms[name][2] / 8,
+                     "bound_ms": bms, "bound_by": by, "library_ms": None,
+                     "bytes": bytes_f, "ops": nops,
+                     "obs_bytes_all_ticks": obs_all,
+                     "obs_bytes_all_ticks_ms": obs_all / HBM_BYTES_PER_S
+                     * 1e3})
     emit({"phase": "kernel_times", "note": "library_ms is null: no single "
           "PyTorch call computes a sim tick, a rollout, this GAE pass, "
-          "the meter recursion, or the PPO loss's hand-derived gradient "
-          "with clip + Adam; fused_update_phase launches 2 x E x M = "
-          f"{2 * n_mb} kernels per wrapper call, and its ms sums them"})
+          "the meter recursion, the PPO loss's hand-derived gradient "
+          "with clip + Adam, or K sim ticks; fused_update_phase launches "
+          f"2 x E x M = {2 * n_mb} kernels per wrapper call, and its ms "
+          "sums them; fused_multistep's ms is one launch of "
+          f"{KB} ticks, its plain_ms {8} ticks, its launches those of "
+          "the bench path"})
     emit({"kernels": rows})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -18,7 +18,7 @@
 //      done, zeros in the pad rows.
 //
 // Noise: external ((T * 56, W), the pack_rollout_noise layout) or in-kernel
-// Philox4x32-10 with key (seed lo, seed hi) and counter
+// Philox4x32-10 (sim_world.cuh) with key (seed lo, seed hi) and counter
 // (world, tick_base + t, draw group, 0); draw n is word n % 4 of group n / 4.
 // The counter does not depend on T, so one T-tick launch equals T one-tick
 // launches.  ops/fused_rollout.py::philox_noise is the plain twin.
@@ -66,31 +66,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     return v;
-}
-
-__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0,
-                                              uint32_t k1) {
-#pragma unroll
-    for (int r = 0; r < 10; ++r) {
-        if (r) {
-            k0 += 0x9E3779B9u;
-            k1 += 0xBB67AE85u;
-        }
-        const uint32_t hi0 = __umulhi(0xD2511F53u, c[0]);
-        const uint32_t lo0 = 0xD2511F53u * c[0];
-        const uint32_t hi1 = __umulhi(0xCD9E8D57u, c[2]);
-        const uint32_t lo1 = 0xCD9E8D57u * c[2];
-        const uint32_t n0 = hi1 ^ c[1] ^ k0;
-        const uint32_t n2 = hi0 ^ c[3] ^ k1;
-        c[0] = n0;
-        c[1] = lo1;
-        c[2] = n2;
-        c[3] = lo0;
-    }
-}
-
-__device__ __forceinline__ float bits_to_unit(uint32_t b) {
-    return __uint_as_float((b >> 9) | 0x3F800000u) - 1.0f;
 }
 
 __device__ __forceinline__ void layer_norm_relu(float h[H],

@@ -18,3 +18,25 @@ extern "C" void mbb_host_step(mbb::SimParams p, const float *noise,
         mbb::store_world(s, sf_out, si_out, W, w);
     }
 }
+
+// Host build of kernel F's per-world loop (multistep_world): noise null
+// draws Philox with key (k0, k1) from tick_base, else reads the
+// (K * 16, W) external matrix.
+extern "C" void mbb_host_multistep(mbb::SimParams p, const float *noise,
+                                   const float *sf, const int *si,
+                                   float *sf_out, int *si_out, float *obs,
+                                   int W, int K, int tick_base, uint32_t k0,
+                                   uint32_t k1, int obs_every_tick,
+                                   int blank_agent) {
+    for (int w = 0; w < W; ++w) {
+        mbb::World s;
+        mbb::load_world(s, sf, si, W, w);
+        if (obs_every_tick)
+            mbb::multistep_world<true>(p, s, noise, K, tick_base, k0, k1,
+                                       blank_agent, obs, W, w);
+        else
+            mbb::multistep_world<false>(p, s, noise, K, tick_base, k0, k1,
+                                        blank_agent, obs, W, w);
+        mbb::store_world(s, sf_out, si_out, W, w);
+    }
+}

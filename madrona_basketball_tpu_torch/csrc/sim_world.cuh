@@ -1,5 +1,5 @@
-// Per-world simulation body shared by kernel A (fused_step.cu) and kernel B
-// (fused_rollout.cu).
+// Per-world simulation body shared by kernel A (fused_step.cu), kernel B
+// (fused_rollout.cu) and kernel F (fused_multistep.cu).
 //
 // `step_world` is one tick of the 19-system chain for ONE world, a
 // line-for-line transcription of the JAX `step_fields`
@@ -27,9 +27,18 @@
 #else
 // Host build of the same body (host_step.cpp, tests/test_torch_device_body.py)
 #include <cmath>
+#include <cstring>
 #define MBB_HD inline
 #define __restrict__ __restrict
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+inline uint32_t __umulhi(uint32_t a, uint32_t b) {
+    return (uint32_t)(((uint64_t)a * b) >> 32);
+}
+inline float __uint_as_float(uint32_t b) {
+    float f;
+    std::memcpy(&f, &b, sizeof f);
+    return f;
+}
 #endif
 
 namespace mbb {
@@ -159,6 +168,35 @@ MBB_HD void store_world(const World &s,
     MBB_HOOP_F32(MBB_SF) MBB_HOOP_I32(MBB_SI)
 #undef MBB_SF
 #undef MBB_SI
+}
+
+// ---------------------------------------------------------------- Philox
+
+// Philox4x32-10 (Salmon et al., SC'11), the in-kernel noise of kernels B
+// and F; ops/fused_rollout.py::philox4x32 is the plain twin.
+MBB_HD void philox4x32_10(uint32_t c[4], uint32_t k0, uint32_t k1) {
+#pragma unroll
+    for (int r = 0; r < 10; ++r) {
+        if (r) {
+            k0 += 0x9E3779B9u;
+            k1 += 0xBB67AE85u;
+        }
+        const uint32_t hi0 = __umulhi(0xD2511F53u, c[0]);
+        const uint32_t lo0 = 0xD2511F53u * c[0];
+        const uint32_t hi1 = __umulhi(0xCD9E8D57u, c[2]);
+        const uint32_t lo1 = 0xCD9E8D57u * c[2];
+        const uint32_t n0 = hi1 ^ c[1] ^ k0;
+        const uint32_t n2 = hi0 ^ c[3] ^ k1;
+        c[0] = n0;
+        c[1] = lo1;
+        c[2] = n2;
+        c[3] = lo0;
+    }
+}
+
+// uint32 bits -> float in [0, 1): 23 mantissa bits under 1.0's exponent.
+MBB_HD float bits_to_unit(uint32_t b) {
+    return __uint_as_float((b >> 9) | 0x3F800000u) - 1.0f;
 }
 
 // ---------------------------------------------------------------- helpers
@@ -449,9 +487,63 @@ MBB_HD void obs_agent_block(const World &s,
     put((float)tgt.has_ball);
 }
 
+// System 18, fillObservations (src/game.cpp:1175-1461): the 256 obs rows
+// of world w, written straight to obs[r * W + w].
+MBB_HD void fill_observations(const SimParams &p, const World &s,
+                              float *__restrict__ obs, int W, int w) {
+    const float h0x = p.h0x, h0y = p.h0y, h1x = p.h1x, h1y = p.h1y;
+    int inbounder = -1;
+#pragma unroll
+    for (int j = 0; j < NUM_AGENTS; ++j)
+        if (s.ag[j].im_inb > 0) inbounder = agent_id(j);
+#pragma unroll
+    for (int i = 0; i < NUM_AGENTS; ++i) {
+        const Agent &a = s.ag[i];
+        bool is0 = a.defend_hoop == HOOP_ID0;
+        float ax = is0 ? h1x : h0x, ay = is0 ? h1y : h0y;
+        float dxh = is0 ? h0x : h1x, dyh = is0 ? h0y : h1y;
+        bool own0 = a.team == 0;
+        int r = i * OBS_SIZE;
+        auto put = [&](float v) { obs[(size_t)(r++) * W + w] = v; };
+        put(s.gclock);
+        put(s.sclock);
+        put(s.period);
+        put((float)s.ginb);
+        put(s.iclock);
+        put(own0 ? s.t0score : s.t1score);
+        put(own0 ? s.t1score : s.t0score);
+        put(s.bpos_x); put(s.bpos_y); put(s.bpos_z);
+        put(s.bvel_x); put(s.bvel_y); put(s.bvel_z);
+        put((float)s.bgrabbed);
+        put((float)s.binflight);
+        put((float)s.bspv);
+        put((float)s.blt_team);
+        put(ax); put(ay); put(0.0f);
+        put(dxh); put(dyh); put(0.0f);
+        obs_agent_block(s, a, a, true, ax, ay, obs, r, W, w);
+        r += 38;
+#pragma unroll
+        for (int j = 0; j < NUM_AGENTS; ++j) {
+            if (j == i) continue;
+            obs_agent_block(s, s.ag[j], a, false, dxh, dyh, obs, r, W, w);
+            r += 38;
+        }
+#pragma unroll
+        for (int j = 0; j < NUM_AGENTS; ++j)
+            put(s.bholder == agent_id(j) ? 1.0f : 0.0f);
+#pragma unroll
+        for (int j = 0; j < NUM_AGENTS; ++j)
+            put(inbounder == agent_id(j) ? 1.0f : 0.0f);
+        while (r < (i + 1) * OBS_SIZE) put(0.0f);
+    }
+}
+
 // One tick of world w.  `noise` holds the 9 noise values of this world
 // (rows 0-5 shot deviations, 6-8 reset_u); the 256 obs rows go straight to
-// obs[r * W + w].
+// obs[r * W + w].  COMPUTE_OBS = false skips system 18 and leaves obs
+// untouched (the JAX step_fields' compute_obs, fused_step.py:273); no other
+// system reads the obs, so the state comes out the same either way.
+template <bool COMPUTE_OBS = true>
 MBB_HD void step_world(const SimParams &p, World &s,
                                            const float *noise,
                                            float *__restrict__ obs, int W,
@@ -1041,52 +1133,7 @@ MBB_HD void step_world(const SimParams &p, World &s,
     }
 
     // ---------------- 18. fillObservations (src/game.cpp:1175-1461)
-    {
-        int inbounder = -1;
-#pragma unroll
-        for (int j = 0; j < NUM_AGENTS; ++j)
-            if (s.ag[j].im_inb > 0) inbounder = agent_id(j);
-#pragma unroll
-        for (int i = 0; i < NUM_AGENTS; ++i) {
-            const Agent &a = s.ag[i];
-            bool is0 = a.defend_hoop == HOOP_ID0;
-            float ax = is0 ? h1x : h0x, ay = is0 ? h1y : h0y;
-            float dxh = is0 ? h0x : h1x, dyh = is0 ? h0y : h1y;
-            bool own0 = a.team == 0;
-            int r = i * OBS_SIZE;
-            auto put = [&](float v) { obs[(size_t)(r++) * W + w] = v; };
-            put(s.gclock);
-            put(s.sclock);
-            put(s.period);
-            put((float)s.ginb);
-            put(s.iclock);
-            put(own0 ? s.t0score : s.t1score);
-            put(own0 ? s.t1score : s.t0score);
-            put(s.bpos_x); put(s.bpos_y); put(s.bpos_z);
-            put(s.bvel_x); put(s.bvel_y); put(s.bvel_z);
-            put((float)s.bgrabbed);
-            put((float)s.binflight);
-            put((float)s.bspv);
-            put((float)s.blt_team);
-            put(ax); put(ay); put(0.0f);
-            put(dxh); put(dyh); put(0.0f);
-            obs_agent_block(s, a, a, true, ax, ay, obs, r, W, w);
-            r += 38;
-#pragma unroll
-            for (int j = 0; j < NUM_AGENTS; ++j) {
-                if (j == i) continue;
-                obs_agent_block(s, s.ag[j], a, false, dxh, dyh, obs, r, W, w);
-                r += 38;
-            }
-#pragma unroll
-            for (int j = 0; j < NUM_AGENTS; ++j)
-                put(s.bholder == agent_id(j) ? 1.0f : 0.0f);
-#pragma unroll
-            for (int j = 0; j < NUM_AGENTS; ++j)
-                put(inbounder == agent_id(j) ? 1.0f : 0.0f);
-            while (r < (i + 1) * OBS_SIZE) put(0.0f);
-        }
-    }
+    if constexpr (COMPUTE_OBS) fill_observations(p, s, obs, W, w);
 
     // ---------------- 19. reward (src/game.cpp:811-870)
     float new_reward[NUM_AGENTS];
@@ -1112,6 +1159,61 @@ MBB_HD void step_world(const SimParams &p, World &s,
     }
 #pragma unroll
     for (int i = 0; i < NUM_AGENTS; ++i) s.ag[i].reward = new_reward[i];
+}
+
+
+// K ticks of world w in registers: kernel F (fused_multistep.cu) and its
+// host build (host_step.cpp).  Before each tick agent `blank_agent`'s six
+// action fields are zeroed (-1: none; the per-step trainee write of the
+// reference benchmark).  Tick t takes its 9 noise values from rows
+// t * NOISE_CHUNK .. + 8 of `ext` ((K * NOISE_CHUNK, W), the JAX
+// pack_multistep_noise layout) when it is not null, else from Philox with
+// key (k0, k1) and counter (w, tick_base + t, group, 0), groups 0-2: kernel
+// B's first 9 draws, rows 0-7 as 2u - 1 and row 8 as u.  The counter does
+// not depend on K, so one K-tick call equals K one-tick calls.
+// OBS_EVERY_TICK runs system 18 in every tick and writes the obs each
+// tick; otherwise the ticks skip it and the obs of the final state are
+// written once, which equals system 18 inside the last tick (system 19
+// writes only the rewards, which the obs do not read).
+constexpr int NOISE_CHUNK = 16;
+
+template <bool OBS_EVERY_TICK>
+MBB_HD void multistep_world(const SimParams &p, World &s,
+                            const float *__restrict__ ext, int K,
+                            int tick_base, uint32_t k0, uint32_t k1,
+                            int blank_agent, float *__restrict__ obs, int W,
+                            int w) {
+    for (int t = 0; t < K; ++t) {
+#pragma unroll
+        for (int i = 0; i < NUM_AGENTS; ++i) {
+            if (i != blank_agent) continue;
+            Agent &a = s.ag[i];
+            a.a_move = a.a_angle = a.a_rotate = 0;
+            a.a_grab = a.a_pass = a.a_shoot = 0;
+        }
+        float nz[N_NOISE_ROWS];
+        if (ext != nullptr) {
+            const float *e = ext + (size_t)t * NOISE_CHUNK * W + w;
+#pragma unroll
+            for (int r = 0; r < N_NOISE_ROWS; ++r) nz[r] = e[(size_t)r * W];
+        } else {
+            float u[12];
+#pragma unroll
+            for (int g = 0; g < 3; ++g) {
+                uint32_t c[4] = {(uint32_t)w, (uint32_t)(tick_base + t),
+                                 (uint32_t)g, 0u};
+                philox4x32_10(c, k0, k1);
+#pragma unroll
+                for (int q = 0; q < 4; ++q) u[4 * g + q] = bits_to_unit(c[q]);
+            }
+#pragma unroll
+            for (int r = 0; r < N_NOISE_ROWS - 1; ++r)
+                nz[r] = 2.0f * u[r] - 1.0f;
+            nz[N_NOISE_ROWS - 1] = u[N_NOISE_ROWS - 1];
+        }
+        step_world<OBS_EVERY_TICK>(p, s, nz, obs, W, w);
+    }
+    if constexpr (!OBS_EVERY_TICK) fill_observations(p, s, obs, W, w);
 }
 
 }  // namespace mbb

@@ -13,7 +13,12 @@ same function live here:
     replacing the Pallas kernel `make_fused_step`
     (madrona_basketball_tpu/ops/fused_step.py:1034, pallas_call :1060).
     One thread per world runs the per-world device body
-    `step_world` (csrc/sim_world.cuh), which kernel B shares.
+    `step_world` (csrc/sim_world.cuh), which kernels B and F share.
+  * `fused_multistep(cfg, sf, si, K, ...)` - kernel F
+    (csrc/fused_multistep.cu), replacing the Pallas kernel
+    `make_fused_multistep` (fused_step.py:1134, pallas_call :1274): K
+    ticks in one launch with the state in registers; its plain version is
+    `multistep_rows_plain`.
 
 Kernel A is bound by bytes: per world it reads 9 noise + 72 + 59 state
 rows and writes 72 + 59 state + 256 obs rows (~1.9 KB, ~15.5 MB at 8192
@@ -22,8 +27,8 @@ coalesced (row-major (rows, W), consecutive threads on consecutive
 worlds) and writes the obs rows straight to global memory so the 131
 state fields alone occupy registers.
 
-`fused_step` launches the kernel for CUDA tensors and runs the plain
-version for CPU tensors; nothing else.
+`fused_step` and `fused_multistep` launch their kernels for CUDA tensors
+and run the plain versions for CPU tensors; nothing else.
 """
 
 from __future__ import annotations
@@ -38,8 +43,8 @@ from .._build import SimParams
 from .. import constants as C
 from ..config import SimConfig
 from . import tmath
-from .layout import (AGENT_F32, AGENT_I32, BALL_F32, BALL_I32, F_IDX,
-                     GAME_F32, GAME_I32, HOOP_F32, HOOP_I32, I_IDX,
+from .layout import (ACTION_ROWS, AGENT_F32, AGENT_I32, BALL_F32, BALL_I32,
+                     F_IDX, GAME_F32, GAME_I32, HOOP_F32, HOOP_I32, I_IDX,
                      N_F32_ROWS, N_I32_ROWS, N_NOISE_ROWS, N_OBS_ROWS)
 
 F32 = torch.float32
@@ -257,10 +262,12 @@ def _reset_world_fields(cfg, ag, ball, game, hoops, noise):
     return ag, ball, game, hoops
 
 
-def step_fields(cfg: SimConfig, ag, ball, game, hoops, noise):
+def step_fields(cfg: SimConfig, ag, ball, game, hoops, noise,
+                compute_obs: bool = True):
     """One full tick over field dicts; returns (ag, ball, game, hoops,
     obs_rows).  Transcribes madrona_basketball_tpu/ops/fused_step.py:272
-    system by system."""
+    system by system.  compute_obs=False skips system 18 and returns no
+    obs rows: no other system reads them, so the state is the same."""
     (h0x, h0y), (h1x, h1y) = _hoop_geometry(cfg)
     hoops_geom = ((h0x, h0y), (h1x, h1y))
     ZONE_R = C.HOOP_SCORE_ZONE_SIZE
@@ -792,6 +799,10 @@ def step_fields(cfg: SimConfig, ag, ball, game, hoops, noise):
         a["target_y"] = ty
 
     # -------- 18. fillObservations (src/game.cpp:1175-1461) --------
+    if not compute_obs:
+        _reward_fields(ag, ball, game)
+        return ag, ball, game, hoops, []
+
     inbounder = torch.full_like(ball["bholder"], -1)
     for j in range(A):
         inbounder = w(ag[j]["im_inb"] > 0, C.AGENT_IDS[j], inbounder)
@@ -954,17 +965,18 @@ def store_rows(ag, ball, game, hoops):
 
 
 def step_rows_plain(cfg: SimConfig, sf: torch.Tensor, si: torch.Tensor,
-                    noise: torch.Tensor):
+                    noise: torch.Tensor, compute_obs: bool = True):
     """Plain torch tick: (sf (72,W) f32, si (59,W) i32, noise (9,W) f32)
     -> (sf', si', obs (256,W) f32).  Same contract as the JAX
-    `fused_step_xla` (madrona_basketball_tpu/ops/fused_step.py:996)."""
+    `fused_step_xla` (madrona_basketball_tpu/ops/fused_step.py:996).
+    With compute_obs=False obs is None."""
     ag, ball, game, hoops = load_dicts(sf, si)
     ag = [dict(a) for a in ag]
     ag, ball, game, hoops, obs = step_fields(cfg, ag, dict(ball),
                                              dict(game), dict(hoops),
-                                             noise_dict(noise))
+                                             noise_dict(noise), compute_obs)
     sf2, si2 = store_rows(ag, ball, game, hoops)
-    return sf2, si2, torch.stack(obs)
+    return sf2, si2, torch.stack(obs) if compute_obs else None
 
 
 # =====================================================================
@@ -1035,4 +1047,112 @@ def fused_step(cfg: SimConfig, sf: torch.Tensor, si: torch.Tensor,
         _build.stream(sf.device))
     _build.check(err, "fused_step")
     launches += 1
+    return sf2, si2, obs
+
+
+# =====================================================================
+# Kernel F: K ticks per launch
+# =====================================================================
+
+NOISE_CHUNK = 16  # rows per tick in the external multistep noise matrix
+# (the JAX layout, fused_step.py:1121: 9 noise rows padded to 16)
+MULTISTEP_VARIANTS = ("every_tick_obs", "held_obs")
+# kernel F launches per variant (the wrapper counts, the caller resets)
+multistep_launches = dict.fromkeys(MULTISTEP_VARIANTS, 0)
+
+
+def pack_multistep_noise(noise_steps) -> torch.Tensor:
+    """K (N_NOISE_ROWS, W) matrices -> the (K * NOISE_CHUNK, W) layout of
+    kernel F's external noise, zero-padded (JAX pack_multistep_noise)."""
+    return torch.cat([torch.nn.functional.pad(
+        n, (0, 0, 0, NOISE_CHUNK - N_NOISE_ROWS)) for n in noise_steps])
+
+
+def philox_multistep_noise(seed: int, tick_base: int, n_steps: int,
+                           num_worlds: int, device="cuda") -> torch.Tensor:
+    """Kernel F's in-kernel noise as an external-noise matrix: the first
+    9 Philox draws of each tick (`fused_rollout.philox_uniforms`), rows
+    0-7 as 2u - 1 and row 8 as u."""
+    from .fused_rollout import philox_uniforms
+    chunks = []
+    for t in range(n_steps):
+        u = philox_uniforms(seed, tick_base + t, num_worlds, device)
+        chunks.append(torch.cat([2.0 * u[:N_NOISE_ROWS - 1] - 1.0,
+                                 u[N_NOISE_ROWS - 1:N_NOISE_ROWS]]))
+    return pack_multistep_noise(chunks)
+
+
+def _blank_actions(si, agent):
+    si = si.clone()
+    for r in ACTION_ROWS[agent]:
+        si[r] = 0
+    return si
+
+
+def multistep_rows_plain(cfg: SimConfig, sf, si, noise, n_steps: int,
+                         obs_every_tick: bool = False,
+                         blank_agent: int | None = None):
+    """Plain kernel F: `n_steps` ticks of `step_rows_plain` on the external
+    noise (K * NOISE_CHUNK, W); agent `blank_agent`'s actions zeroed before
+    every tick; system 18 on every tick or only on the last.  Returns
+    (sf', si', obs (256, W) of the last tick)."""
+    obs = None
+    for t in range(n_steps):
+        if blank_agent is not None:
+            si = _blank_actions(si, blank_agent)
+        chunk = noise[t * NOISE_CHUNK:t * NOISE_CHUNK + N_NOISE_ROWS]
+        sf, si, obs = step_rows_plain(
+            cfg, sf, si, chunk, obs_every_tick or t == n_steps - 1)
+    return sf, si, obs
+
+
+def fused_multistep(cfg: SimConfig, sf: torch.Tensor, si: torch.Tensor,
+                    n_steps: int, *, seed: int | None = None,
+                    noise: torch.Tensor | None = None, tick_base: int = 0,
+                    obs_every_tick: bool = False,
+                    blank_agent: int | None = None):
+    """Kernel F on CUDA tensors; the plain version on CPU tensors.
+
+    Exactly one of `seed` (in-kernel Philox, key = seed, ticks tick_base
+    .. tick_base + K - 1) and `noise` ((K * NOISE_CHUNK, W) float32) is
+    given.  Returns new (sf', si', obs) tensors, obs of the last tick."""
+    W = check_rows(sf, si)
+    if n_steps < 1:
+        raise ValueError("fused_multistep needs n_steps >= 1")
+    if (seed is None) == (noise is None):
+        raise ValueError("give exactly one of seed and noise")
+    if noise is not None and (noise.shape != (n_steps * NOISE_CHUNK, W) or
+                              noise.dtype != F32):
+        raise ValueError(f"noise must be ({n_steps * NOISE_CHUNK}, {W}) "
+                         "float32")
+    if blank_agent is not None and blank_agent not in range(A):
+        raise ValueError(f"blank_agent must be in 0..{A - 1} or None")
+    if sf.device.type == "cpu":
+        if noise is None:
+            noise = philox_multistep_noise(seed, tick_base, n_steps, W,
+                                           sf.device)
+        return multistep_rows_plain(cfg, sf, si, noise, n_steps,
+                                    obs_every_tick, blank_agent)
+    if sf.device.type != "cuda":
+        raise ValueError(f"unsupported device {sf.device}")
+    _build.check_device(sf.device, si=si, noise=noise)
+    lib = _build.load("fused_multistep")
+    sf, si = sf.contiguous(), si.contiguous()
+    sf2 = torch.empty_like(sf)
+    si2 = torch.empty_like(si)
+    obs = torch.empty((N_OBS_ROWS, W), dtype=F32, device=sf.device)
+    blank = -1 if blank_agent is None else blank_agent
+    outs = (_build.ptr(sf), _build.ptr(si), _build.ptr(sf2), _build.ptr(si2),
+            _build.ptr(obs), W, n_steps)
+    if noise is None:
+        err = lib.mbb_fused_multistep(
+            sim_params(cfg), *outs, tick_base, seed & 0xFFFFFFFF,
+            (seed >> 32) & 0xFFFFFFFF, int(obs_every_tick), blank,
+            _build.stream(sf.device))
+    else:
+        err = lib.mbb_fused_multistep_ext(
+            sim_params(cfg), _build.ptr(noise.contiguous()), *outs,
+            int(obs_every_tick), blank, _build.stream(sf.device))
+    _build.check(err, "fused_multistep")
+    multistep_launches[MULTISTEP_VARIANTS[0 if obs_every_tick else 1]] += 1
     return sf2, si2, obs

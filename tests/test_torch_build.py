@@ -32,7 +32,13 @@ def test_kernel_signatures_parse_from_sources():
         [I, P],
         "mbb_fused_minibatch_grad": [P] * 5 + [I] * 3 + [F] * 3 + [I, P],
     }
-    assert set(want) | {"fused_update"} == set(_build.KERNELS)
+    # one source, two entries: kernel F with in-kernel and external noise
+    multistep = {
+        "mbb_fused_multistep": [sp] + [P] * 5 + [I] * 3 + [U, U, I, I, P],
+        "mbb_fused_multistep_ext": [sp] + [P] * 6 + [I] * 4 + [P],
+    }
+    assert set(want) | {"fused_update", "fused_multistep"} == \
+        set(_build.KERNELS)
     for name, types in want.items():
         got = _build.c_signature(_build.CSRC / f"{name}.cu", f"mbb_{name}")
         assert got == types, name
@@ -41,8 +47,15 @@ def test_kernel_signatures_parse_from_sources():
     for entry, types in update.items():
         got = _build.c_signature(_build.CSRC / "fused_update.cu", entry)
         assert got == types, entry
+    assert _build.entries("fused_multistep") == list(multistep)
+    for entry, types in multistep.items():
+        got = _build.c_signature(_build.CSRC / "fused_multistep.cu", entry)
+        assert got == types, entry
     host = _build.c_signature(_build.CSRC / "host_step.cpp", "mbb_host_step")
     assert host == [sp] + [P] * 6 + [I]
+    host = _build.c_signature(_build.CSRC / "host_step.cpp",
+                              "mbb_host_multistep")
+    assert host == [sp] + [P] * 6 + [I] * 3 + [U, U, I, I]
 
 
 def test_sim_params_struct_matches_header():

@@ -5,7 +5,10 @@ The same `step_world` source that kernels A and B run, built for the host
 with contraction off, must give the plain version's integer state exactly
 and its floats to 1e-4 (host libm sin/cos/exp vs torch's, 1/sqrtf for the
 card's rsqrtf).  This checks the transcription here; the card's own
-parity runs in chip_smoke.py."""
+parity runs in chip_smoke.py.  Kernel F's per-world loop `multistep_world`,
+built the same way (`mbb_host_multistep`), is held against
+`multistep_rows_plain` at the same tolerance, on external and on Philox
+noise."""
 
 import ctypes
 import shutil
@@ -35,8 +38,9 @@ def host_step():
                     "-fPIC", "-o", str(out),
                     str(_build.CSRC / "host_step.cpp")], check=True)
     lib = ctypes.CDLL(str(out))
-    lib.mbb_host_step.argtypes = _build.c_signature(
-        _build.CSRC / "host_step.cpp", "mbb_host_step")
+    for entry in ("mbb_host_step", "mbb_host_multistep"):
+        getattr(lib, entry).argtypes = _build.c_signature(
+            _build.CSRC / "host_step.cpp", entry)
 
     def step(cfg, sf, si, noise):
         sf2, si2 = torch.empty_like(sf), torch.empty_like(si)
@@ -45,6 +49,19 @@ def host_step():
                           sf.data_ptr(), si.data_ptr(), sf2.data_ptr(),
                           si2.data_ptr(), obs.data_ptr(), sf.shape[1])
         return sf2, si2, obs
+
+    def multistep(cfg, sf, si, K, noise=None, seed=0, tick_base=0,
+                  obs_every_tick=False, blank_agent=None):
+        sf2, si2 = torch.empty_like(sf), torch.empty_like(si)
+        obs = torch.empty((256, sf.shape[1]))
+        lib.mbb_host_multistep(
+            FS.sim_params(cfg), None if noise is None else noise.data_ptr(),
+            sf.data_ptr(), si.data_ptr(), sf2.data_ptr(), si2.data_ptr(),
+            obs.data_ptr(), sf.shape[1], K, tick_base, seed & 0xFFFFFFFF,
+            seed >> 32, int(obs_every_tick),
+            -1 if blank_agent is None else blank_agent)
+        return sf2, si2, obs
+    step.multistep = multistep
     return step
 
 
@@ -71,3 +88,29 @@ def test_device_body_matches_plain_step(host_step, mode):
         torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
         torch.testing.assert_close(got[2], want[2], atol=1e-4, rtol=0)
         sf, si = want[0], want[1]
+
+
+@pytest.mark.parametrize("obs_every_tick,blank_agent,philox", [
+    (False, None, False), (True, 0, False), (False, 1, True)])
+def test_multistep_body_matches_plain(host_step, obs_every_tick, blank_agent,
+                                      philox):
+    cfg, K, w = GAME_MODES["1v1"], 12, 128
+    g = torch.Generator().manual_seed(6)
+    sf, si = init_rows(cfg, w, g, "cpu")
+    sf[F_IDX["a0.pos_y"], :16] = 0.9           # near the sideline: OOB
+    sf[F_IDX["bpos_y"], :16] = 0.9
+    for i in range(2):
+        for r, n in zip(ACTION_ROWS[i], (2, 8, 3, 2, 2, 2)):
+            si[r] = torch.randint(0, n, (w,), generator=g, dtype=torch.int32)
+    si[RESET_ROWS[0], :8] = 1
+    seed, base = (2 << 32) | 9, 4
+    noise = FS.philox_multistep_noise(seed, base, K, w, "cpu") if philox \
+        else FS.pack_multistep_noise([torch.rand((9, w), generator=g)
+                                      for _ in range(K)])
+    got = host_step.multistep(cfg, sf, si, K, None if philox else noise,
+                              seed, base, obs_every_tick, blank_agent)
+    want = FS.multistep_rows_plain(cfg, sf, si, noise, K, obs_every_tick,
+                                   blank_agent)
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(got[2], want[2], atol=1e-4, rtol=0)
