@@ -2,9 +2,11 @@
 `python -m madrona_basketball_tpu_torch.cli [...]`.
 
 Port of `madrona_basketball_tpu/cli.py:28-149,281-500` for the flagship
-trainer (rollout kernel + fused gradients + fused GAE): the same flags and
-defaults, plus `--device` (default "cuda"; "cpu" runs the plain torch
-versions of the kernels, for small runs).  Each iteration is
+trainer (rollout kernel + fused gradients + fused GAE) and its
+`--rollout-tiled` variant (kernel I, then kernel E for the obs moments;
+the world count a multiple of 1024): the same flags and defaults, plus
+`--device` (default "cuda"; "cpu" runs the plain torch versions of the
+kernels, for small runs).  Each iteration is
 `ppo/train_fused.py::make_train_iteration`; the log line and the
 checkpoint cadence are the JAX CLI's.  Checkpoints are reference-layout
 `.pth` files under `checkpoints/{model}/{model}_{iteration}.pth`, which
@@ -20,6 +22,7 @@ import argparse
 import time
 
 from .config import SimConfig
+from .ops.fused_rollout import check_tiled_worlds
 from .ppo.hparams import PPOParams
 from .ppo.train_fused import init_train_state, make_train_iteration
 from .utils.checkpoint import checkpoint_path, load_agent, save_agent
@@ -93,8 +96,6 @@ UNPORTED = (
      _ALT),
     ("--bf16-traj", lambda a: a.bf16_traj, _ALT),
     ("--bf16-policy", lambda a: a.bf16_policy, _ALT),
-    ("--rollout-tiled", lambda a: a.rollout_tiled,
-     "ROADMAP.md queue 2, item 9 (kernel I)"),
     ("--data-parallel", lambda a: a.data_parallel,
      "ROADMAP.md queue 1, item 12 (multi-GPU)"),
     ("--dp-update", lambda a: a.dp_update,
@@ -122,6 +123,11 @@ def check_ported(args):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     check_ported(args)
+    if args.rollout_tiled:
+        try:
+            check_tiled_worlds(args.num_envs)
+        except ValueError as e:
+            raise SystemExit(f"--rollout-tiled: {e}") from None
     model_name = args.model_name or \
         f"MadronaBasketball__{args.seed}__{int(time.time())}"
     cfg = SimConfig(one_on_one=not args.full_game,
@@ -152,7 +158,8 @@ def main(argv=None):
 
     state = init_train_state(cfg, hp, args.seed, dev, agent=agent,
                              frozen=frozen)
-    train_iteration = make_train_iteration(cfg, hp, dev)
+    train_iteration = make_train_iteration(cfg, hp, dev,
+                                           rollout_tiled=args.rollout_tiled)
     timer = PPOTimer(dev)
     timer.start("iter")
     for iteration in range(1, args.num_iterations + 1):

@@ -11,7 +11,10 @@
 // acos/atan2/atan/erf) enters the result.  Expressions keep the Python
 // evaluation order; the build lets nvcc fuse multiply-adds, so the kernel
 // and the plain torch version on the card differ by a few ulp (build_ab.py
-// measures this against a --fmad=false build).
+// measures this against a --fmad=false build).  The one exception is the
+// shot's going-in chain (system 6), which rounds op by op with the _rn
+// intrinsics so that a made or missed shot is decided as in the plain
+// version.
 //
 // World state lives in the SoA rows of ops/layout.py: SF (72, W) float32
 // and SI (59, W) int32, row r of world w at [r * W + w].  The X-macros below
@@ -39,6 +42,12 @@ inline float __uint_as_float(uint32_t b) {
     std::memcpy(&f, &b, sizeof f);
     return f;
 }
+// The round-to-nearest intrinsics as plain operations: the host build
+// compiles with -ffp-contract=off, so each rounds once, as on the card.
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __frcp_rn(float a) { return 1.0f / a; }
 #endif
 
 namespace mbb {
@@ -703,13 +712,18 @@ MBB_HD void step_world(const SimParams &p, World &s,
         float ax = is0 ? h1x : h0x, ay = is0 ? h1y : h0y;
         float ix = ax - a.pos_x;
         float iy = ay - a.pos_y;
-        float dist2 = ix * ix + iy * iy;
+        // The going-in test below compares dist2 - t_along^2, two ~140 m^2
+        // terms, with 0.01 m^2, so one fused multiply-add decides some
+        // shots differently from the plain version.  Every step of that
+        // chain (and of the deviation it depends on) rounds once, in the
+        // plain version's order: the _rn intrinsics are never contracted.
+        float dist2 = __fadd_rn(__fmul_rn(ix, ix), __fmul_rn(iy, iy));
         float dist = sqrtf(dist2);
         float inv = rsqrt_safe(dist2);
-        float sin_i = dist > 0.0f ? ix * inv : 0.0f;
-        float cos_i = dist > 0.0f ? iy * inv : 1.0f;
+        float sin_i = dist > 0.0f ? __fmul_rn(ix, inv) : 0.0f;
+        float cos_i = dist > 0.0f ? __fmul_rn(iy, inv) : 1.0f;
 
-        float dev = noise[3 * i + 0] * (0.008f * dist);
+        float dev = __fmul_rn(noise[3 * i + 0], __fmul_rn(0.008f, dist));
         float d_def = __builtin_huge_valf();
 #pragma unroll
         for (int j = 0; j < NUM_AGENTS; ++j) {
@@ -717,22 +731,31 @@ MBB_HD void step_world(const SimParams &p, World &s,
             float ddx = a.pos_x - o.pos_x;
             float ddy = a.pos_y - o.pos_y;
             float ddz = a.pos_z - o.pos_z;
-            float dd = sqrtf(ddx * ddx + ddy * ddy + ddz * ddz);
+            float dd = sqrtf(__fadd_rn(
+                __fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy)),
+                __fmul_rn(ddz, ddz)));
             if (o.team != a.team) d_def = fminf(d_def, dd);
         }
-        dev = dev + (d_def < 2.0f
-                         ? noise[3 * i + 1] * (0.002f / (d_def + 0.1f))
-                         : 0.0f);
-        float vlen = sqrtf(a.vel_x * a.vel_x + a.vel_y * a.vel_y +
-                           a.vel_z * a.vel_z);
-        dev = dev + (a.a_move > 0 ? noise[3 * i + 2] * (0.001f * vlen)
-                                  : 0.0f);
+        // torch evaluates 0.002 / x as reciprocal(x) * 0.002
+        dev = __fadd_rn(dev, d_def < 2.0f
+                                 ? __fmul_rn(noise[3 * i + 1],
+                                             __fmul_rn(__frcp_rn(
+                                                 d_def + 0.1f), 0.002f))
+                                 : 0.0f);
+        float vlen = sqrtf(__fadd_rn(
+            __fadd_rn(__fmul_rn(a.vel_x, a.vel_x),
+                      __fmul_rn(a.vel_y, a.vel_y)),
+            __fmul_rn(a.vel_z, a.vel_z)));
+        dev = __fadd_rn(dev, a.a_move > 0
+                                 ? __fmul_rn(noise[3 * i + 2],
+                                             __fmul_rn(0.001f, vlen))
+                                 : 0.0f);
         // (sin(i+dev), cos(i+dev)) by angle addition (src/game.cpp:302,345)
         float sd = sinf(dev), cd = cosf(dev);
-        float fvx = sin_i * cd + cos_i * sd;
-        float fvy = cos_i * cd - sin_i * sd;
-        float t_along = ix * fvx + iy * fvy;
-        float closest_sq = dist2 - t_along * t_along;
+        float fvx = __fadd_rn(__fmul_rn(sin_i, cd), __fmul_rn(cos_i, sd));
+        float fvy = __fsub_rn(__fmul_rn(cos_i, cd), __fmul_rn(sin_i, sd));
+        float t_along = __fadd_rn(__fmul_rn(ix, fvx), __fmul_rn(iy, fvy));
+        float closest_sq = __fsub_rn(dist2, __fmul_rn(t_along, t_along));
         bool going_in = !(t_along < 0.0f) && closest_sq <= ZONE_R2;
 
         if (act) {
@@ -756,8 +779,9 @@ MBB_HD void step_world(const SimParams &p, World &s,
             a.im_inb = 0;
             s.bgrabbed = 0;
             s.bholder = PLACEHOLDER;
-            s.bvel_x = fvx * 0.1f;
-            s.bvel_y = fvy * 0.1f;
+            // rounded here, so moveBall's bpos + bvel cannot fuse with it
+            s.bvel_x = __fmul_rn(fvx, 0.1f);
+            s.bvel_y = __fmul_rn(fvy, 0.1f);
             s.bvel_z = 0.0f;
             s.binflight = 1;
             s.bsb_agent = aid;

@@ -22,13 +22,26 @@ The port's world block (`pick_gae_block(W)`, at most GAE_BLOCK_CAP = 128)
 is smaller than the TPU's 1024; it is chosen here and nowhere else, and a
 caller of `combine_block_moments` takes n_per = T * W / nb from the
 shape of `moments` (nb, 8).
+
+The obs-normalizer moments of a trajectory whose rollout did not fold
+them (the tiled rollout, kernel I) come from `obs_moments`: the
+per-feature [mean, M2, n] of the 103 used obs rows over all (tick,
+world) samples.  `obs_moments_plain` is the JAX kernel's sequential Chan
+fold over (tick, world-block) tiles of OBS_MOMENT_TILE_CAP worlds in its
+grid order; kernel E (csrc/obs_moments.cu), replacing the Pallas kernel
+`make_obs_moments` (fused_gae.py:251, pallas_call :281), reduces the same
+samples as a fixed tree (per-world two-pass, then pairwise and per-chunk
+Chan merges), which rounds differently (~1e-6 relative).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import constants as C
+
 F32 = torch.float32
+OBS_USED = C.OBS_USED  # the packed obs slots (103)
 
 VSTAT_COLS = 8       # vstats (1, 8): [value_mean, value_sigma, 0...]
 SIDE_VALUE = 0
@@ -38,10 +51,14 @@ SIDE_ROWS = 8
 GAE_BLOCK_CAP = 128  # threads (worlds) per CUDA block
 
 
-def pick_gae_block(W: int) -> int:
-    """Largest power-of-two worlds-per-block <= GAE_BLOCK_CAP dividing W."""
+OBS_MOMENT_TILE_CAP = 1024  # the JAX fold's tile: its pick_gae_block(W)
+OBS_MOMENT_CHUNK_CAP = 256  # kernel E: worlds (threads) per CTA
+
+
+def pick_gae_block(W: int, cap: int = GAE_BLOCK_CAP) -> int:
+    """Largest power-of-two worlds-per-block <= cap dividing W."""
     for cand in (1024, 512, 256, 128, 64, 32, 16, 8, 4, 2, 1):
-        if cand <= GAE_BLOCK_CAP and W % cand == 0:
+        if cand <= cap and W % cand == 0:
             return cand
     raise AssertionError("unreachable: 1 divides every W")
 
@@ -179,3 +196,57 @@ def fused_gae(traj, carry, next_value_n, vstats, *, gamma: float,
     _build.check(err, "fused_gae")
     launches += 1
     return side, moments, carry2, ticks
+
+
+# =====================================================================
+# Obs-normalizer moments: plain fold and kernel E
+# =====================================================================
+
+def _check_obs(traj, used):
+    if traj.dim() != 3 or traj.dtype != F32 or traj.shape[1] < used:
+        raise ValueError(f"traj must be (T, rows >= {used}, W) float32")
+    return traj.shape[0], traj.shape[2]
+
+
+@torch.no_grad()
+def obs_moments_plain(traj, used: int = OBS_USED):
+    """(T, rows, W) trajectory -> (used, 8) [mean, M2, n, 0...] of rows
+    0..used-1 over every (tick, world): the sequential Chan fold of the
+    JAX `make_obs_moments`, tile i = t * n_wb + b of gb =
+    pick_gae_block(W, OBS_MOMENT_TILE_CAP) worlds, in grid order."""
+    T, W = _check_obs(traj, used)
+    gb = pick_gae_block(W, OBS_MOMENT_TILE_CAP)
+    acc = None
+    for t in range(T):
+        for b in range(W // gb):
+            acc = chan_fold(acc, traj[t, 0:used, b * gb:(b + 1) * gb])
+    return acc
+
+
+moment_launches = 0  # kernel E launches (wrapper counts, caller resets)
+
+
+def obs_moments(traj, used: int = OBS_USED):
+    """Kernel E on CUDA tensors, `obs_moments_plain` on CPU tensors."""
+    global moment_launches
+    T, W = _check_obs(traj, used)
+    if traj.device.type == "cpu":
+        return obs_moments_plain(traj, used)
+    if traj.device.type != "cuda":
+        raise ValueError(f"unsupported device {traj.device}")
+    chunk = pick_gae_block(W, OBS_MOMENT_CHUNK_CAP)
+    if chunk < 32:
+        raise ValueError(f"kernel E needs a world count that is a multiple "
+                         f"of 32, got {W}")
+    from .. import _build
+    lib = _build.load("obs_moments")
+    dev = traj.device
+    traj = traj.contiguous()
+    partials = torch.empty((used, W // chunk, 2), dtype=F32, device=dev)
+    out = torch.empty((used, 8), dtype=F32, device=dev)
+    err = lib.mbb_obs_moments(_build.ptr(traj), _build.ptr(partials),
+                              _build.ptr(out), T, traj.shape[1], W, used,
+                              chunk, _build.stream(dev))
+    _build.check(err, "obs_moments")
+    moment_launches += 1
+    return out

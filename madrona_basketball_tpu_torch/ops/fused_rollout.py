@@ -26,6 +26,16 @@ hand-written Philox4x32-10 with key = seed and counter
 generator in plain torch.  The counter never mentions the launch length,
 so one T-tick launch equals T one-tick launches with tick_base = t.
 
+  * `fused_rollout_tiled` - kernel I (csrc/fused_rollout_tiled.cu),
+    replacing the Pallas kernel `make_fused_rollout_tiled`
+    (fused_rollout.py:502, pallas_call :664): kernel B's contract without
+    the obs moments, for W % 1024 == 0, with the policy run per CTA tile
+    of 64 worlds (each Dense layer a tile product over (unit, world)
+    pairs, the obs tile in shared memory) and one thread per world for the
+    sim.  Its plain version is `rollout_tiled_plain`; its in-kernel noise
+    is kernel B's Philox stream, so on one seed and state kernels I and B
+    draw the same numbers.
+
 Obs-normalizer moments: every (tick, 32-world group) writes its
 per-feature (mean, M2) of the 103 used obs slots; `combine_obs_moments`
 merges those equal-count partials (Chan) into the (103, 8)
@@ -321,6 +331,14 @@ def rollout_plain(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
                   n_steps: int, trainee_idx: int, noise: torch.Tensor):
     """The rollout in plain torch on external noise.  Returns
     (sf', si', obs', traj (T, 128, W), obs_moments (103, 8))."""
+    return _rollout_plain(cfg, sf, si, obs0, mats, frozen_mats,
+                          n_steps=n_steps, trainee_idx=trainee_idx,
+                          noise=noise, moments=True)
+
+
+def _rollout_plain(cfg: SimConfig, sf, si, obs0, mats, frozen_mats, *,
+                   n_steps: int, trainee_idx: int, noise: torch.Tensor,
+                   moments: bool):
     use_frozen = frozen_mats is not None
     W = _check_rollout_args(sf, si, obs0, n_steps, noise, mats,
                             frozen_mats, use_frozen)
@@ -347,7 +365,8 @@ def rollout_plain(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
                 chunk[EXT_FROZEN_U:EXT_FROZEN_U + N_LOGITS]))
             for j in range(6):
                 si[ACTION_ROWS[1 - trainee_idx][j]] = f_actions[j]
-        partials.append(obs_moment_partials(obs_t[0:ROLL_OBS]))
+        if moments:
+            partials.append(obs_moment_partials(obs_t[0:ROLL_OBS]))
         traj[t, 0:ROLL_OBS] = obs_t[0:ROLL_OBS]
         for j in range(6):
             traj[t, R_ACT + j] = actions[j].to(F32)
@@ -356,6 +375,8 @@ def rollout_plain(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
         sf, si, obs = step_rows_plain(cfg, sf, si, chunk[0:N_NOISE_ROWS])
         traj[t, R_REW] = sf[rew_row]
         traj[t, R_DONE] = sf[done_row]
+    if not moments:
+        return sf, si, obs, traj
     return sf, si, obs, traj, combine_obs_moments(torch.stack(partials))
 
 
@@ -409,3 +430,79 @@ def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
     _build.check(err, "fused_rollout")
     launches += 1
     return sf2, si2, obs, traj, combine_obs_moments(partials)
+
+
+# =====================================================================
+# The tiled rollout: plain version and kernel I
+# =====================================================================
+
+TILED_WORLDS = 1024  # the JAX tiled kernel's world multiple (cols % 128)
+
+
+def check_tiled_worlds(W: int):
+    if W % TILED_WORLDS:
+        raise ValueError("tiled rollout needs num_worlds % 1024 == 0 "
+                         "(cols % 128 == 0)")
+
+
+@torch.no_grad()
+def rollout_tiled_plain(cfg: SimConfig, sf, si, obs0, mats,
+                        frozen_mats=None, *, n_steps: int, trainee_idx: int,
+                        noise: torch.Tensor):
+    """Plain version of kernel I: `rollout_plain` without the obs moments.
+    Returns (sf', si', obs', traj (T, 128, W))."""
+    check_tiled_worlds(sf.shape[1])
+    return _rollout_plain(cfg, sf, si, obs0, mats, frozen_mats,
+                          n_steps=n_steps, trainee_idx=trainee_idx,
+                          noise=noise, moments=False)
+
+
+tiled_launches = 0  # kernel I launches (the wrapper counts, the caller resets)
+
+
+def fused_rollout_tiled(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None,
+                        *, n_steps: int, trainee_idx: int,
+                        noise: torch.Tensor | None = None, seed: int = 0,
+                        tick_base: int = 0):
+    """Kernel I on CUDA tensors, the plain version on CPU tensors; W must
+    be a multiple of 1024.
+
+    noise=None draws kernel B's in-kernel Philox stream from (seed,
+    tick_base); a CPU caller gets the same numbers from `philox_noise`.
+    Returns (sf', si', obs', traj (T, 128, W))."""
+    global tiled_launches
+    use_frozen = frozen_mats is not None
+    W = _check_rollout_args(sf, si, obs0, n_steps, noise, mats,
+                            frozen_mats, use_frozen)
+    check_tiled_worlds(W)
+    if sf.device.type == "cpu":
+        if noise is None:
+            noise = philox_noise(seed, tick_base, n_steps, W, sf.device)
+        return rollout_tiled_plain(cfg, sf, si, obs0, mats, frozen_mats,
+                                   n_steps=n_steps, trainee_idx=trainee_idx,
+                                   noise=noise)
+    if sf.device.type != "cuda":
+        raise ValueError(f"unsupported device {sf.device}")
+    from .. import _build
+    from .fused_step import sim_params
+    dev = sf.device
+    _build.check_device(dev, si=si, obs0=obs0, noise=noise,
+                        **{f"mats[{i}]": m for i, m in enumerate(mats)},
+                        **{f"frozen_mats[{i}]": m
+                           for i, m in enumerate(frozen_mats or ())})
+    lib = _build.load("fused_rollout_tiled")
+    sf2 = sf.contiguous().clone()
+    si2 = si.contiguous().clone()
+    obs = obs0.contiguous().clone()
+    pol = flat_policy(mats)
+    fpol = flat_policy(frozen_mats) if use_frozen else pol
+    traj = torch.empty((n_steps, ROLL_ROWS, W), dtype=F32, device=dev)
+    ext = None if noise is None else noise.contiguous()
+    err = lib.mbb_fused_rollout_tiled(
+        sim_params(cfg), _build.ptr(sf2), _build.ptr(si2), _build.ptr(obs),
+        _build.ptr(pol), _build.ptr(fpol), _build.ptr(ext),
+        _build.ptr(traj), W, n_steps, trainee_idx, 1 if use_frozen else 0,
+        seed & MASK32, (seed >> 32) & MASK32, tick_base, _build.stream(dev))
+    _build.check(err, "fused_rollout_tiled")
+    tiled_launches += 1
+    return sf2, si2, obs, traj

@@ -33,6 +33,10 @@ Three kernels share one device body (csrc/fused_update.cu):
 Each wrapper runs its plain version for CPU tensors, launches its kernel
 for CUDA tensors and counts the launch; nothing falls back.  D issues all
 of a phase's 2 x E x M device launches from one C call.
+
+`update_phase_kinks` is D's plain version with a report of the samples
+at a kink of the loss and of what they can change over the phase: the
+allowance chip_smoke.py adds to D's parity tier.
 """
 
 from __future__ import annotations
@@ -159,14 +163,32 @@ def _ln_bwd(dy, hhat, rstd, scale):
     return dz, (dy * hhat).sum(dim=1), dy.sum(dim=1)
 
 
+# The loss's branch points, where the gradient jumps: each hidden unit's
+# ReLU, the ratio clip's bounds, the surrogate's min (take1), the value
+# loss's max (takev) and the value clip's bounds (dv_in).
+BRANCHES = ("relu1", "relu2", "inb", "take1", "takev", "dv_in")
+KINK_DELTA = 1e-5  # a margin within this share of its operands' size
+
+
 @torch.no_grad()
 def block_grads_plain(hp, inv_mb, obs, act, lp_old, v_old, adv, ret, nrm,
-                      w1t, w2t, wht, bias):
+                      w1t, w2t, wht, bias, *, flip=None, kinks=None):
     """Forward + hand-derived backward over one feature-major batch:
     obs (d, R), act (NB, R) as float indices, lp_old / v_old / adv / ret
     (R,).  Returns the gradients (dw1t, dw2t, dwht, dbias) summed over
-    the R samples, each sample's terms scaled by `inv_mb`."""
+    the R samples, each sample's terms scaled by `inv_mb`.
+
+    flip {branch: mask} takes the other side of a branch where the mask
+    is set ((H, R) for relu1 / relu2, (R,) for the rest).  A dict passed
+    as `kinks` receives, per branch, the mask of the samples whose margin
+    to it is within KINK_DELTA of the size of the margin's operands and
+    where taking the other side changes that branch's result: the samples
+    at which a kernel's last-ulp difference can flip the gradient."""
     dev = obs.device
+    flip = flip or {}
+
+    def flipped(name, mask):
+        return mask ^ flip[name] if name in flip else mask
     base = torch.as_tensor(_BASE, dtype=F32, device=dev)[:, None]
     clip = hp.clip_coef
 
@@ -198,22 +220,49 @@ def block_grads_plain(hp, inv_mb, obs, act, lp_old, v_old, adv, ret, nrm,
     ratio = torch.exp(logp_new - lp_old)
     surr1 = -adv * ratio
     surr2 = -adv * torch.clamp(ratio, 1.0 - clip, 1.0 + clip)
-    inb = (ratio >= 1.0 - clip) & (ratio <= 1.0 + clip)
-    dratio = torch.where(surr1 >= surr2, -adv,
+    inb = flipped("inb", (ratio >= 1.0 - clip) & (ratio <= 1.0 + clip))
+    take1 = flipped("take1", surr1 >= surr2)
+    dratio = torch.where(take1, -adv,
                          torch.where(inb, -adv, torch.zeros_like(adv)))
     dlogp = dratio * ratio * inv_mb
     if hp.clip_vloss:
         vf = (value - ret) ** 2
         dv = value - v_old
-        dv_in = (dv >= -clip) & (dv <= clip)
+        dv_in = flipped("dv_in", (dv >= -clip) & (dv <= clip))
         vclip = v_old + torch.clamp(dv, -clip, clip)
         vfc = (vclip - ret) ** 2
-        dvalue = torch.where(vf >= vfc, value - ret,
+        takev = flipped("takev", vf >= vfc)
+        dvalue = torch.where(takev, value - ret,
                              torch.where(dv_in, vclip - ret,
                                          torch.zeros_like(ret)))
         dvalue = dvalue * (hp.vf_coef * inv_mb)
     else:
         dvalue = (value - ret) * (hp.vf_coef * inv_mb)
+    if kinks is not None:
+        d = KINK_DELTA
+        nz = adv != 0.0
+        for name, y, hh, c in (("relu1", y1, h1, 1), ("relu2", y2, h2, 4)):
+            size = (hh * col(bias[:, c])).abs() + col(bias[:, c + 1]).abs()
+            kinks[name] = y.abs() <= d * size
+        kinks["inb"] = (((ratio - (1.0 - clip)).abs() <= d * ratio) |
+                        ((ratio - (1.0 + clip)).abs() <= d * ratio)) & \
+            ~take1 & nz
+        kinks["take1"] = ((surr1 - surr2).abs() <=
+                          d * torch.maximum(surr1.abs(), surr2.abs())) & \
+            ~inb & nz
+        if hp.clip_vloss:
+            alt = torch.where(dv_in, vclip - ret, torch.zeros_like(ret))
+            kinks["takev"] = ((vf - vfc).abs() <=
+                              d * torch.maximum(vf, vfc)) & \
+                ((value - ret - alt).abs() >
+                 d * torch.maximum((value - ret).abs(), alt.abs()))
+            size = torch.maximum(torch.maximum(value.abs(), v_old.abs()),
+                                 torch.full_like(dv, clip))
+            kinks["dv_in"] = (((dv - clip).abs() <= d * size) |
+                              ((dv + clip).abs() <= d * size)) & \
+                ~takev & (vclip != ret)
+        else:
+            kinks["takev"] = kinks["dv_in"] = torch.zeros_like(take1)
     dlg = dlogp[None, :] * (oh - p) + \
         (hp.ent_coef * inv_mb) * p * (lognorm + HB)
     dout = torch.cat([dlg, dvalue[None, :]], dim=0)
@@ -221,10 +270,12 @@ def block_grads_plain(hp, inv_mb, obs, act, lp_old, v_old, adv, ret, nrm,
     da2 = wht.T @ dout
     dwh = dout @ a2.T
     dbh = dout.sum(dim=1)
-    dz2, dg2, dbe2 = _ln_bwd(da2 * (y2 > 0.0), h2, rstd2, col(bias[:, 4]))
+    dz2, dg2, dbe2 = _ln_bwd(da2 * flipped("relu2", y2 > 0.0), h2, rstd2,
+                             col(bias[:, 4]))
     dw2 = dz2 @ a1.T
     da1 = w2t.T @ dz2
-    dz1, dg1, dbe1 = _ln_bwd(da1 * (y1 > 0.0), h1, rstd1, col(bias[:, 1]))
+    dz1, dg1, dbe1 = _ln_bwd(da1 * flipped("relu1", y1 > 0.0), h1, rstd1,
+                             col(bias[:, 1]))
     dw1 = dz1 @ xn.T
     zero = torch.zeros((H,), dtype=F32, device=dev)
     dbias = torch.stack([dz1.sum(dim=1), dg1, dbe1, dz2.sum(dim=1), dg2, dbe2,
@@ -320,17 +371,125 @@ def update_phase_plain(hp, idx, count: int, traj, side, nrm, ustats,
     its `wb`-wide blocks of `idx` then `clip_adam_step` with step
     count + k + 1.  `ustats` None means the side rows are already
     normalized.  Returns (params', mu', nu') as tuples of 4 tensors."""
+    return _update_phase(hp, idx, count, traj, side, nrm, ustats, params,
+                         mu, nu, wb=wb, kinks=False)
+
+
+@torch.no_grad()
+def update_phase_kinks(hp, idx, count: int, traj, side, nrm, ustats,
+                       params, mu, nu, *, wb: int):
+    """`update_phase_plain` that also reports the samples at a kink of
+    the loss and what they can change.
+
+    Every (minibatch, sample) with a branch margin within KINK_DELTA
+    (`block_grads_plain`'s `kinks`) is counted; for each such branch (each
+    hidden unit of a ReLU separately) the sample's gradient is taken
+    again on the branch's other side, and the absolute differences,
+    summed over the minibatch's kinks, bound how far its gradient can
+    move.  That bound is carried through the clip and the Adam steps that
+    follow by interval arithmetic (the later gradients' dependence on the
+    moved params is not followed).  Returns (params', mu', nu', report):
+    report["near"] {branch: kinks}, report["samples"] the (minibatch,
+    sample) pairs with any kink, report["of_samples"] all pairs, and
+    report["allow"] (params, mu, nu) allowances of the leaves' shapes,
+    all zero when no sample is at a kink."""
+    return _update_phase(hp, idx, count, traj, side, nrm, ustats, params,
+                         mu, nu, wb=wb, kinks=True)
+
+
+def _kink_grad_bound(hp, inv_mb, cols, nrm, params, kinks):
+    """Sum over the kinks of |sample gradient on the other side - on this
+    side|, per leaf; cols are the minibatch's (obs, act, lp, v, adv, ret)
+    columns."""
+    bound = [torch.zeros_like(p) for p in params]
+    near = torch.zeros_like(kinks["inb"])
+    for name in BRANCHES:
+        m = kinks[name]
+        near |= m.any(dim=0) if m.dim() == 2 else m
+    for s in near.nonzero().flatten().tolist():
+        one = [c[..., s:s + 1] for c in cols]
+        base = block_grads_plain(hp, inv_mb, *one, nrm, *params)
+        for name in BRANCHES:
+            m = kinks[name][..., s:s + 1]
+            for pos in m.nonzero().tolist():
+                f = torch.zeros_like(m)
+                f[tuple(pos)] = True
+                alt = block_grads_plain(hp, inv_mb, *one, nrm, *params,
+                                        flip={name: f})
+                for b, x, y in zip(bound, alt, base):
+                    b += (x - y).abs()
+    return bound, near
+
+
+def _adam_interval(p, m, v, g, dg, e, t: int, *, lr: float, max_norm: float):
+    """Carry gradient deviations dg (|g' - g| <= dg) and the deviations e =
+    (ep, em, ev) of params and moments through one `clip_adam_step` at
+    step t by interval arithmetic.  Returns the new (ep, em, ev)."""
+    from ..ppo.train import ADAM_B1, ADAM_B2, ADAM_EPS
+    gn = torch.sqrt(sum((x * x).sum() for x in g))
+    ndg = torch.sqrt(sum((x * x).sum() for x in dg))
+    bc1 = 1.0 - ADAM_B1 ** t
+    bc2 = 1.0 - ADAM_B2 ** t
+    out = ([], [], [])
+    for pp, mm, vv, gg, d, ep, em, ev in zip(p, m, v, g, dg, *e):
+        u = torch.where(gn < max_norm, gg, (gg / gn) * max_norm)
+        # |u' - u| <= |dg| + |u| |dg|_2 / |g|_2, clipped or not
+        du = d + u.abs() * (ndg / torch.clamp(gn, min=1e-30))
+        m2 = (1.0 - ADAM_B1) * u + ADAM_B1 * mm
+        v2 = (1.0 - ADAM_B2) * (u * u) + ADAM_B2 * vv
+        em2 = (1.0 - ADAM_B1) * du + ADAM_B1 * em
+        ev2 = (1.0 - ADAM_B2) * (2.0 * u.abs() * du + du * du) + \
+            ADAM_B2 * ev
+
+        def step(m_, v_):
+            return (m_ / bc1) / (torch.sqrt(torch.clamp(v_, min=0.0) / bc2)
+                                 + ADAM_EPS)
+        f = step(m2, v2)
+        # the step is monotone in m and in v: its extremes over the box
+        # are at the corners
+        df = torch.stack([(step(m2 + sm * em2, v2 + sv * ev2) - f).abs()
+                          for sm in (-1.0, 1.0) for sv in (-1.0, 1.0)]
+                         ).amax(dim=0)
+        out[0].append(ep + lr * df)
+        out[1].append(em2)
+        out[2].append(ev2)
+    return tuple(tuple(x) for x in out)
+
+
+def _update_phase(hp, idx, count, traj, side, nrm, ustats, params, mu, nu,
+                  *, wb: int, kinks: bool):
     n_mb, bpm = _phase_geometry(hp, idx, traj, side, wb)
     _check_mats(params, mu, nu)
     side_n = side if ustats is None else normalize_side(side, ustats)
     params, mu, nu = tuple(params), tuple(mu), tuple(nu)
+    inv_mb = 1.0 / hp.minibatch_size
+    if kinks:
+        near = dict.fromkeys(BRANCHES, 0)
+        n_samples = 0
+        allow = tuple(tuple(torch.zeros_like(x) for x in params)
+                      for _ in range(3))
     for k in range(n_mb):
-        g = minibatch_grad_prefetch_plain(hp, idx[k * bpm:(k + 1) * bpm],
-                                          traj, side_n, nrm, *params, wb=wb)
+        tb, sb = gather_blocks(idx[k * bpm:(k + 1) * bpm], traj, side_n, wb)
+        cols = (tb[0:D], tb[R_ACT:R_ACT + NB], tb[R_LOGP], sb[SIDE_VALUE],
+                sb[SIDE_ADV], sb[SIDE_RET])
+        found = {} if kinks else None
+        g = block_grads_plain(hp, inv_mb, *cols, nrm, *params, kinks=found)
+        if kinks:
+            dg, at = _kink_grad_bound(hp, inv_mb, cols, nrm, params, found)
+            for name in BRANCHES:
+                near[name] += int(found[name].sum())
+            n_samples += int(at.sum())
+            allow = _adam_interval(params, mu, nu, g, dg, allow,
+                                   count + k + 1, lr=hp.learning_rate,
+                                   max_norm=hp.max_grad_norm)
         params, mu, nu = clip_adam_step(params, mu, nu, g, count + k + 1,
                                         lr=hp.learning_rate,
                                         max_norm=hp.max_grad_norm)
-    return params, mu, nu
+    if not kinks:
+        return params, mu, nu
+    return params, mu, nu, {"near": near, "samples": n_samples,
+                            "of_samples": n_mb * hp.minibatch_size,
+                            "allow": allow}
 
 
 # =====================================================================

@@ -16,6 +16,13 @@ which runs, in order:
      then torch glue: the closed-form Chan merges of the value / return /
      advantage block moments and the obs moments.
 
+`make_collect(..., rollout_tiled=True)` is the JAX trainer's
+`--rollout-tiled` path (train_fused.py:272-292,403-406,640): kernel I
+(`fused_rollout_tiled`) replaces kernel B in step 2 and yields no
+moments, so after GAE kernel E (`ops/fused_gae.py::obs_moments`) reduces
+the trajectory's obs rows into the same (103, 8) moments, timed as its
+own "obs_moments" span; the world count must be a multiple of 1024.
+
 `out` holds what the JAX iteration hands to `update_policy_traj` at
 train_fused.py:660 - traj, side, ustats, the new obs_rms / value_rms -
 plus the episode stats and the metrics; `state'` carries the new
@@ -112,13 +119,16 @@ class CollectNoise:
     pulse_frozen_u: Optional[torch.Tensor] = None
 
 
-def make_collect(cfg: SimConfig, hp: PPOParams, device="cuda"):
+def make_collect(cfg: SimConfig, hp: PPOParams, device="cuda",
+                 rollout_tiled: bool = False):
     ti = hp.trainee_idx
     fi = 1 - ti
     T = hp.num_rollout_steps
     ti_lo = ti * OBS
     fi_lo = fi * OBS
     dev = torch.device(device)
+    if rollout_tiled:
+        FR.check_tiled_worlds(hp.num_envs)
 
     def reset_pulse(state: RolloutState, noise: Optional[CollectNoise]):
         si = state.si.clone()
@@ -158,10 +168,15 @@ def make_collect(cfg: SimConfig, hp: PPOParams, device="cuda"):
 
         mats = FR.pack_policy(agent)
         fmats = FR.pack_policy(state.frozen) if hp.use_frozen else None
-        sf, si, obs, traj, om = FR.fused_rollout(
-            cfg, sf, si, obs, mats, fmats, n_steps=T, trainee_idx=ti,
-            noise=None if noise is None else noise.rollout,
-            seed=state.seed, tick_base=state.counter * T)
+        kw = dict(n_steps=T, trainee_idx=ti, seed=state.seed,
+                  tick_base=state.counter * T,
+                  noise=None if noise is None else noise.rollout)
+        if rollout_tiled:
+            sf, si, obs, traj = FR.fused_rollout_tiled(cfg, sf, si, obs,
+                                                       mats, fmats, **kw)
+        else:
+            sf, si, obs, traj, om = FR.fused_rollout(cfg, sf, si, obs, mats,
+                                                     fmats, **kw)
         mark("rollout")
 
         next_value = agent_lib.evaluate(agent, obs[ti_lo:ti_lo + OBS].T)
@@ -176,6 +191,9 @@ def make_collect(cfg: SimConfig, hp: PPOParams, device="cuda"):
             lam=hp.gae_lambda, r_value=FR.R_VALUE, r_rew=FR.R_REW,
             r_done=FR.R_DONE)
         mark("gae")
+        if rollout_tiled:
+            om = FG.obs_moments(traj, FR.ROLL_OBS)
+            mark("obs_moments")
 
         # windowed meters: per-tick sums arrive reduced per block
         m = meter_scan(ticks, torch.stack([
@@ -261,7 +279,8 @@ def update_block(hp: PPOParams) -> int:
     return wb
 
 
-def make_train_iteration(cfg: SimConfig, hp: PPOParams, device="cuda"):
+def make_train_iteration(cfg: SimConfig, hp: PPOParams, device="cuda",
+                         rollout_tiled: bool = False):
     T = hp.num_rollout_steps
     if hp.num_minibatches * hp.minibatch_size != T * hp.num_envs:
         raise ValueError(
@@ -272,7 +291,7 @@ def make_train_iteration(cfg: SimConfig, hp: PPOParams, device="cuda"):
     n_blocks = T * (hp.num_envs // wb)
     n_updates = hp.update_epochs * hp.num_minibatches
     dev = torch.device(device)
-    collect = make_collect(cfg, hp, device)
+    collect = make_collect(cfg, hp, device, rollout_tiled)
 
     def draw_perms(state: TrainState):
         gen = torch.Generator(device=dev).manual_seed(

@@ -17,7 +17,7 @@ import torch
 
 
 class PPOTimer:
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.device = torch.device(device)
         self.global_step = 0
         self._starts = {}

@@ -23,6 +23,8 @@ def test_kernel_signatures_parse_from_sources():
         "fused_rollout": [sp] + [P] * 8 + [I] * 4 + [U, U, I, P],
         "fused_gae": [P] * 8 + [I] * 7 + [F, F, P],
         "meter_scan": [P] * 3 + [I] * 2 + [P],
+        "fused_rollout_tiled": [sp] + [P] * 7 + [I] * 4 + [U, U, I, P],
+        "obs_moments": [P] * 3 + [I] * 5 + [P],
     }
     # one source, three entries: kernels D, G and H
     update = {

@@ -4,7 +4,9 @@ A two-iteration CPU run logs and writes `checkpoints/m/m_2.pth`, which
 the JAX package's `utils.checkpoint.load_agent` reads back to the port's
 weights and normalizers exactly; a checkpoint written by the JAX package
 (`torch_state_dict_from_agent_params` + `torch.save`) loads into the port
-exactly; flags of paths the port does not have exit."""
+exactly; `--rollout-tiled` trains (kernels I and E's plain versions on
+the CPU) and refuses a world count that is not a multiple of 1024; flags
+of paths the port does not have exit."""
 
 import jax
 import numpy as np
@@ -98,7 +100,7 @@ def test_foreign_obs_tail_is_zeroed_with_a_warning(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--backend", "xla-rows"], ["--no-rollout-kernel"], ["--no-fused-grads"],
-    ["--no-fused-gae"], ["--rollout-tiled"], ["--bf16-traj"],
+    ["--no-fused-gae"], ["--bf16-traj"],
     ["--bf16-policy"], ["--rollout-block", "2048"], ["--shuffle-block", "1"],
     ["--data-parallel"],
     ["--dp-update"], ["--distributed"], ["--interactive"], ["--viewer"],
@@ -106,3 +108,25 @@ def test_foreign_obs_tail_is_zeroed_with_a_warning(tmp_path):
 def test_unported_flags_exit_naming_the_roadmap_item(flags):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         cli.main(SMALL + ["--num-iterations", "1"] + flags)
+
+
+def test_cli_rollout_tiled_trains_and_saves(tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    state = cli.main(["--device", "cpu", "--rollout-tiled", "--num-envs",
+                      "1024", "--num-rollout-steps", "2",
+                      "--num-iterations", "1", "--log-every-n-iterations",
+                      "1", "--save-model-every-n-iterations", "1",
+                      "--model-name", "t"])
+    out = capsys.readouterr().out
+    assert "Update: 1 Took" in out and "Model t saved at iteration 1" in out
+    assert state.iteration == 1 and state.opt.count == 16
+    assert float(state.agent.obs_rms.count) == 1.0 + 2 * 1024
+    path = tmp_path / ckpt.checkpoint_path("t", 1)
+    back = ckpt.load_agent(str(path), "cpu")
+    for k, v in ckpt.state_dict(back).items():
+        assert bool(torch.isfinite(v).all()), k
+
+
+def test_cli_rollout_tiled_needs_1024_worlds():
+    with pytest.raises(SystemExit, match="num_worlds % 1024 == 0"):
+        cli.main(SMALL + ["--num-iterations", "1", "--rollout-tiled"])

@@ -8,9 +8,16 @@ card's rsqrtf).  This checks the transcription here; the card's own
 parity runs in chip_smoke.py.  Kernel F's per-world loop `multistep_world`,
 built the same way (`mbb_host_multistep`), is held against
 `multistep_rows_plain` at the same tolerance, on external and on Philox
-noise."""
+noise.  On worlds whose shot lands within a few rounding steps of the
+going-in threshold (`shot_margin_inputs`), the shot's outcome - the
+integer state, the score rows and the ball - must equal the plain
+version's exactly; there the plain tick takes its sin and cos from the C
+library, as the host build does (torch's vectorized CPU sin and cos are
+not correctly rounded, and one ulp of cos moves closest_sq by an ulp of
+dist2).  On the card both sides use CUDA's sinf and cosf."""
 
 import ctypes
+import ctypes.util
 import shutil
 import subprocess
 
@@ -114,3 +121,32 @@ def test_multistep_body_matches_plain(host_step, obs_every_tick, blank_agent,
     assert torch.equal(got[1], want[1])
     torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
     torch.testing.assert_close(got[2], want[2], atol=1e-4, rtol=0)
+
+
+def test_shot_outcome_exact_at_the_threshold(host_step):
+    cfg, w = GAME_MODES["1v1"], 512
+    g = torch.Generator().manual_seed(8)
+    sf, si = init_rows(cfg, w, g, "cpu")
+    sf, si, noise, margin = FS.shot_margin_inputs(cfg, sf, si, g)
+    band = margin.abs() <= FS.SHOT_BAND_ULPS
+    assert float(band.float().mean()) > 0.5
+    got = host_step(cfg, sf, si, noise)
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+
+    def c_lib(name):
+        fn = getattr(libm, name)
+        fn.argtypes, fn.restype = [ctypes.c_float], ctypes.c_float
+        return lambda x: torch.tensor([fn(v) for v in x.reshape(-1).tolist()],
+                                      dtype=x.dtype).reshape(x.shape)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch, "sin", c_lib("sinf"))
+        mp.setattr(torch, "cos", c_lib("cosf"))
+        want = FS.step_rows_plain(cfg, sf, si, noise)
+    made = want[0][F_IDX["sbaskets"]] - sf[F_IDX["sbaskets"]]
+    assert 0.2 < float(made.mean()) < 0.8      # both outcomes occur
+    assert torch.equal(got[1], want[1])
+    rows = [F_IDX[n] for n in ("sbaskets", "t0score", "t1score", "bpos_x",
+                               "bpos_y", "bpos_z", "bvel_x", "bvel_y",
+                               "bvel_z", "bdone")]
+    assert torch.equal(got[0][rows], want[0][rows])
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)

@@ -104,6 +104,9 @@ def test_sim_params_struct_matches_device_struct():
 
 
 def test_policy_buffer_layout_matches_kernel():
-    text = (CSRC / "fused_rollout.cu").read_text()
+    # the packed-policy layout of kernels B and I, in their shared header
+    text = (CSRC / "rollout_common.cuh").read_text()
     assert "constexpr int POL = P_B + H * 8;  // 6272" in text
+    for src in ("fused_rollout.cu", "fused_rollout_tiled.cu"):
+        assert '#include "rollout_common.cuh"' in (CSRC / src).read_text()
     assert TFR.POLICY_FLOATS == 6272
