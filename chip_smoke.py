@@ -28,7 +28,10 @@ madrona_basketball_tpu_torch.bench 8192`) as a subprocess, whose JSON
 line is re-emitted; each path's kernel launches are counted from 0
 around that path alone.  Each kernel's own device
 time comes from torch.profiler, beside the CUDA-event time of
-back-to-back wrapper calls and of its plain version.  Every phase prints
+back-to-back wrapper calls and of its plain version; kernel D's is also
+split into its gradient and reduce launches, and the redesigned kernels'
+rows carry ptxas's registers and spills and their resident warps per SM.
+Every phase line carries the card's name and power limit.  Every phase prints
 one JSON line; any failure raises and the exit code is non-zero.  The
 last lines are the per-kernel JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -56,9 +59,11 @@ they can change (each one's two branches, carried through the clip and
 Adam) added to those tiers entry by entry.  Kernel A's shot outcome
 (integer state, score and ball rows) exactly the plain version's on 8192
 worlds at the going-in threshold, and kernel B's 4-tick frozen parity
-on the draws that once flipped a shot there.  Kernel I at B's tiers
-(external noise, 32 Philox ticks, composition) against its plain version
-and against kernel B on the same seed; kernel E within 1e-5 of max(1,
+on the draws that once flipped a shot there.  Kernel B's fold partials
+within 1e-5 of max(1, |x|) of the plain `obs_moment_partials` of its own
+trajectory.  Kernel I at B's tiers (external noise, 32 Philox ticks,
+composition) against its plain version, and bit for bit against kernel B
+on the same seed and state (one tile body); kernel E within 1e-5 of max(1,
 |x|) of the sequential fold, a relaunch bit-identical; the tiled collect
 (1024 worlds x 8 ticks, two iterations) at the collect's tiers.
 Learning: mean reward after 600
@@ -85,7 +90,12 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, non-tensor FP32
 
 
+CARD = {}  # the card's name and power limit, beside every phase's numbers
+
+
 def emit(obj):
+    if "phase" in obj and CARD:
+        obj = {**obj, **CARD}
     print(json.dumps(obj), flush=True)
 
 
@@ -304,6 +314,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
     smi = nvidia_smi_line()
+    CARD["card"] = smi
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": kind,
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
@@ -357,6 +368,20 @@ def main():
           "max_abs_err": errs["fused_step"]})
 
     # ---------------------------------------------------------- parity B
+    def fold_check(k):
+        """Kernel B's fold partials (k[5]) against the plain
+        `obs_moment_partials` of the trajectory's obs rows (the pre-tick
+        obs): within 1e-5 of max(1, |x|); reports whether they are equal
+        bit for bit (the plain version sums in torch's order, the kernel
+        in the warp butterfly's)."""
+        want = torch.stack([FR.obs_moment_partials(x[0:FR.ROLL_OBS])
+                            for x in k[3]])
+        rel = float(((k[5] - want).abs() /
+                     torch.clamp(want.abs(), min=1.0)).max())
+        if not rel <= 1e-5:
+            raise Fail(f"kernel B fold partials: {rel} of max(1, |x|) "
+                       "from the plain obs_moment_partials")
+        return {"max_rel_err": rel, "bit_identical": torch.equal(k[5], want)}
     agent = init_agent(gen_cpu, dev)
     frozen = init_agent(gen_cpu, dev)
     agent.obs_rms = rms_update(agent.obs_rms, obs0[128:256].T)
@@ -370,7 +395,7 @@ def main():
         ext = torch.where((row < 8)[:, None], 2.0 * u - 1.0, u)
         fm = fmats if use_frozen else None
         k = FR.fused_rollout(cfg, k_sf, k_si, obs0, mats, fm, n_steps=Ts,
-                             trainee_idx=1, noise=ext)
+                             trainee_idx=1, noise=ext, moment_partials=True)
         p = FR.rollout_plain(cfg, k_sf, k_si, obs0, mats, fm, n_steps=Ts,
                              trainee_idx=1, noise=ext)
         torch.cuda.synchronize()
@@ -382,14 +407,15 @@ def main():
                          torch.clamp(p[4].abs(), min=1.0)).max())
         if mom_rel > 1e-5:
             raise Fail(f"obs moments differ: {mom_rel}")
+        fold = fold_check(k)
         errs["fused_rollout"] = max(errs["fused_rollout"], e)
         emit({"phase": "parity_fused_rollout", "worlds": W, "ticks": Ts,
               "frozen": use_frozen, "noise": "external", "max_abs_err": e,
-              "obs_moment_rel_err": mom_rel})
+              "obs_moment_rel_err": mom_rel, "fold_partials": fold})
 
     seed = 12345
     k32 = FR.fused_rollout(cfg, k_sf, k_si, obs0, mats, n_steps=T,
-                           trainee_idx=1, seed=seed)
+                           trainee_idx=1, seed=seed, moment_partials=True)
     ph_noise = FR.philox_noise(seed, 0, T, W, dev)
     p32 = FR.rollout_plain(cfg, k_sf, k_si, obs0, mats, n_steps=T,
                            trainee_idx=1, noise=ph_noise)
@@ -419,9 +445,11 @@ def main():
         torch.equal(k32[3], torch.cat(trajs))
     if not composes:
         raise Fail("one 32-tick launch != 32 one-tick launches")
+    fold32 = fold_check(k32)
     emit({"phase": "parity_fused_rollout", "worlds": W, "ticks": T,
           "noise": "philox", "diverged_world_fraction": frac,
-          "max_abs_err_agreeing_worlds": e32, "composes": composes})
+          "max_abs_err_agreeing_worlds": e32, "composes": composes,
+          "fold_partials": fold32})
 
     # ---------------------------------------------------------- parity C
     carry = torch.stack([
@@ -775,14 +803,19 @@ def main():
         and torch.equal(ki32[3], torch.cat(trajs))
     if not composes:
         raise Fail("tiled: one 32-tick launch != 32 one-tick launches")
+    # kernels B and I run one tile body: the same state and trajectory
+    # bit for bit on one seed and state over 32 Philox ticks
+    b_eq_i = all(torch.equal(a, b_) for a, b_ in zip(ki32, k32[:4]))
+    if not b_eq_i:
+        raise Fail("kernels B and I differ on one seed and state over 32 "
+                   "Philox ticks")
     errs["fused_rollout_tiled"] = max(errs["fused_rollout_tiled"], e_i)
     emit({"phase": "parity_fused_rollout_tiled", "worlds": W, "ticks": T,
           "noise": "philox", "diverged_world_fraction": frac_i,
           "max_abs_err_agreeing_worlds": e_i, "composes": composes,
           "vs_kernel_b": {"diverged_world_fraction": frac_ib,
                           "max_abs_err_agreeing_worlds": e_ib,
-                          "bit_identical": all(torch.equal(a, b_) for a, b_
-                                               in zip(ki32, k32[:4]))}})
+                          "bit_identical": b_eq_i}})
 
     # ---------------------------------------------------------- parity E
     # on kernel I's 32-tick flagship trajectory, tier 1e-5 of max(1, |x|)
@@ -1256,6 +1289,32 @@ def main():
     ms = {name: (kernel_ms(k, reps, kern), cuda_ms(k, reps, 5),
                  cuda_ms(p, p_reps))
           for name, (k, p, reps, p_reps, kern) in calls.items()}
+    # kernel D's device time split into its gradient and reduce launches
+    d_split = {k: kernel_ms(calls["fused_update_phase"][0], 3, {k: n_mb})
+               for k in grad_k}
+    # what ptxas printed for the redesigned kernels' main-path instances,
+    # and their resident warps per SM
+    ptx = {n: _build.ptxas_kernels(n) for n in ("fused_update",
+                                                 "fused_rollout",
+                                                 "fused_rollout_tiled")}
+
+    def ptx_of(lib, key):
+        return next((v for k, v in ptx[lib].items() if key in k), None)
+    design = {
+        "fused_update_phase": {
+            "grad_launches_ms": d_split["update_grad_kernel<0>"],
+            "reduce_launches_ms": d_split["update_reduce_kernel"],
+            "ptxas": {"grad": ptx_of("fused_update",
+                                     "update_grad_kernelILi0E"),
+                      "reduce": ptx_of("fused_update",
+                                       "update_reduce_kernel")},
+            "occupancy": FU.occupancy(dev)},
+        "fused_rollout": {
+            "ptxas": ptx_of("fused_rollout", "fused_rollout_kernelILi1ELb0E"),
+            "occupancy": FR.rollout_occupancy(dev)},
+        "fused_rollout_tiled": {
+            "ptxas": ptx_of("fused_rollout_tiled",
+                            "fused_rollout_tiled_kernelILi1ELb0E")}}
     # library_ms: one PyTorch call computing the same function, where one
     # exists (only kernel E's per-feature moments: torch.var_mean)
     library = {"obs_moments": cuda_ms(
@@ -1376,7 +1435,9 @@ def main():
                      "wrapper_ms": ms[name][1],
                      "plain_ms": ms[name][2], "bound_ms": bms,
                      "bound_by": by, "library_ms": library.get(name),
-                     "bytes": nbytes, "ops": nops})
+                     "bytes": nbytes, "ops": nops,
+                     "bound_share": bms / ms[name][0],
+                     **design.get(name, {})})
     # kernel F: launches from the bench path; ms per launch of K ticks
     for name, nops in (
             ("fused_multistep_every_tick_obs", ops_a * W * KB),

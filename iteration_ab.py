@@ -1,0 +1,150 @@
+#!/usr/bin/env python3
+"""The flagship training iteration of this checkout against another
+tree's, on one card, in turns.
+
+    python3 iteration_ab.py --other DIR [--turns other,this,this,other]
+
+DIR is another checkout of the repository (for example the parent
+commit, unpacked with `git archive`).  Each turn is a fresh process that
+imports `madrona_basketball_tpu_torch` from its own tree (building that
+tree's kernels into its own `_build/` at first use) and measures what
+chip_smoke.py's `main_path` measures: `init_train_state` at the flagship
+shape (8192 worlds x 32 ticks, 4 epochs x 4 minibatches, seed 1),
+warm-up iterations until the 10 s game clock runs out inside the timed
+window, then three iterations timed with CUDA events (the median of each
+span: reset_pulse, rollout, gae, glue, update, and the iteration), then
+one more iteration under torch.profiler for the device's busy time and
+idle share and the kernels by device time.  One JSON line per turn,
+each with the card's name and power limit; the last line is the
+per-tree medians over the turns.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SPANS = ("reset_pulse", "rollout", "gae", "glue", "update")
+
+
+def card() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def measure(tree: Path) -> dict:
+    """One turn, in this process, with the port imported from `tree`."""
+    sys.path.insert(0, str(tree))
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import madrona_basketball_tpu_torch as port
+    from madrona_basketball_tpu_torch import _build
+    from madrona_basketball_tpu_torch.config import SimConfig
+    from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
+    from madrona_basketball_tpu_torch.ppo.train_fused import (
+        init_train_state, make_train_iteration)
+    if Path(port.__file__).resolve().parents[1] != tree.resolve():
+        raise SystemExit(f"imported the port from {port.__file__}, not "
+                         f"{tree}")
+    if not torch.cuda.is_available():
+        raise SystemExit("iteration_ab: needs one CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build()
+    build_s = time.perf_counter() - t0
+    dev = torch.device("cuda:0")
+    cfg = SimConfig()
+    hp = PPOParams(num_envs=8192, num_rollout_steps=32)
+    state = init_train_state(cfg, hp, seed=1, device=dev)
+    it_fn = make_train_iteration(cfg, hp, device=dev)
+    warmup = max(1, int(cfg.time_per_period * 62) // (hp.num_rollout_steps
+                                                       + 1) - 1)
+    for _ in range(warmup):
+        state, _ = it_fn(state)
+    torch.cuda.synchronize()
+    times = {k: [] for k in SPANS + ("iteration",)}
+    wall = []
+    for _ in range(3):
+        evs = [torch.cuda.Event(enable_timing=True)]
+
+        def mark(name, evs=evs):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            evs.append(e)
+        w0 = time.perf_counter()
+        evs[0].record()
+        state, _ = it_fn(state, mark=mark)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - w0) * 1e3)
+        for name, a, b in zip(SPANS, evs[:-1], evs[1:]):
+            times[name].append(a.elapsed_time(b))
+        times["iteration"].append(evs[0].elapsed_time(evs[-1]))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        state, _ = it_fn(state)
+        torch.cuda.synchronize()
+        trace_wall = (time.perf_counter() - w0) * 1e3
+    rows = sorted(((getattr(e, "self_device_time_total", 0.0) / 1e3, e.key,
+                    e.count) for e in prof.key_averages()), reverse=True)
+    rows = [r for r in rows if r[0] > 0]
+    busy = sum(r[0] for r in rows)
+    return {"tree": str(tree), "card": card(), "build_s": build_s,
+            "warmup_iterations": warmup,
+            "ms_median": {k: statistics.median(v) for k, v in times.items()},
+            "ms": times, "wall_ms": wall, "trace_wall_ms": trace_wall,
+            "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / trace_wall,
+            "top_device_ms": [[round(ms, 4), k[:60], n]
+                              for ms, k, n in rows[:8]]}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--other", type=Path, required=False)
+    ap.add_argument("--turns", default="other,this,this,other")
+    ap.add_argument("--measure", type=Path, default=None,
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.measure is not None:
+        print(json.dumps(measure(args.measure)), flush=True)
+        return
+    if args.other is None:
+        raise SystemExit("iteration_ab: --other DIR is required")
+    trees = {"this": ROOT, "other": args.other.resolve()}
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    results = {"this": [], "other": []}
+    for turn in args.turns.split(","):
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--measure",
+             str(trees[turn])], cwd=trees[turn], env=env,
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise SystemExit(f"turn {turn} exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        line["turn"] = turn
+        results[turn].append(line)
+        print(json.dumps(line), flush=True)
+    summary = {name: {
+        "turns": len(rs),
+        "iteration_ms": [r["ms_median"]["iteration"] for r in rs],
+        "span_ms_median": {k: statistics.median(r["ms_median"][k]
+                                                for r in rs)
+                           for k in SPANS + ("iteration",)},
+        "device_idle_share": [r["device_idle_share"] for r in rs],
+        "device_busy_ms": [r["device_busy_ms"] for r in rs]}
+        for name, rs in results.items() if rs}
+    print(json.dumps({"iteration_ab": summary, "card": card()}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -108,7 +108,8 @@ def lib_path(name: str) -> Path:
 
 def build(names=KERNELS) -> dict:
     """Compile every missing library, one nvcc per source, all at once.
-    Returns {"seconds": wall time, "built": [...], "ptxas": {name: [...]}}."""
+    Returns {"seconds": wall time, "built": [...], "ptxas": {name:
+    ptxas_kernels(name)}}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
@@ -136,16 +137,29 @@ def build(names=KERNELS) -> dict:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + "\n" +
                            "\n".join(msgs))
     return {"seconds": time.perf_counter() - t0, "built": sorted(procs),
-            "ptxas": {n: ptxas_report(n) for n in names}}
+            "ptxas": {n: ptxas_kernels(n) for n in names}}
 
 
-def ptxas_report(name: str) -> list[str]:
-    """The register / shared-memory / spill lines ptxas printed."""
+def ptxas_kernels(name: str) -> dict:
+    """Per kernel of csrc/<name>.cu (keyed by its mangled name), what
+    ptxas printed: registers, stack frame and spill bytes."""
     log = lib_path(name).with_suffix(".log")
-    if not log.exists():
-        return []
-    return [ln.strip() for ln in log.read_text().splitlines()
-            if "registers" in ln or "spill" in ln]
+    out, cur = {}, None
+    for ln in (log.read_text().splitlines() if log.exists() else ()):
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                         ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                         ("spill_load_bytes", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers")):
+            m = re.search(pat, ln)
+            if m:
+                cur[key] = int(m.group(1))
+    return out
 
 
 _LIBS: dict = {}

@@ -1,0 +1,170 @@
+// Host build of the update kernels' tile arithmetic (update_tile.cuh) for
+// the CPU test tests/test_torch_update_tiles.py: kernel D's, G's and H's
+// decomposition run in the card's order - the same CTAs (G = min(tiles,
+// max_parts)), each walking tiles u, u + G, ..., every stage of a tile
+// run for threads 0..255 in turn, each thread's sums kept across its
+// CTA's tiles, then the reduce's chunk order, slice norms and clip +
+// Adam.  Compiled by g++ with contraction off; not part of the CUDA
+// build (_build.py compiles the .cu files only).
+
+#include <cstdint>
+#include <cstring>
+#include <vector>
+
+#include "update_tile.cuh"
+
+using namespace mbb::update;
+
+namespace {
+
+// where the samples of tile u come from: MODE 0 traj / side blocks,
+// MODE 1 a row-major feat matrix
+struct Source {
+    int mode;
+    const int *idx;
+    const float *traj, *side, *feat;
+    int rows, W, wb, F, mb;
+};
+
+int load_input(const Source &src, int u, float *in) {
+    if (src.mode == 1) {
+        constexpr int NC = D + NEXTRA;
+        const int n = src.mb - u * S < S ? src.mb - u * S : S;
+        for (int s = 0; s < S; ++s)
+            for (int c = 0; c < NC; ++c)
+                in[(c < D ? c : c + 1) * SP + s] =
+                    s < n ? src.feat[(size_t)(u * S + s) * src.F + c] : 0.0f;
+        return n;
+    }
+    const int tpb = (src.wb + S - 1) / S, wblk = src.W / src.wb;
+    const int b = src.idx[u / tpb], sub = u % tpb, t = b / wblk;
+    const int w = (b % wblk) * src.wb + sub * S;
+    const int n = src.wb - sub * S < S ? src.wb - sub * S : S;
+    const float *tc = src.traj + (size_t)t * src.rows * src.W + w;
+    const float *sc = src.side + (size_t)t * SIDE_ROWS * src.W + w;
+    for (int r = 0; r < IN_ROWS; ++r) {
+        if (r == D) continue;
+        const float *row = r < D ? tc + (size_t)r * src.W
+                         : r < EX_V ? tc + (size_t)(R_ACT + r - EX_ACT) * src.W
+                                    : sc + (size_t)(r - EX_V) * src.W;
+        for (int s = 0; s < S; ++s) in[r * SP + s] = s < n ? row[s] : 0.0f;
+    }
+    return n;
+}
+
+// one gradient launch: every CTA's row of partials; returns the grid
+int grad_launch(const Source &src, int n_tiles, int max_parts,
+                const float *nrm, const float *ustats, const float *params,
+                LossHp hp, float *partials) {
+    const int grid = n_tiles < max_parts ? n_tiles : max_parts;
+    std::vector<float> smem(SM_FLOATS);
+    std::vector<GradAcc> acc(NT);
+    float *sm = smem.data(), *in = sm + SI_IN;
+    for (int cta = 0; cta < grid; ++cta) {
+        for (int tid = 0; tid < NT; ++tid) {
+            load_weights(sm, params, nrm, tid);
+            zero_acc(acc[tid]);
+        }
+        for (int u = cta; u < n_tiles; u += grid) {
+            const int n = load_input(src, u, in);
+            for (int st = 0; st < N_STAGES; ++st)
+                for (int tid = 0; tid < NT; ++tid)
+                    tile_stage(st, sm, in, n, src.mode == 0 ? ustats : nullptr,
+                               hp, acc[tid], tid);
+        }
+        for (int step = 0; step < 2; ++step)
+            for (int tid = 0; tid < NT; ++tid)
+                write_partials(sm, acc[tid], partials + (size_t)cta * P, tid,
+                               step);
+    }
+    return grid;
+}
+
+// the reduce: the summed gradient into g; the global norm
+float reduce(const float *partials, int nparts, float *g) {
+    for (int p = 0; p < P; ++p) {
+        float c[RED_CH];
+        for (int ch = 0; ch < RED_CH; ++ch)
+            c[ch] = chunk_sum(partials, nparts, p, ch);
+        float s = c[0];
+        for (int ch = 1; ch < RED_CH; ++ch) s += c[ch];
+        g[p] = s;
+    }
+    float sq[RED_CTAS], lanes[32];
+    for (int cta = 0; cta < RED_CTAS; ++cta) {
+        float v[32];
+        for (int l = 0; l < 32; ++l) {
+            const int p = cta * 32 + l;
+            v[l] = p < P ? g[p] * g[p] : 0.0f;
+        }
+        sq[cta] = butterfly32(v);
+    }
+    for (int l = 0; l < 32; ++l) lanes[l] = lane_slices(sq, RED_CTAS, l);
+    return sqrtf(butterfly32(lanes));
+}
+
+LossHp loss_hp(float clip, float vf_coef, float ent_coef, int clip_vloss,
+               int mb) {
+    LossHp hp;
+    hp.clip = clip;
+    hp.vf_coef = vf_coef;
+    hp.ent_coef = ent_coef;
+    hp.inv_mb = 1.0f / (float)mb;
+    hp.clip_vloss = clip_vloss;
+    return hp;
+}
+
+}  // namespace
+
+// Kernel D's arguments without the stream and the scratch.
+extern "C" void mbb_host_update_phase(
+    const int *idx, int count, const float *traj, const float *side,
+    const float *nrm, const float *ustats, float *params, float *mu,
+    float *nu, int max_parts, int rows, int W, int wb, int bpm, int n_mb,
+    float clip, float vf_coef, float ent_coef, int clip_vloss, float lr,
+    float max_norm) {
+    const int n_tiles = bpm * ((wb + S - 1) / S);
+    const LossHp hp = loss_hp(clip, vf_coef, ent_coef, clip_vloss, bpm * wb);
+    std::vector<float> partials((size_t)max_parts * P), g(P);
+    for (int k = 0; k < n_mb; ++k) {
+        const Source src{0, idx + (size_t)k * bpm, traj, side, nullptr,
+                         rows, W, wb, 0, 0};
+        const int grid = grad_launch(src, n_tiles, max_parts, nrm, ustats,
+                                     params, hp, partials.data());
+        const float gn = reduce(partials.data(), grid, g.data());
+        const float bc1 = bias_correction(ADAM_B1, count + k + 1);
+        const float bc2 = bias_correction(ADAM_B2, count + k + 1);
+        for (int p = 0; p < P; ++p)
+            adam_one(g[p], gn, max_norm, lr, bc1, bc2, params[p], mu[p],
+                     nu[p]);
+    }
+}
+
+// Kernel G's arguments without the stream and the scratch.
+extern "C" void mbb_host_minibatch_grad_prefetch(
+    const int *idx, const float *traj, const float *side, const float *nrm,
+    const float *params, float *grads, int max_parts, int rows, int W,
+    int wb, int bpm, float clip, float vf_coef, float ent_coef,
+    int clip_vloss) {
+    const Source src{0, idx, traj, side, nullptr, rows, W, wb, 0, 0};
+    std::vector<float> partials((size_t)max_parts * P);
+    const int grid = grad_launch(
+        src, bpm * ((wb + S - 1) / S), max_parts, nrm, nullptr, params,
+        loss_hp(clip, vf_coef, ent_coef, clip_vloss, bpm * wb),
+        partials.data());
+    reduce(partials.data(), grid, grads);
+}
+
+// Kernel H's arguments without the stream and the scratch.
+extern "C" void mbb_host_minibatch_grad(const float *feat, const float *nrm,
+                                        const float *params, float *grads,
+                                        int max_parts, int mb, int F,
+                                        float clip, float vf_coef,
+                                        float ent_coef, int clip_vloss) {
+    const Source src{1, nullptr, nullptr, nullptr, feat, 0, 1, 1, F, mb};
+    std::vector<float> partials((size_t)max_parts * P);
+    const int grid = grad_launch(
+        src, (mb + S - 1) / S, max_parts, nrm, nullptr, params,
+        loss_hp(clip, vf_coef, ent_coef, clip_vloss, mb), partials.data());
+    reduce(partials.data(), grid, grads);
+}

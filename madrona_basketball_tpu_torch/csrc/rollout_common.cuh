@@ -1,8 +1,49 @@
-// The rollout kernels' shared pieces: kernel B (fused_rollout.cu, one
-// thread per world) and kernel I (fused_rollout_tiled.cu, a CTA per tile
-// of worlds) write the same trajectory rows, read the same packed policy
-// and external-noise layout, and sample actions the same way.
-// Constants mirror ops/fused_rollout.py.
+// The rollout kernels' shared body: kernel B (fused_rollout.cu) and
+// kernel I (fused_rollout_tiled.cu) run the same tile of worlds
+// (rollout_tile below) and so write the same trajectory rows bit for bit;
+// B also folds each tick's obs into per-32-world (mean, M2) partials
+// (FOLD).  Constants mirror ops/fused_rollout.py.
+//
+// Mapping.  A CTA of NT = 256 threads owns a tile of TILE = 64 worlds
+// (the last tile of kernel B may hold 32).
+//   * The sim runs one thread per world (threads 0..63) through the shared
+//     device body step_world (sim_world.cuh), as kernels A and F do; the
+//     world stays in registers for all T ticks.
+//   * The obs of the tile stay in shared memory (256 x TILE): step_world
+//     writes them there, the policy reads them there, and only the final
+//     obs go back to global memory.
+//   * The policy is CTA-cooperative: the trainee's obs are normalized into
+//     a (128, TILE) tile; each Dense layer is a tile product split over
+//     (output unit, world) pairs, thread (g, c) = (tid / TILE, tid % TILE)
+//     taking units [g * J, (g + 1) * J) of world c, with the weights in
+//     shared memory (a warp reads one weight at a time: a broadcast) and
+//     consecutive threads on consecutive worlds of the activation tile.
+//     LayerNorm statistics run per world (threads 0..63), then ReLU over
+//     the tile.  Each (unit, world) sum runs over k in ascending order,
+//     one multiply-add a term.
+//   * Each sim thread samples its own world's 6 buckets (strict >, first
+//     maximum wins) from the logits tile.
+//   * FOLD: while warps 0-1 step the worlds, warps 2-7 take (feature,
+//     32-world group) pairs of the trainee's pre-tick obs (the rows just
+//     written to the trajectory), one world a lane, and reduce them with
+//     the xor butterfly: mean = sum / 32, then M2 = sum of squared
+//     deviations.
+// Per tick, in the JAX kernel's order: policy on the pre-tick obs,
+// sampling, actions into the world (and the frozen policy's for the other
+// agent), the trajectory rows (103 obs, 6 actions, logp, value, zeros),
+// the sim tick (and the fold beside it), then reward and done.
+//
+// Noise: external ((T * 56, W), the pack_rollout_noise layout) or in-kernel
+// Philox4x32-10 (sim_world.cuh) with key (seed lo, seed hi) and counter
+// (world, tick_base + t, draw group, 0); draw n is word n % 4 of group
+// n / 4, drawn where it is used.  The counter does not depend on T, so one
+// T-tick launch equals T one-tick launches.
+// ops/fused_rollout.py::philox_noise is the plain twin.
+//
+// Shared memory (floats): policy 6,272 (x2 with the frozen policy) | obs
+// 256 x 64 | normalized obs 128 x 64 | two hidden tiles 32 x 64 | head
+// 20 x 64 | LayerNorm statistics 2 x 64: 142 KB, or 167 KB with the frozen
+// policy, above the 48 KB static limit, so dynamic.
 
 #pragma once
 
@@ -77,6 +118,330 @@ __device__ __forceinline__ void set_actions(Agent &a, const int act[6]) {
     a.a_grab = act[3];
     a.a_pass = act[4];
     a.a_shoot = act[5];
+}
+
+constexpr int TILE = 64;         // worlds per CTA
+constexpr int NT = 256;          // threads per CTA
+constexpr int G = NT / TILE;     // thread groups over the output units
+static_assert(H % G == 0 && (NL + 1) % G == 0, "units split over G groups");
+
+// shared-memory offsets (floats) after the policy matrices
+constexpr int S_OBS = 0;
+constexpr int S_XN = S_OBS + N_OBS_ROWS * TILE;
+constexpr int S_H1 = S_XN + OBS * TILE;
+constexpr int S_H2 = S_H1 + H * TILE;
+constexpr int S_OUT = S_H2 + H * TILE;
+constexpr int S_ST = S_OUT + (NL + 1) * TILE;
+constexpr int S_END = S_ST + 2 * TILE;
+
+// Draws [LO, LO + N) of (world, tick): draw n is word n % 4 of Philox
+// group n / 4 (kernel B's numbering).
+template <int LO, int N>
+__device__ __forceinline__ void philox_draws(float *u, uint32_t w,
+                                             uint32_t tick, uint32_t k0,
+                                             uint32_t k1) {
+#pragma unroll
+    for (int g = LO / 4; g <= (LO + N - 1) / 4; ++g) {
+        uint32_t c[4] = {w, tick, (uint32_t)g, 0u};
+        philox4x32_10(c, k0, k1);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const int n = 4 * g + q - LO;
+            if (n >= 0 && n < N) u[n] = bits_to_unit(c[q]);
+        }
+    }
+}
+
+// y[(g J + q), c] = sum_k Wt[(g J + q), k] x[k, c] + bias column bc, for
+// this thread's J units; tiles are (rows, TILE) row-major.
+template <int K, int J>
+__device__ __forceinline__ void dense(const float *__restrict__ wt,
+                                      const float *__restrict__ x,
+                                      float *__restrict__ y,
+                                      const float *__restrict__ b, int bc,
+                                      int g, int c) {
+    float acc[J];
+#pragma unroll
+    for (int q = 0; q < J; ++q) acc[q] = 0.0f;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+        const float xv = x[k * TILE + c];
+#pragma unroll
+        for (int q = 0; q < J; ++q)
+            acc[q] = acc[q] + wt[(g * J + q) * K + k] * xv;
+    }
+#pragma unroll
+    for (int q = 0; q < J; ++q)
+        y[(g * J + q) * TILE + c] = acc[q] + b[(g * J + q) * 8 + bc];
+}
+
+// LayerNorm (flax fast variance, eps 1e-6) + ReLU over the H units of each
+// world of the tile h (H, TILE), in place; kernel B's arithmetic.
+__device__ __forceinline__ void layer_norm_relu(float *__restrict__ h,
+                                                const float *__restrict__ b,
+                                                int sc, int bc,
+                                                float *__restrict__ st,
+                                                int tid, int g, int c) {
+    if (tid < TILE) {
+        float s = 0.0f, s2 = 0.0f;
+#pragma unroll 8
+        for (int j = 0; j < H; ++j) {
+            const float v = h[j * TILE + tid];
+            s = s + v;
+            s2 = s2 + v * v;
+        }
+        const float mu = s / (float)H;
+        const float mu2 = s2 / (float)H;
+        st[tid] = mu;
+        st[TILE + tid] = rsqrtf(fmaxf(mu2 - mu * mu, 0.0f) + 1e-6f);
+    }
+    __syncthreads();
+    constexpr int J = H / G;
+    const float mu = st[c], r = st[TILE + c];
+#pragma unroll
+    for (int q = 0; q < J; ++q) {
+        const int j = g * J + q;
+        h[j * TILE + c] =
+            fmaxf((h[j * TILE + c] - mu) * r * b[j * 8 + sc] + b[j * 8 + bc],
+                  0.0f);
+    }
+    __syncthreads();
+}
+
+// The policy on the obs block ob (128, TILE) of the tile: logits and value
+// into sm[S_OUT] (20, TILE).  All NT threads; ends synchronized.
+__device__ __forceinline__ void policy_tile(const float *__restrict__ P,
+                                            const float *__restrict__ ob,
+                                            float *__restrict__ sm, int tid) {
+    const int g = tid / TILE, c = tid % TILE;
+    float *xn = sm + S_XN, *h1 = sm + S_H1, *h2 = sm + S_H2;
+    float *st = sm + S_ST;
+    const float *b = P + P_B;
+    for (int i = tid; i < OBS * TILE; i += NT) {
+        const int k = i / TILE;
+        xn[i] = clampf((ob[i] - P[P_NRM + 2 * k]) * P[P_NRM + 2 * k + 1],
+                       -5.0f, 5.0f);
+    }
+    __syncthreads();
+    dense<OBS, H / G>(P + P_W1, xn, h1, b, 0, g, c);
+    __syncthreads();
+    layer_norm_relu(h1, b, 1, 2, st, tid, g, c);
+    dense<H, H / G>(P + P_W2, h1, h2, b, 3, g, c);
+    __syncthreads();
+    layer_norm_relu(h2, b, 4, 5, st, tid, g, c);
+    dense<H, (NL + 1) / G>(P + P_WH, h2, sm + S_OUT, b, 6, g, c);
+    __syncthreads();
+}
+
+// One sim thread's sampling from the logits tile on uniforms u.
+__device__ __forceinline__ float sample_tile(const float *__restrict__ out,
+                                             const float u[NL], int tid,
+                                             int act[6]) {
+    float lg[NL];
+#pragma unroll
+    for (int r = 0; r < NL; ++r) lg[r] = out[r * TILE + tid];
+    return sample(lg, u, act);
+}
+
+// FOLD: (feature, 32-world group) pairs of one tick's trainee obs rows
+// (tr, rows 0..102 at worlds w0..) over the warps of threads TILE..NT-1,
+// FOLD_ILP pairs at a time so that their butterflies interleave; each
+// pair: mean = butterfly sum / 32, M2 = butterfly sum of squared
+// deviations, lane 0 writes pt[(g, k, 0..1)].
+constexpr int FOLD_ILP = 6;
+
+__device__ __forceinline__ void fold_tick(const float *tr,
+                                          float *__restrict__ pt, int W,
+                                          int w0, int ng, int tid) {
+    constexpr int NW = (NT - TILE) / 32;
+    const int lane = tid & 31, warp = (tid - TILE) >> 5;
+    const int npairs = ROLL_OBS * ng;
+    for (int p0 = warp * FOLD_ILP; p0 < npairs; p0 += NW * FOLD_ILP) {
+        float raw[FOLD_ILP], v[FOLD_ILP];
+#pragma unroll
+        for (int j = 0; j < FOLD_ILP; ++j) {
+            const int pr = min(p0 + j, npairs - 1);
+            // L2 reads: the rows were written by this CTA this tick
+            raw[j] = __ldcg(tr + (size_t)(pr / ng) * W + w0 + 32 * (pr % ng) +
+                            lane);
+            v[j] = raw[j];
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+            for (int j = 0; j < FOLD_ILP; ++j)
+                v[j] += __shfl_xor_sync(0xffffffffu, v[j], o);
+        float m[FOLD_ILP];
+#pragma unroll
+        for (int j = 0; j < FOLD_ILP; ++j) {
+            m[j] = v[j] * (1.0f / 32.0f);
+            const float d = raw[j] - m[j];
+            v[j] = d * d;
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+            for (int j = 0; j < FOLD_ILP; ++j)
+                v[j] += __shfl_xor_sync(0xffffffffu, v[j], o);
+        if (lane == 0) {
+#pragma unroll
+            for (int j = 0; j < FOLD_ILP; ++j) {
+                const int pr = p0 + j;
+                if (pr < npairs) {
+                    float *q = pt + ((pr % ng) * ROLL_OBS + pr / ng) * 2;
+                    q[0] = m[j];
+                    q[1] = v[j];
+                }
+            }
+        }
+    }
+}
+
+// The T ticks of the tile of worlds [blockIdx.x * TILE, + TILE) (fewer in
+// a last tile of W % TILE == 32 worlds).  FOLD: partials (T, W / 32,
+// ROLL_OBS, 2) receive each tick's per-group (mean, M2) of the trainee's
+// pre-tick obs.
+template <int TI, bool FROZEN, bool FOLD>
+__device__ __forceinline__ void rollout_tile(
+    SimParams p, float *__restrict__ sf, int *__restrict__ si,
+    float *__restrict__ obs, const float *__restrict__ pol,
+    const float *__restrict__ fpol, const float *__restrict__ ext,
+    float *__restrict__ traj, float *__restrict__ partials, int W, int T,
+    uint32_t k0, uint32_t k1, int tick_base) {
+    extern __shared__ float smem[];
+    constexpr int FI = 1 - TI;
+    float *sp = smem;
+    float *sfp = smem + POL;
+    float *sm = smem + (FROZEN ? 2 : 1) * POL;
+    float *so = sm + S_OBS;
+    const int tid = threadIdx.x;
+    const int w0 = blockIdx.x * TILE;
+    const int nw = min(TILE, W - w0);
+    for (int i = tid; i < POL; i += NT) {
+        sp[i] = pol[i];
+        if (FROZEN) sfp[i] = fpol[i];
+    }
+    for (int i = tid; i < N_OBS_ROWS * TILE; i += NT)
+        so[i] = i % TILE < nw ? obs[(size_t)(i / TILE) * W + w0 + i % TILE]
+                              : 0.0f;
+    const bool sim = tid < nw;
+    const int w = w0 + tid;
+    World s;
+    if (sim) load_world(s, sf, si, W, w);
+    __syncthreads();
+
+    for (int t = 0; t < T; ++t) {
+        const uint32_t tick = (uint32_t)(tick_base + t);
+        const float *e =
+            ext != nullptr ? ext + (size_t)t * EXT_CHUNK * W + w : nullptr;
+        float *tr = traj + (size_t)t * ROLL_ROWS * W;
+
+        policy_tile(sp, so + TI * OBS * TILE, sm, tid);
+        if (sim) {
+            float u[NL];
+            if (e != nullptr) {
+#pragma unroll
+                for (int r = 0; r < NL; ++r) u[r] = e[(size_t)(EXT_TU + r) * W];
+            } else {
+                philox_draws<N_NOISE_ROWS, NL>(u, (uint32_t)w, tick, k0, k1);
+            }
+            int act[6];
+            const float logp = sample_tile(sm + S_OUT, u, tid, act);
+            set_actions(s.ag[TI], act);
+#pragma unroll
+            for (int j = 0; j < 6; ++j)
+                tr[(size_t)(R_ACT + j) * W + w] = (float)act[j];
+            tr[(size_t)R_LOGP * W + w] = logp;
+            tr[(size_t)(R_LOGP + 1) * W + w] = 0.0f;
+            tr[(size_t)(R_LOGP + 2) * W + w] = 0.0f;
+            tr[(size_t)R_VALUE * W + w] = sm[S_OUT + NL * TILE + tid];
+        }
+        if (FROZEN) {
+            __syncthreads();  // the logits tile is read before it is reused
+            policy_tile(sfp, so + FI * OBS * TILE, sm, tid);
+            if (sim) {
+                float u[NL];
+                if (e != nullptr) {
+#pragma unroll
+                    for (int r = 0; r < NL; ++r)
+                        u[r] = e[(size_t)(EXT_FU + r) * W];
+                } else {
+                    philox_draws<N_NOISE_ROWS + NL, NL>(u, (uint32_t)w, tick,
+                                                        k0, k1);
+                }
+                int act[6];
+                sample_tile(sm + S_OUT, u, tid, act);
+                set_actions(s.ag[FI], act);
+            }
+        }
+        // the trainee's pre-tick obs rows, coalesced over the tile
+        const float *to = so + TI * OBS * TILE;
+        for (int i = tid; i < ROLL_OBS * TILE; i += NT)
+            if (i % TILE < nw)
+                tr[(size_t)(i / TILE) * W + w0 + i % TILE] = to[i];
+        __syncthreads();  // the obs tile is read before the tick rewrites it
+
+        // the warps that run no sim fold the tick's obs rows (just
+        // written to the trajectory) while warps 0-1 step the worlds
+        if (FOLD && tid >= TILE)
+            fold_tick(tr, partials + ((size_t)t * (W >> 5) + (w0 >> 5)) *
+                                         ROLL_OBS * 2,
+                      W, w0, nw >> 5, tid);
+        if (sim) {
+            float nz[N_NOISE_ROWS];
+            if (e != nullptr) {
+#pragma unroll
+                for (int r = 0; r < N_NOISE_ROWS; ++r) nz[r] = e[(size_t)r * W];
+            } else {
+                float u[N_NOISE_ROWS];
+                philox_draws<0, N_NOISE_ROWS>(u, (uint32_t)w, tick, k0, k1);
+#pragma unroll
+                for (int r = 0; r < N_NOISE_ROWS - 1; ++r)
+                    nz[r] = 2.0f * u[r] - 1.0f;
+                nz[N_NOISE_ROWS - 1] = u[N_NOISE_ROWS - 1];
+            }
+            step_world(p, s, nz, so, TILE, tid);
+            tr[(size_t)R_REW * W + w] = s.ag[TI].reward;
+            tr[(size_t)R_DONE * W + w] = s.ag[TI].done;
+            for (int r = R_DONE + 1; r < ROLL_ROWS; ++r)
+                tr[(size_t)r * W + w] = 0.0f;
+        }
+        __syncthreads();  // the new obs tile, before the next tick's policy
+    }
+    if (sim) store_world(s, sf, si, W, w);
+    for (int i = tid; i < N_OBS_ROWS * TILE; i += NT)
+        if (i % TILE < nw)
+            obs[(size_t)(i / TILE) * W + w0 + i % TILE] = so[i];
+}
+
+// Launch KERNEL (a __global__ wrapper of rollout_tile) on W / TILE tiles.
+template <bool FROZEN, class Kernel>
+int launch_tiles(Kernel kernel, SimParams p, float *sf, int *si, float *obs,
+                 const float *pol, const float *fpol, const float *ext,
+                 float *traj, float *partials, int W, int T, uint32_t k0,
+                 uint32_t k1, int tick_base, cudaStream_t stream) {
+    const size_t smem = ((FROZEN ? 2 : 1) * POL + S_END) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(W + TILE - 1) / TILE, NT, smem, stream>>>(
+        p, sf, si, obs, pol, fpol, ext, traj, partials, W, T, k0, k1,
+        tick_base);
+    return (int)cudaGetLastError();
+}
+
+// Resident CTAs per SM of a tile kernel: out[0], its threads out[1] and
+// dynamic shared memory out[2].
+template <bool FROZEN, class Kernel>
+int tile_occupancy(Kernel kernel, int *out) {
+    const size_t smem = ((FROZEN ? 2 : 1) * POL + S_END) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    out[1] = NT;
+    out[2] = (int)smem;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel,
+                                                              NT, smem);
 }
 
 }  // namespace rollout

@@ -11,13 +11,16 @@ when there is one), run the sim tick, and write the trajectory rows.
   * `fused_rollout` - kernel B (csrc/fused_rollout.cu), replacing the
     Pallas kernel `make_fused_rollout`
     (madrona_basketball_tpu/ops/fused_rollout.py:239, pallas_call :486).
-    One thread per world keeps its world in registers/local memory for
-    all T ticks and calls the same `step_world` device body as kernel A;
-    the policy matrices (6,272 floats each) sit in shared memory.
+    A CTA of 256 threads per tile of 64 worlds (csrc/rollout_common.cuh's
+    `rollout_tile`, shared with kernel I): one thread per world runs the
+    sim (the `step_world` device body of kernel A) with its world in
+    registers for all T ticks, the policy is a (unit, world) tile product
+    out of shared memory, and the obs tile stays in shared memory; each
+    tick's obs are folded into per-32-world moment partials by warps.
 
-Kernel B is bound by bytes too: it writes the (T, 128, W) trajectory
-(16 KB per world at T = 32, 128 MB at 8192 worlds) plus the final state
-and obs; the MLP is ~12 kflop per world-tick.
+Kernel B writes the (T, 128, W) trajectory (16 KB per world at T = 32,
+128 MB at 8192 worlds) plus the final state and obs; the MLP is ~12
+kflop per world-tick, which makes its bound the operations.
 
 Noise comes two ways.  External: a (T * EXT_NOISE_CHUNK, W) matrix in the
 `pack_rollout_noise` layout (tests and parity checks).  In-kernel: a
@@ -29,12 +32,9 @@ so one T-tick launch equals T one-tick launches with tick_base = t.
   * `fused_rollout_tiled` - kernel I (csrc/fused_rollout_tiled.cu),
     replacing the Pallas kernel `make_fused_rollout_tiled`
     (fused_rollout.py:502, pallas_call :664): kernel B's contract without
-    the obs moments, for W % 1024 == 0, with the policy run per CTA tile
-    of 64 worlds (each Dense layer a tile product over (unit, world)
-    pairs, the obs tile in shared memory) and one thread per world for the
-    sim.  Its plain version is `rollout_tiled_plain`; its in-kernel noise
-    is kernel B's Philox stream, so on one seed and state kernels I and B
-    draw the same numbers.
+    the obs moments, for W % 1024 == 0: kernel B's tile body without the
+    fold.  Its plain version is `rollout_tiled_plain`; on one seed and
+    state kernels I and B write the same trajectory bit for bit.
 
 Obs-normalizer moments: every (tick, 32-world group) writes its
 per-feature (mean, M2) of the 103 used obs slots; `combine_obs_moments`
@@ -386,12 +386,14 @@ launches = 0  # kernel B launches (the wrapper counts, the caller resets)
 def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
                   n_steps: int, trainee_idx: int,
                   noise: torch.Tensor | None = None, seed: int = 0,
-                  tick_base: int = 0):
+                  tick_base: int = 0, moment_partials: bool = False):
     """Kernel B on CUDA tensors, the plain version on CPU tensors.
 
     noise=None draws in-kernel Philox noise from (seed, tick_base); a
     CPU caller gets the same numbers from `philox_noise`.  Returns
-    (sf', si', obs', traj (T, 128, W), obs_moments (103, 8))."""
+    (sf', si', obs', traj (T, 128, W), obs_moments (103, 8)), and with
+    moment_partials the per-(tick, 32-world group) (mean, M2) partials
+    (T, W / 32, 103, 2) they were merged from."""
     global launches
     use_frozen = frozen_mats is not None
     W = _check_rollout_args(sf, si, obs0, n_steps, noise, mats,
@@ -399,9 +401,13 @@ def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
     if sf.device.type == "cpu":
         if noise is None:
             noise = philox_noise(seed, tick_base, n_steps, W, sf.device)
-        return rollout_plain(cfg, sf, si, obs0, mats, frozen_mats,
-                             n_steps=n_steps, trainee_idx=trainee_idx,
-                             noise=noise)
+        out = rollout_plain(cfg, sf, si, obs0, mats, frozen_mats,
+                            n_steps=n_steps, trainee_idx=trainee_idx,
+                            noise=noise)
+        if not moment_partials:
+            return out
+        return (*out, torch.stack([obs_moment_partials(x[0:ROLL_OBS])
+                                   for x in out[3]]))
     if sf.device.type != "cuda":
         raise ValueError(f"unsupported device {sf.device}")
     from .. import _build
@@ -429,7 +435,26 @@ def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
         tick_base, _build.stream(dev))
     _build.check(err, "fused_rollout")
     launches += 1
-    return sf2, si2, obs, traj, combine_obs_moments(partials)
+    out = (sf2, si2, obs, traj, combine_obs_moments(partials))
+    return (*out, partials) if moment_partials else out
+
+
+def rollout_occupancy(dev) -> dict:
+    """Kernel B's resident CTAs per SM (from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor), threads, warps per SM
+    and dynamic shared memory, without and with the frozen policy."""
+    import ctypes
+    from .. import _build
+    if torch.device(dev).type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    lib = _build.load("fused_rollout")
+    out = (ctypes.c_int * 6)()
+    _build.check(lib.mbb_fused_rollout_occupancy(ctypes.addressof(out)),
+                 "fused_rollout")
+    return {name: {"ctas_per_sm": out[i], "threads": out[i + 1],
+                   "warps_per_sm": out[i] * out[i + 1] // 32,
+                   "dynamic_smem_bytes": out[i + 2]}
+            for name, i in (("trainee", 0), ("with_frozen", 3))}
 
 
 # =====================================================================

@@ -18,7 +18,9 @@ wht (20, 32) and bias (32, 8) with columns b1 | ln1 scale | ln1 bias | b2 |
 ln2 scale | ln2 bias | head bias (rows 0..19) | 0.  Adam moments use the
 same four shapes.
 
-Three kernels share one device body (csrc/fused_update.cu):
+Three kernels share one device body (csrc/fused_update.cu, its per-tile
+arithmetic in csrc/update_tile.cuh, which a host build runs in the
+card's order for the CPU tests):
 
   * D, `fused_update_phase` - every epoch x minibatch of the phase:
     gradient over the permuted (tick, world-block) blocks of the
@@ -528,11 +530,30 @@ def _lib(t, **others):
     return _build, _build.load("fused_update")
 
 
-GRAD_CTAS = 128  # CTAs of one gradient launch: rows of the partial sums
+def grad_ctas(dev) -> int:
+    """CTAs of one gradient launch (rows of the partial sums): one per SM,
+    each walking its share of the minibatch's tiles."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _partials(dev):
-    return torch.empty((GRAD_CTAS, N_PARAMS), dtype=F32, device=dev)
+    """The kernels' scratch: a row of partial sums per CTA, then the
+    reduce's summed gradient, slice norms and counter (two rows)."""
+    return torch.empty((grad_ctas(dev) + 2, N_PARAMS), dtype=F32, device=dev)
+
+
+def occupancy(dev) -> dict:
+    """Resident CTAs per SM of the gradient and reduce kernels
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), with their threads,
+    warps per SM and dynamic shared memory."""
+    import ctypes
+    _b, lib = _lib(torch.empty(0, device=dev))
+    out = (ctypes.c_int * 6)()
+    _b.check(lib.mbb_update_occupancy(ctypes.addressof(out)), "fused_update")
+    return {name: {"ctas_per_sm": out[i], "threads": out[2 + i],
+                   "warps_per_sm": out[i] * out[2 + i] // 32,
+                   "dynamic_smem_bytes": out[4 + i]}
+            for i, name in enumerate(("grad", "reduce"))}
 
 
 def fused_minibatch_grad(hp, feat, nrm, w1t, w2t, wht, bias):
@@ -550,7 +571,7 @@ def fused_minibatch_grad(hp, feat, nrm, w1t, w2t, wht, bias):
     grads = torch.empty((N_PARAMS,), dtype=F32, device=dev)
     err = lib.mbb_fused_minibatch_grad(
         _b.ptr(feat), _b.ptr(nrm), _b.ptr(params), _b.ptr(grads),
-        _b.ptr(_partials(dev)), GRAD_CTAS, mb, F, *_loss_args(hp),
+        _b.ptr(_partials(dev)), grad_ctas(dev), mb, F, *_loss_args(hp),
         _b.stream(dev))
     _b.check(err, "fused_update")
     launches["fused_minibatch_grad"] += 1
@@ -576,8 +597,8 @@ def fused_minibatch_grad_prefetch(hp, idx, traj, side, nrm, w1t, w2t, wht,
     grads = torch.empty((N_PARAMS,), dtype=F32, device=dev)
     err = lib.mbb_fused_minibatch_grad_prefetch(
         _b.ptr(idx), _b.ptr(traj), _b.ptr(side), _b.ptr(nrm),
-        _b.ptr(params), _b.ptr(grads), _b.ptr(_partials(dev)), GRAD_CTAS,
-        rows, W, wb, hp.minibatch_size // wb, *_loss_args(hp),
+        _b.ptr(params), _b.ptr(grads), _b.ptr(_partials(dev)),
+        grad_ctas(dev), rows, W, wb, hp.minibatch_size // wb, *_loss_args(hp),
         _b.stream(dev))
     _b.check(err, "fused_update")
     launches["fused_minibatch_grad_prefetch"] += 1
@@ -615,7 +636,7 @@ def fused_update_phase(hp, idx, count: int, traj, side, nrm, ustats, params,
     err = lib.mbb_fused_update_phase(
         _b.ptr(idx), int(count), _b.ptr(traj), _b.ptr(side), _b.ptr(nrm),
         _b.ptr(us), _b.ptr(p), _b.ptr(m), _b.ptr(v), _b.ptr(_partials(dev)),
-        GRAD_CTAS, rows, W, wb, bpm, n_mb, *_loss_args(hp),
+        grad_ctas(dev), rows, W, wb, bpm, n_mb, *_loss_args(hp),
         float(hp.learning_rate), float(hp.max_grad_norm), _b.stream(dev))
     _b.check(err, "fused_update")
     launches["fused_update_phase"] += 1

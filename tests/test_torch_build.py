@@ -26,13 +26,16 @@ def test_kernel_signatures_parse_from_sources():
         "fused_rollout_tiled": [sp] + [P] * 7 + [I] * 4 + [U, U, I, P],
         "obs_moments": [P] * 3 + [I] * 5 + [P],
     }
-    # one source, three entries: kernels D, G and H
+    # a source's entries besides its kernel's: the resident CTAs per SM
+    occupancy = {"fused_rollout": ["mbb_fused_rollout_occupancy"]}
+    # one source, three entries: kernels D, G and H, and their occupancy
     update = {
         "mbb_fused_update_phase": [P, I] + [P] * 8 + [I] * 6 + [F] * 3 +
         [I, F, F, P],
         "mbb_fused_minibatch_grad_prefetch": [P] * 7 + [I] * 5 + [F] * 3 +
         [I, P],
         "mbb_fused_minibatch_grad": [P] * 5 + [I] * 3 + [F] * 3 + [I, P],
+        "mbb_update_occupancy": [P],
     }
     # one source, two entries: kernel F with in-kernel and external noise
     multistep = {
@@ -44,7 +47,11 @@ def test_kernel_signatures_parse_from_sources():
     for name, types in want.items():
         got = _build.c_signature(_build.CSRC / f"{name}.cu", f"mbb_{name}")
         assert got == types, name
-        assert _build.entries(name) == [f"mbb_{name}"]
+        assert _build.entries(name) == [f"mbb_{name}"] + \
+            occupancy.get(name, [])
+        for entry in occupancy.get(name, []):
+            assert _build.c_signature(_build.CSRC / f"{name}.cu",
+                                      entry) == [P]
     assert _build.entries("fused_update") == list(update)
     for entry, types in update.items():
         got = _build.c_signature(_build.CSRC / "fused_update.cu", entry)

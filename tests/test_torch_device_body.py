@@ -12,15 +12,17 @@ noise.  On worlds whose shot lands within a few rounding steps of the
 going-in threshold (`shot_margin_inputs`), the shot's outcome - the
 integer state, the score rows and the ball - must equal the plain
 version's exactly; there the plain tick takes its sin and cos from the C
-library, as the host build does (torch's vectorized CPU sin and cos are
-not correctly rounded, and one ulp of cos moves closest_sq by an ulp of
-dist2).  On the card both sides use CUDA's sinf and cosf."""
+library, as the host build does, and its sqrt and 1 / sqrt correctly
+rounded (torch's vectorized CPU sin, cos, sqrt and rsqrt are not
+correctly rounded on every build, and one ulp of cos moves closest_sq by
+an ulp of dist2).  On the card both sides use CUDA's sinf and cosf."""
 
 import ctypes
 import ctypes.util
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
@@ -123,11 +125,26 @@ def test_multistep_body_matches_plain(host_step, obs_every_tick, blank_agent,
     torch.testing.assert_close(got[2], want[2], atol=1e-4, rtol=0)
 
 
+def _correctly_rounded_sqrt(mp):
+    """Give torch the correctly rounded sqrt and 1 / sqrt that the host
+    build computes (sqrtf, 1.0f / sqrtf): some torch CPU builds return
+    sqrt and rsqrt an ulp off on a share of float32 inputs, which moves a
+    shot at the threshold.  numpy's sqrt is the IEEE instruction in every
+    precision."""
+    def sqrt(x):
+        return torch.from_numpy(np.asarray(np.sqrt(x.detach().numpy())))
+
+    mp.setattr(torch, "sqrt", sqrt)
+    mp.setattr(torch, "rsqrt", lambda x: 1.0 / sqrt(x))
+
+
 def test_shot_outcome_exact_at_the_threshold(host_step):
     cfg, w = GAME_MODES["1v1"], 512
     g = torch.Generator().manual_seed(8)
     sf, si = init_rows(cfg, w, g, "cpu")
-    sf, si, noise, margin = FS.shot_margin_inputs(cfg, sf, si, g)
+    with pytest.MonkeyPatch.context() as mp:
+        _correctly_rounded_sqrt(mp)
+        sf, si, noise, margin = FS.shot_margin_inputs(cfg, sf, si, g)
     band = margin.abs() <= FS.SHOT_BAND_ULPS
     assert float(band.float().mean()) > 0.5
     got = host_step(cfg, sf, si, noise)
@@ -141,6 +158,7 @@ def test_shot_outcome_exact_at_the_threshold(host_step):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(torch, "sin", c_lib("sinf"))
         mp.setattr(torch, "cos", c_lib("cosf"))
+        _correctly_rounded_sqrt(mp)
         want = FS.step_rows_plain(cfg, sf, si, noise)
     made = want[0][F_IDX["sbaskets"]] - sf[F_IDX["sbaskets"]]
     assert 0.2 < float(made.mean()) < 0.8      # both outcomes occur

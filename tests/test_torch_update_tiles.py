@@ -1,0 +1,156 @@
+"""Kernels D, G and H's tile decomposition on the CPU: csrc/update_tile.cuh
+compiled by g++ (csrc/host_update.cpp) vs the plain versions.
+
+The host build runs the card's order: the same CTAs (a few here, so that
+each walks several tiles of 64 samples and keeps its sums across them),
+every stage of a tile for threads 0..255 in turn, each thread's 4 x 4
+weight-gradient tiles and column sums, the reduce's chunk order, the
+slices' norms and clip + Adam.  It differs from the plain version
+(which tests/test_torch_update.py holds against the JAX package) only in
+the order of its float32 sums and in libm.  Tolerances are the card's:
+gradients within 1e-4 of each leaf's largest entry (+ 1e-7); after a
+phase of Adam steps params within 1e-4 absolute and mu, nu within 1e-4
+of each leaf's largest entry, plus `update_phase_kinks`' allowance for
+the samples at a kink of the loss."""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from madrona_basketball_tpu_torch import _build
+from madrona_basketball_tpu_torch.models.agent import init_agent
+from madrona_basketball_tpu_torch.models.normalize import rms_update
+from madrona_basketball_tpu_torch.ops import fused_update as FU
+from madrona_basketball_tpu_torch.ppo import train as TT
+from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
+
+T, W = 4, 256
+
+
+@pytest.fixture(scope="module")
+def host():
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed")
+    out = _build.BUILD_DIR / "host" / "libhost_update.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-o", str(out),
+                    str(_build.CSRC / "host_update.cpp")], check=True)
+    lib = ctypes.CDLL(str(out))
+    for entry in ("mbb_host_update_phase", "mbb_host_minibatch_grad_prefetch",
+                  "mbb_host_minibatch_grad"):
+        getattr(lib, entry).argtypes = _build.c_signature(
+            _build.CSRC / "host_update.cpp", entry)
+    return lib
+
+
+def _inputs(seed):
+    """A policy with non-trivial obs statistics, and a trajectory and side
+    rows made with numpy: obs ~ N(0, 3), valid actions, log-probs, raw
+    side rows."""
+    rng = np.random.RandomState(seed)
+    agent = init_agent(torch.Generator().manual_seed(seed), "cpu")
+    agent.obs_rms = rms_update(agent.obs_rms, torch.tensor(
+        rng.normal(1.0, 2.0, (256, 128)), dtype=torch.float32))
+    traj = rng.normal(scale=3.0, size=(T, 128, W))
+    for j, n in enumerate((2, 8, 3, 2, 2, 2)):
+        traj[:, FU.R_ACT + j] = rng.randint(0, n, (T, W))
+    traj[:, FU.R_LOGP] = rng.normal(scale=0.3, size=(T, W))
+    side = rng.normal(size=(T, FU.SIDE_ROWS, W))
+    ustats = np.array([[rng.normal(), 0.5 + rng.uniform(), rng.normal(0, .1),
+                        0.5 + rng.uniform(), 0, 0, 0, 0]])
+    f32 = (lambda x: torch.tensor(x, dtype=torch.float32))
+    return (rng, FU.pack_norm(agent.obs_rms), FU.pack_weights(agent.net),
+            f32(traj), f32(side), f32(ustats))
+
+
+def _args(hp):
+    return (float(hp.clip_coef), float(hp.vf_coef), float(hp.ent_coef),
+            1 if hp.clip_vloss else 0)
+
+
+def _grad_close(got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
+        lim = 1e-4 * float(w.abs().max()) + 1e-7
+        err = float((g - w).abs().max())
+        assert err <= lim, f"leaf {i}: {err} > {lim}"
+
+
+@pytest.mark.parametrize("wb,max_parts,clip_vloss",
+                         [(128, 3, True), (32, 5, False)])
+def test_host_phase_matches_update_phase_plain(host, wb, max_parts,
+                                               clip_vloss):
+    """1 epoch x 2 minibatches of 512 samples (tiles of 64 from 128-wide
+    blocks, or 32-sample tiles from 32-wide ones), the second phase from
+    the first's Adam state."""
+    hp = PPOParams(num_envs=W, num_rollout_steps=T, update_epochs=1,
+                   num_minibatches=2, clip_vloss=clip_vloss)
+    rng, nrm, params, traj, side, ustats = _inputs(5)
+    n_blocks = T * W // wb
+    opt = TT.init_adam(params)
+    mats, count = (params, opt.mu, opt.nu), 0
+    for phase in range(2):
+        idx = torch.tensor(rng.permutation(n_blocks), dtype=torch.int32)
+        p, m, v = (FU._flat(x).clone() for x in mats)
+        host.mbb_host_update_phase(
+            idx.data_ptr(), count, traj.data_ptr(), side.data_ptr(),
+            nrm.data_ptr(), ustats.data_ptr(), p.data_ptr(), m.data_ptr(),
+            v.data_ptr(), max_parts, 128, W, wb, hp.minibatch_size // wb, 2,
+            *_args(hp), float(hp.learning_rate), float(hp.max_grad_norm))
+        *want, rep = FU.update_phase_kinks(hp, idx, count, traj, side, nrm,
+                                           ustats, *mats, wb=wb)
+        assert rep["samples"] <= 1e-3 * rep["of_samples"]
+        for name, got, ws, allow in zip(("params", "mu", "nu"),
+                                        (p, m, v), want, rep["allow"]):
+            for i, (g, w, a) in enumerate(zip(FU._split(got), ws, allow)):
+                lim = 1e-4 if name == "params" else 1e-4 * float(w.abs().max())
+                assert bool(torch.isfinite(g).all())
+                over = (g - w).abs() > lim + a
+                assert not bool(over.any()), \
+                    f"phase {phase} {name}[{i}]: {float((g - w).abs().max())}"
+        mats, count = tuple(want), count + 2
+
+
+@pytest.mark.parametrize("wb,max_parts", [(128, 4), (64, 1)])
+def test_host_grad_matches_block_grads_plain(host, wb, max_parts):
+    """Kernel G's decomposition (normalized side rows) against
+    `block_grads_plain` over the same gathered blocks."""
+    hp = PPOParams(num_envs=W, num_rollout_steps=T, num_minibatches=2)
+    rng, nrm, params, traj, side, ustats = _inputs(7)
+    side_n = FU.normalize_side(side, ustats)
+    bpm = hp.minibatch_size // wb
+    idx = torch.tensor(rng.permutation(T * W // wb)[:bpm], dtype=torch.int32)
+    grads, flat = torch.zeros(FU.N_PARAMS), FU._flat(params)
+    host.mbb_host_minibatch_grad_prefetch(
+        idx.data_ptr(), traj.data_ptr(), side_n.data_ptr(), nrm.data_ptr(),
+        flat.data_ptr(), grads.data_ptr(), max_parts, 128, W, wb, bpm,
+        *_args(hp))
+    tb, sb = FU.gather_blocks(idx, traj, side_n, wb)
+    want = FU.block_grads_plain(
+        hp, 1.0 / hp.minibatch_size, tb[0:FU.D], tb[FU.R_ACT:FU.R_ACT + FU.NB],
+        tb[FU.R_LOGP], sb[FU.SIDE_VALUE], sb[FU.SIDE_ADV], sb[FU.SIDE_RET],
+        nrm, *params)
+    _grad_close(FU._split(grads), want)
+
+
+def test_host_feat_grad_matches_minibatch_grad_plain(host):
+    """Kernel H's decomposition on a row-major feat matrix of 200 rows:
+    three full tiles and a ragged one of 8 samples."""
+    hp = PPOParams(num_envs=W, num_rollout_steps=T)
+    rng, nrm, params, traj, side, ustats = _inputs(9)
+    mb = 200
+    idx = torch.tensor(rng.permutation(T * W // 8)[:mb // 8],
+                       dtype=torch.int32)
+    tb, sb = FU.gather_blocks(idx, traj, FU.normalize_side(side, ustats), 8)
+    feat = torch.cat([tb.T, sb[:3].T], dim=1).contiguous()
+    grads, flat = torch.zeros(FU.N_PARAMS), FU._flat(params)
+    host.mbb_host_minibatch_grad(
+        feat.data_ptr(), nrm.data_ptr(), flat.data_ptr(), grads.data_ptr(), 2,
+        mb, feat.shape[1], *_args(hp))
+    _grad_close(FU._split(grads),
+                FU.minibatch_grad_plain(hp, feat, nrm, *params))
