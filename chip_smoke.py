@@ -30,7 +30,8 @@ around that path alone.  Each kernel's own device
 time comes from torch.profiler, beside the CUDA-event time of
 back-to-back wrapper calls and of its plain version; kernel D's is also
 split into its gradient and reduce launches, and the redesigned kernels'
-rows carry ptxas's registers and spills and their resident warps per SM.
+rows carry ptxas's registers and spills and their warps per SM (what an
+SM could hold; for F and C also what the 8192-world grid places on it).
 Every phase line carries the card's name and power limit.  Every phase prints
 one JSON line; any failure raises and the exit code is non-zero.  The
 last lines are the per-kernel JSON line, the card's name and power
@@ -45,14 +46,20 @@ float of sf', obs' and the trajectory in the other worlds stays within
 the meter scan within 1e-5 of max(1, |x|).  Kernel F at A's tier over 8
 ticks of external noise (held obs, obs every tick with agent 0 blanked,
 agent 1 blanked) and at B's Philox tier over 32 ticks; one 32-tick F
-launch equals 32 one-tick launches bit for bit.  The whole collect on a small
+launch equals 32 one-tick launches bit for bit; one 8-tick F launch
+equals 8 launches of kernel A bit for bit (state and obs); the CPU build
+of F's CTA (csrc/host_step.cpp, g++) at A's tier on 1024 worlds; and in
+F's SASS the every-tick instance's tick loop holds system 18's
+shared-memory stores and no global store.  The whole collect on a small
 input (256 worlds x 8 ticks, two iterations) on the card vs the plain
 path on the CPU: integer state and actions exact, every float output
 within 1e-4 of max(1, |x|).  Update kernels on a real flagship collect
 output: each gradient leaf within 1e-4 of the leaf's largest plain entry
-(+ 1e-7); after a phase of 16 Adam steps params within 1e-4 absolute and
-mu, nu within 1e-4 of each leaf's largest entry; two launches of D on
-identical inputs bit-identical; the samples at a kink of the loss (a
+(+ 1e-7); a phase of 16 Adam steps equal to its 16 one-minibatch
+launches chained, bit for bit, and each step against the plain step from
+the same params and moments with params within 1e-4 / 16 absolute and
+mu, nu within 1e-4 / 16 of each leaf's largest entry; two launches of D
+on identical inputs bit-identical; the samples at a kink of the loss (a
 branch margin within 1e-5 of its operands' size: ReLU, ratio clip,
 surrogate min, value max and clip) at most 0.1 % of the phase, and what
 they can change (each one's two branches, carried through the clip and
@@ -272,6 +279,25 @@ def state_to(state, dev):
                                obs=state.obs.to(dev), stats=stats)
 
 
+def host_multistep_lib():
+    """csrc/host_step.cpp built with g++ (contraction off, as the CPU tests
+    build it), `mbb_host_multistep` typed from its signature."""
+    import ctypes
+    from madrona_basketball_tpu_torch import _build
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise Fail("g++ is missing: the host twin of kernel F needs it")
+    out = _build.BUILD_DIR / "host" / "libhost_step.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([gxx, "-O1", "-std=c++17", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-o", str(out),
+                    str(_build.CSRC / "host_step.cpp")], check=True)
+    lib = ctypes.CDLL(str(out))
+    lib.mbb_host_multistep.argtypes = _build.c_signature(
+        _build.CSRC / "host_step.cpp", "mbb_host_multistep")
+    return lib
+
+
 def bound(nbytes, nops):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = nops / FP32_FLOP_PER_S * 1e3
@@ -302,6 +328,7 @@ def main():
     from madrona_basketball_tpu_torch.ops import fused_step as FS
     from madrona_basketball_tpu_torch.ops import fused_update as FU
     from madrona_basketball_tpu_torch.ops.layout import (ACTION_ROWS, F_IDX,
+                                                         N_OBS_ROWS,
                                                          RESET_ROWS)
     from madrona_basketball_tpu_torch.ppo import train as TT
     from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
@@ -565,63 +592,93 @@ def main():
 
     # ---------------------------------------------------------- parity D
     # two chained phases (the second from Adam count 16 and non-zero
-    # moments); each phase gets identical inputs on both sides.  Tier:
-    # params 1e-4, mu and nu 1e-4 of each leaf's largest entry, plus, per
-    # entry, what the samples at a kink of the loss can change (the plain
-    # version's own two branches of each such sample's gradient, carried
-    # through the clip and Adam steps that follow:
+    # moments).  A phase's 16 Adam steps amplify last-bit differences:
+    # two correct implementations whose gradients differ in the last bits
+    # drift ~1e-7 apart in the params, and a sample whose ReLU margin lies
+    # within that drift of zero then takes a different side in each (PERF.md
+    # §6, PR 6).  So a phase is held as its steps: the phase launch equals
+    # its 16 one-minibatch launches chained, bit for bit, and each of those
+    # holds against the plain step from the same params and moments.  Tier
+    # per step: 1/16 of the phase's (params 1e-4, mu and nu 1e-4 of each
+    # leaf's largest entry), plus, per entry, what the step's samples at a
+    # kink of the loss can change (the plain version's own two branches of
+    # each such sample's gradient, carried through the clip and Adam step:
     # FU.update_phase_kinks); no kink, no allowance.  At most 0.1 % of the
-    # phase's samples may sit at a kink.
+    # phase's samples may sit at a kink.  The phase against the plain
+    # phase from the same inputs is printed as `drift`, unchecked.
     mom = TT.init_adam(u_params)
     d_in = (u_params, mom.mu, mom.nu)
-    count, d_err, n_off, bitwise = 0, {}, 0, True
-    kinks = []
+    count, d_err, n_off, bitwise, composed = 0, {}, 0, True, True
+    kinks, drift = [], []
+
+    def same(x, y):
+        return all(torch.equal(a, b) for u, v in zip(x, y)
+                   for a, b in zip(u, v))
     for phase in range(2):
         args = (hp, u_idx, count, u_traj, u_side, u_nrm, u_ustats)
         dk = FU.fused_update_phase(*args, *d_in, wb=wb)
         dk2 = FU.fused_update_phase(*args, *d_in, wb=wb)
-        *dp, rep = FU.update_phase_kinks(*args, *d_in, wb=wb)
-        torch.cuda.synchronize()
-        bitwise &= all(torch.equal(a, b) for x, y in zip(dk, dk2)
-                       for a, b in zip(x, y))
-        kinks.append({"samples_at_a_kink": rep["samples"],
-                      "of_samples": rep["of_samples"],
-                      "by_branch": rep["near"],
-                      "max_allowance": {
-                          n: max(float(a.max()) for a in al)
-                          for n, al in zip(("params", "mu", "nu"),
-                                           rep["allow"])}})
-        if rep["samples"] > 1e-3 * rep["of_samples"]:
-            raise Fail(f"kernel D phase {phase}: {rep['samples']} of "
-                       f"{rep['of_samples']} samples at a kink of the loss "
-                       "(more than 0.1 %)")
-        for name, ks, ps, als in zip(("params", "mu", "nu"), dk, dp,
-                                     rep["allow"]):
-            for i, (k_, p_, a_) in enumerate(zip(ks, ps, als)):
-                if not bool(torch.isfinite(k_).all()):
-                    raise Fail(f"kernel D phase {phase} {name}[{i}]: "
-                               "non-finite")
-                d = (k_ - p_).abs()
-                e = float(d.max())
-                lim = 1e-4 if name == "params" else \
-                    1e-4 * float(p_.abs().max())
-                if bool((d > lim + a_).any()):
-                    raise Fail(f"kernel D phase {phase} {name}[{i}]: error "
-                               f"{e} above {lim} + the kink allowance "
-                               f"(max {float(a_.max())})")
-                d_err[name] = max(d_err.get(name, 0.0), e)
-                if name == "params":
-                    n_off += int(((k_ - p_).abs() > 1e-5).sum())
-        d_in = dp
+        bitwise &= same(dk, dk2)
+        st, n_kink, near = d_in, 0, dict.fromkeys(FU.BRANCHES, 0)
+        allow_max = dict.fromkeys(("params", "mu", "nu"), 0.0)
+        for k in range(n_mb):
+            s_args = (hp, u_idx[k * bpm:(k + 1) * bpm], count + k, u_traj,
+                      u_side, u_nrm, u_ustats)
+            sk = FU.fused_update_phase(*s_args, *st, wb=wb)
+            *sp, rep = FU.update_phase_kinks(*s_args, *st, wb=wb)
+            n_kink += rep["samples"]
+            for b in FU.BRANCHES:
+                near[b] += rep["near"][b]
+            for name, ks, ps, als in zip(("params", "mu", "nu"), sk, sp,
+                                         rep["allow"]):
+                for i, (k_, p_, a_) in enumerate(zip(ks, ps, als)):
+                    if not bool(torch.isfinite(k_).all()):
+                        raise Fail(f"kernel D phase {phase} step {k} "
+                                   f"{name}[{i}]: non-finite")
+                    d = (k_ - p_).abs()
+                    e = float(d.max())
+                    lim = (1e-4 if name == "params" else
+                           1e-4 * float(p_.abs().max())) / n_mb
+                    if bool((d > lim + a_).any()):
+                        raise Fail(f"kernel D phase {phase} step {k} "
+                                   f"{name}[{i}]: error {e} above {lim} + "
+                                   "the kink allowance (max "
+                                   f"{float(a_.max())})")
+                    d_err[name] = max(d_err.get(name, 0.0), e)
+                    allow_max[name] = max(allow_max[name], float(a_.max()))
+                    if name == "params":
+                        n_off += int((d > 1e-5).sum())
+            st = sk
+        composed &= same(st, dk)
+        kinks.append({"samples_at_a_kink": n_kink,
+                      "of_samples": n_mb * hp.minibatch_size,
+                      "by_branch": near, "max_allowance": allow_max})
+        if n_kink > 1e-3 * n_mb * hp.minibatch_size:
+            raise Fail(f"kernel D phase {phase}: {n_kink} of "
+                       f"{n_mb * hp.minibatch_size} samples at a kink of "
+                       "the loss (more than 0.1 %)")
+        dp = FU.update_phase_plain(*args, *d_in, wb=wb)
+        drift.append({name: max(float((a - b).abs().max())
+                                for a, b in zip(ks, ps))
+                      for name, ks, ps in zip(("params", "mu", "nu"), dk,
+                                              dp)})
+        d_in = dk
         count += n_mb
+    torch.cuda.synchronize()
     if not bitwise:
         raise Fail("two launches of kernel D on identical inputs differ")
+    if not composed:
+        raise Fail("kernel D's phase launch differs from its one-minibatch "
+                   "launches chained")
     errs["fused_update_phase"] = d_err["params"]
     emit({"phase": "parity_fused_update_phase", "epochs": hp.update_epochs,
           "minibatches": hp.num_minibatches, "wb": wb, "phases": 2,
-          "adam_count_after": count, "max_abs_err": d_err,
+          "adam_count_after": count, "max_abs_err_per_step": d_err,
           "params_off_by_more_than_1e-5": n_off,
-          "of_params": 2 * FU.N_PARAMS, "bit_identical_relaunch": bitwise,
+          "of_params": 2 * n_mb * FU.N_PARAMS,
+          "bit_identical_relaunch": bitwise,
+          "phase_equals_its_steps_chained": composed,
+          "drift_from_the_plain_phase": drift,
           "kink_delta": FU.KINK_DELTA, "kinks": kinks})
 
     # ---------------------------------------------------------- parity F
@@ -682,9 +739,50 @@ def main():
         f_philox[label] = {"diverged_world_fraction": frac,
                            "max_abs_err_agreeing_worlds": e,
                            "composes": True}
+    # one launch of F against 8 launches of kernel A, which runs the same
+    # step_world: state and the last tick's obs bit for bit
+    f_vs_a = {}
+    for label, (every, blank) in variants.items():
+        k = FS.fused_multistep(cfg, *f_in, 8, noise=ext8,
+                               obs_every_tick=every, blank_agent=blank)
+        a_sf, a_si = f_in
+        for t in range(8):
+            if blank is not None:
+                a_si = FS._blank_actions(a_si, blank)
+            chunk = ext8[t * FS.NOISE_CHUNK:
+                         t * FS.NOISE_CHUNK + FS.N_NOISE_ROWS].contiguous()
+            a_sf, a_si, a_obs = FS.fused_step(cfg, a_sf, a_si, chunk)
+        torch.cuda.synchronize()
+        bad = [int((x != y).sum()) for x, y in zip(k, (a_sf, a_si, a_obs))]
+        if any(bad):
+            raise Fail(f"multistep {label}: one 8-tick launch != 8 launches "
+                       f"of kernel A ({bad} entries of sf, si, obs differ)")
+        f_vs_a[label] = "bit-identical"
+    # the CPU build of F's CTA (csrc/host_step.cpp, the warp roles in the
+    # card's barrier order) against the card at 1024 worlds, A's tier
+    f_host = host_multistep_lib()
+    wh = 1024
+    h_in = [x[:, :wh].contiguous() for x in f_in]
+    h_ext = ext8.reshape(8 * FS.NOISE_CHUNK, W)[:, :wh].contiguous()
+    f_host_err = {}
+    for label, (every, blank) in variants.items():
+        k = FS.fused_multistep(cfg, *h_in, 8, noise=h_ext,
+                               obs_every_tick=every, blank_agent=blank)
+        c_in = [x.cpu() for x in (*h_in, h_ext)]
+        sf2, si2 = torch.empty_like(c_in[0]), torch.empty_like(c_in[1])
+        obs2 = torch.empty((256, wh))
+        f_host.mbb_host_multistep(
+            FS.sim_params(cfg), c_in[2].data_ptr(), c_in[0].data_ptr(),
+            c_in[1].data_ptr(), sf2.data_ptr(), si2.data_ptr(),
+            obs2.data_ptr(), wh, 8, 0, 0, 0, int(every),
+            -1 if blank is None else blank)
+        f_host_err[label] = compare(f"multistep host twin {label}",
+                                    [x.cpu() for x in k], [sf2, si2, obs2])
     emit({"phase": "parity_multistep", "worlds": W,
           "external_noise_ticks": 8, "max_abs_err": f_err,
-          "philox_ticks": T, "philox": f_philox})
+          "philox_ticks": T, "philox": f_philox,
+          "vs_8_launches_of_kernel_a": f_vs_a,
+          "host_twin_worlds": wh, "host_twin_max_abs_err": f_host_err})
 
     # ---------------------------------------------------------- shot margin
     # worlds whose next tick decides a shot within a few rounding steps of
@@ -1293,10 +1391,23 @@ def main():
     d_split = {k: kernel_ms(calls["fused_update_phase"][0], 3, {k: n_mb})
                for k in grad_k}
     # what ptxas printed for the redesigned kernels' main-path instances,
-    # and their resident warps per SM
+    # and their warps per SM
     ptx = {n: _build.ptxas_kernels(n) for n in ("fused_update",
                                                  "fused_rollout",
-                                                 "fused_rollout_tiled")}
+                                                 "fused_rollout_tiled",
+                                                 "fused_multistep",
+                                                 "fused_gae")}
+    # kernel F's SASS: system 18's shared-memory stores inside the tick
+    # loop of the every-tick instance, no global stores there
+    sass = _build.sass_loop_counts("fused_multistep")
+    f_occ = FS.multistep_occupancy(dev, W)
+
+    def f_design(every):
+        key = f"fused_multistep_kernelILb{int(every)}E"
+        inst = "every_tick_obs" if every else "held_obs"
+        return {"ptxas": ptx_of("fused_multistep", key),
+                "occupancy": f_occ[inst],
+                "sass": next(v for k, v in sass.items() if key in k)}
 
     def ptx_of(lib, key):
         return next((v for k, v in ptx[lib].items() if key in k), None)
@@ -1314,7 +1425,21 @@ def main():
             "occupancy": FR.rollout_occupancy(dev)},
         "fused_rollout_tiled": {
             "ptxas": ptx_of("fused_rollout_tiled",
-                            "fused_rollout_tiled_kernelILi1ELb0E")}}
+                            "fused_rollout_tiled_kernelILi1ELb0E")},
+        "fused_multistep_every_tick_obs": f_design(True),
+        "fused_multistep_held_obs": f_design(False),
+        "fused_gae": {"ptxas": ptx_of("fused_gae", "fused_gae_kernel"),
+                      "occupancy": FG.gae_occupancy(dev, T, W)}}
+    # system 18 stores N_OBS_ROWS obs rows a world each tick: the
+    # every-tick loop holds at least that many more STS than the held one
+    f_sts = [design[f"fused_multistep_{n}"]["sass"]["STS_in_loop"]
+             for n in ("every_tick_obs", "held_obs")]
+    if f_sts[0] - f_sts[1] < N_OBS_ROWS or \
+            design["fused_multistep_every_tick_obs"]["sass"]["STG_in_loop"]:
+        raise Fail(f"kernel F's tick loop: STS {f_sts} (every tick, held), "
+                   "system 18's shared stores are not inside the loop or "
+                   "obs still go to global memory there")
+    emit({"phase": "design", **design})
     # library_ms: one PyTorch call computing the same function, where one
     # exists (only kernel E's per-feature moments: torch.var_mean)
     library = {"obs_moments": cuda_ms(
@@ -1457,7 +1582,7 @@ def main():
                      "bytes": bytes_f, "ops": nops,
                      "obs_bytes_all_ticks": obs_all,
                      "obs_bytes_all_ticks_ms": obs_all / HBM_BYTES_PER_S
-                     * 1e3})
+                     * 1e3, **design.get(name, {})})
     emit({"phase": "kernel_times", "note": "library_ms is torch.var_mean "
           "over ticks and worlds for obs_moments (kernel E) and null "
           "elsewhere: no single PyTorch call computes a sim tick, a "

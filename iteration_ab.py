@@ -3,6 +3,7 @@
 tree's, on one card, in turns.
 
     python3 iteration_ab.py --other DIR [--turns other,this,this,other]
+                            [--tiled | --multistep]
 
 DIR is another checkout of the repository (for example the parent
 commit, unpacked with `git archive`).  Each turn is a fresh process that
@@ -16,7 +17,12 @@ span: reset_pulse, rollout, gae, glue, update, and the iteration), then
 one more iteration under torch.profiler for the device's busy time and
 idle share and the kernels by device time.  One JSON line per turn,
 each with the card's name and power limit; the last line is the
-per-tree medians over the turns.
+per-tree medians over the turns.  `--tiled` measures the
+`--rollout-tiled` iteration (chip_smoke.py's `tiled_path`) instead.
+`--multistep` measures kernel F as the stepping bench's engines (c) and
+(d) launch it: 8192 worlds from `init_rows` (seed 0), 5000 ticks a
+launch with in-kernel Philox, obs every tick with agent 0 blanked, and
+held obs; each the fastest of three launches timed with CUDA events.
 """
 
 import argparse
@@ -39,7 +45,7 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def measure(tree: Path) -> dict:
+def measure(tree: Path, tiled: bool = False) -> dict:
     """One turn, in this process, with the port imported from `tree`."""
     sys.path.insert(0, str(tree))
     import torch
@@ -64,7 +70,7 @@ def measure(tree: Path) -> dict:
     cfg = SimConfig()
     hp = PPOParams(num_envs=8192, num_rollout_steps=32)
     state = init_train_state(cfg, hp, seed=1, device=dev)
-    it_fn = make_train_iteration(cfg, hp, device=dev)
+    it_fn = make_train_iteration(cfg, hp, device=dev, rollout_tiled=tiled)
     warmup = max(1, int(cfg.time_per_period * 62) // (hp.num_rollout_steps
                                                        + 1) - 1)
     for _ in range(warmup):
@@ -97,7 +103,8 @@ def measure(tree: Path) -> dict:
                     e.count) for e in prof.key_averages()), reverse=True)
     rows = [r for r in rows if r[0] > 0]
     busy = sum(r[0] for r in rows)
-    return {"tree": str(tree), "card": card(), "build_s": build_s,
+    return {"tree": str(tree), "tiled": tiled, "card": card(),
+            "build_s": build_s,
             "warmup_iterations": warmup,
             "ms_median": {k: statistics.median(v) for k, v in times.items()},
             "ms": times, "wall_ms": wall, "trace_wall_ms": trace_wall,
@@ -107,15 +114,62 @@ def measure(tree: Path) -> dict:
                               for ms, k, n in rows[:8]]}
 
 
+def measure_multistep(tree: Path, K: int = 5000) -> dict:
+    """One turn of `--multistep`, with the port imported from `tree`."""
+    sys.path.insert(0, str(tree))
+    import torch
+    import madrona_basketball_tpu_torch as port
+    from madrona_basketball_tpu_torch import _build
+    from madrona_basketball_tpu_torch.config import SimConfig
+    from madrona_basketball_tpu_torch.engine import init_rows
+    from madrona_basketball_tpu_torch.ops import fused_step as FS
+    if Path(port.__file__).resolve().parents[1] != tree.resolve():
+        raise SystemExit(f"imported the port from {port.__file__}, not "
+                         f"{tree}")
+    if not torch.cuda.is_available():
+        raise SystemExit("iteration_ab: needs one CUDA card")
+    t0 = time.perf_counter()
+    _build.build(["fused_multistep"])
+    build_s = time.perf_counter() - t0
+    dev = torch.device("cuda:0")
+    cfg = SimConfig()
+    sf, si = init_rows(cfg, 8192, torch.Generator(device=dev).manual_seed(0),
+                       dev)
+    ms = {}
+    for name, every in (("every_tick_obs", True), ("held_obs", False)):
+        kw = dict(obs_every_tick=every, blank_agent=0 if every else None)
+        FS.fused_multistep(cfg, sf, si, K, seed=1, **kw)
+        torch.cuda.synchronize()
+        best = float("inf")
+        for seed in (2, 3, 4):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = FS.fused_multistep(cfg, sf, si, K, seed=seed, **kw)
+            b.record()
+            torch.cuda.synchronize()
+            best = min(best, a.elapsed_time(b))
+        if not bool(torch.isfinite(out[0]).all()):
+            raise SystemExit("iteration_ab: kernel F gave non-finite state")
+        ms[name] = best
+    return {"tree": str(tree), "multistep": True, "card": card(),
+            "build_s": build_s, "ticks": K, "launch_ms": ms}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", type=Path, required=False)
     ap.add_argument("--turns", default="other,this,this,other")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--tiled", action="store_true")
+    mode.add_argument("--multistep", action="store_true")
     ap.add_argument("--measure", type=Path, default=None,
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.measure is not None:
-        print(json.dumps(measure(args.measure)), flush=True)
+        line = measure_multistep(args.measure) if args.multistep else \
+            measure(args.measure, args.tiled)
+        print(json.dumps(line), flush=True)
         return
     if args.other is None:
         raise SystemExit("iteration_ab: --other DIR is required")
@@ -125,7 +179,8 @@ def main():
     for turn in args.turns.split(","):
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--measure",
-             str(trees[turn])], cwd=trees[turn], env=env,
+             str(trees[turn])] + ["--tiled"] * args.tiled +
+            ["--multistep"] * args.multistep, cwd=trees[turn], env=env,
             capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             raise SystemExit(f"turn {turn} exited {proc.returncode}: "
@@ -134,6 +189,13 @@ def main():
         line["turn"] = turn
         results[turn].append(line)
         print(json.dumps(line), flush=True)
+    if args.multistep:
+        print(json.dumps({"multistep_ab": {
+            name: {"turns": len(rs), "launch_ms": [r["launch_ms"]
+                                                   for r in rs]}
+            for name, rs in results.items() if rs}, "card": card()}),
+            flush=True)
+        return
     summary = {name: {
         "turns": len(rs),
         "iteration_ms": [r["ms_median"]["iteration"] for r in rs],
@@ -143,7 +205,8 @@ def main():
         "device_idle_share": [r["device_idle_share"] for r in rs],
         "device_busy_ms": [r["device_busy_ms"] for r in rs]}
         for name, rs in results.items() if rs}
-    print(json.dumps({"iteration_ab": summary, "card": card()}), flush=True)
+    print(json.dumps({"iteration_ab": summary, "tiled": args.tiled,
+                      "card": card()}), flush=True)
 
 
 if __name__ == "__main__":

@@ -162,6 +162,39 @@ def ptxas_kernels(name: str) -> dict:
     return out
 
 
+def sass_loop_counts(name: str, ops=("STS", "STG", "LDS", "LDL", "STL"),
+                     path: Path | None = None):
+    """Per kernel of csrc/<name>.cu (keyed by its mangled name), how many
+    SASS instructions of each opcode family in `ops` lie inside its
+    longest backward branch that contains a CTA barrier (a kernel's tick
+    loop; without a barrier, its longest backward branch) and in the whole
+    kernel, from `cuobjdump -sass` of the built library (or of the
+    library at `path`)."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    lib = lib_path(name) if path is None else path
+    sass = subprocess.run([str(tool), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for body in re.split(r"\n\s+Function : ", sass)[1:]:
+        fn = body.split("\n", 1)[0].strip()
+        code = [(int(a, 16), op, rest) for a, op, rest in re.findall(
+            r"/\*([0-9a-f]{4,6})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
+            r"([^;]*);", body)]
+        bars = [a for a, op, _ in code if op == "BAR"]
+        back = [(int(m.group(1), 16), a) for a, op, rest in code
+                if op == "BRA" for m in [re.search(r"0x([0-9a-f]+)", rest)]
+                if m and int(m.group(1), 16) < a]
+        with_bar = [(lo, hi) for lo, hi in back
+                    if any(lo <= b <= hi for b in bars)]
+        loop = max(with_bar or back or [(0, -1)], key=lambda x: x[1] - x[0])
+        out[fn] = {"loop_bytes": loop[1] - loop[0] + 1}
+        for o in ops:
+            out[fn][f"{o}_in_loop"] = sum(
+                1 for a, op, _ in code if op == o and loop[0] <= a <= loop[1])
+            out[fn][f"{o}_total"] = sum(1 for _, op, _ in code if op == o)
+    return out
+
+
 _LIBS: dict = {}
 
 

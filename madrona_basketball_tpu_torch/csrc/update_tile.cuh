@@ -196,6 +196,16 @@ MBU_HD float clampf(float x, float lo, float hi) {
     return fminf(fmaxf(x, lo), hi);
 }
 
+// a product rounded on its own, never contracted into an FMA (the host
+// build is compiled with -ffp-contract=off)
+MBU_HD float mul_rn(float a, float b) {
+#if defined(__CUDACC__)
+    return __fmul_rn(a, b);
+#else
+    return a * b;
+#endif
+}
+
 MBU_HD float rsqrt_(float x) {
 #if defined(__CUDACC__)
     return rsqrtf(x);
@@ -296,14 +306,20 @@ MBU_HD void tile_product(const float *wk, const float *x, float *y,
     }
 }
 
-// ---- LayerNorm forward: 4 threads a sample, units 8q..8q+7
+// ---- LayerNorm forward: 4 threads a sample, units 8q..8q+7.  Every
+// product rounds on its own and the sums run in this unit order, as the
+// plain version's (fused_update.py `_ln_fwd`: z * z, mu * mu and hhat * g
+// each rounded): hhat = (z - mean) * rstd turns an ulp of the layer's
+// inputs into the error of a unit near its mean, where the ReLU decides,
+// so an FMA in layer 1's output, or in the statistics, moves layer 2's
+// ReLU sides by far more than the last bit.
 MBU_HD void stage_ln_stats(float *sm, const float *z, int tid) {
     const int s = tid & (S - 1), q = tid / S;
     float s1 = 0.0f, s2 = 0.0f;
     for (int u = 8 * q; u < 8 * q + 8; ++u) {
         const float v = z[u * SP + s];
         s1 += v;
-        s2 += v * v;
+        s2 += mul_rn(v, v);
     }
     sm[SS_PART + (2 * q) * S + s] = s1;
     sm[SS_PART + (2 * q + 1) * S + s] = s2;
@@ -325,13 +341,14 @@ MBU_HD void stage_ln_apply(float *sm, float *h, float *a, int sc,
     float s1, s2;
     quarter_sums(sm, s, s1, s2);
     const float mu = s1 * (1.0f / H), mu2 = s2 * (1.0f / H);
-    const float rstd = rsqrt_(fmaxf(mu2 - mu * mu, 0.0f) + LN_EPS);
+    const float rstd = rsqrt_(fmaxf(mu2 - mul_rn(mu, mu), 0.0f) + LN_EPS);
     const float *bias = sm + SW_B;
     for (int u = 8 * q; u < 8 * q + 8; ++u) {
         const float hh = (h[u * SP + s] - mu) * rstd;
         h[u * SP + s] = hh;
-        a[u * SP + s] =
-            fmaxf(hh * bias[u * NBCOL + sc] + bias[u * NBCOL + sc + 1], 0.0f);
+        a[u * SP + s] = fmaxf(
+            mul_rn(hh, bias[u * NBCOL + sc]) + bias[u * NBCOL + sc + 1],
+            0.0f);
     }
     if (q == 0) rstd_out[s] = rstd;
 }
@@ -432,7 +449,7 @@ MBU_HD void stage_ln_bwd_stats(float *sm, float *dy, const float *h, int sc,
     for (int u = 8 * q; u < 8 * q + 8; ++u) {
         const float hh = h[u * SP + s];
         const float g = bias[u * NBCOL + sc];
-        const float y = hh * g + bias[u * NBCOL + sc + 1];
+        const float y = mul_rn(hh, g) + bias[u * NBCOL + sc + 1];
         const float d = (y > 0.0f) ? dy[u * SP + s] : 0.0f;
         dy[u * SP + s] = d;
         const float dh = d * g;

@@ -13,10 +13,12 @@ trajectory's value/reward/done rows:
 
 `gae_plain` is the plain version; `fused_gae` is kernel C
 (csrc/fused_gae.cu), replacing the Pallas kernel `make_fused_gae`
-(madrona_basketball_tpu/ops/fused_gae.py:58, pallas_call :178).  One
-thread per world runs the recursions; the block sums are shared-memory
-reductions.  It is bound by bytes: per world it reads 3 T + 3 floats and
-writes 8 T + 2 (~1.4 KB at T = 32).
+(madrona_basketball_tpu/ops/fused_gae.py:58, pallas_call :178).  Each
+world block is a cluster of CTAs of 32 worlds: the input rows are staged
+in shared memory, one thread per world runs each recursion from there,
+and the block sums meet over distributed shared memory.  It is bound by
+bytes: per world it reads 3 T + 3 floats and writes 8 T + 2 (~1.4 KB at
+T = 32).
 
 The port's world block (`pick_gae_block(W)`, at most GAE_BLOCK_CAP = 128)
 is smaller than the TPU's 1024; it is chosen here and nowhere else, and a
@@ -172,9 +174,9 @@ def fused_gae(traj, carry, next_value_n, vstats, *, gamma: float,
     if traj.device.type != "cuda":
         raise ValueError(f"unsupported device {traj.device}")
     gb = pick_gae_block(W)
-    if gb % 32 or gb > 1024:
+    if gb % 32:
         raise ValueError("kernel C needs a world block that is a multiple "
-                         "of 32 and at most 1024")
+                         "of 32 (a world count that is one)")
     from .. import _build
     dev = traj.device
     _build.check_device(dev, carry=carry, next_value=next_value_n,
@@ -183,6 +185,8 @@ def fused_gae(traj, carry, next_value_n, vstats, *, gamma: float,
     nb = W // gb
     traj, carry, next_value_n, vstats = (
         x.contiguous() for x in (traj, carry, next_value_n, vstats))
+    if traj.data_ptr() % 16:
+        traj = traj.clone()  # the kernel reads 16-byte vectors
     side = torch.empty((T, SIDE_ROWS, W), dtype=F32, device=dev)
     moments = torch.empty((nb, 8), dtype=F32, device=dev)
     carry2 = torch.empty((2, W), dtype=F32, device=dev)
@@ -196,6 +200,33 @@ def fused_gae(traj, carry, next_value_n, vstats, *, gamma: float,
     _build.check(err, "fused_gae")
     launches += 1
     return side, moments, carry2, ticks
+
+
+GAE_TILE = 32  # worlds per CTA (csrc/gae_tile.cuh)
+
+
+def gae_occupancy(dev, T: int, W: int) -> dict:
+    """Kernel C's CTAs and warps per SM at T ticks: what an SM could hold
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor: ctas_per_sm,
+    warps_per_sm), and what a launch over W worlds places on it
+    (resident_*: min(that, ceil(grid / SMs)) CTAs), with threads and
+    dynamic shared memory."""
+    import ctypes
+    from .. import _build
+    if torch.device(dev).type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    lib = _build.load("fused_gae")
+    out = (ctypes.c_int * 3)()
+    _build.check(lib.mbb_fused_gae_occupancy(T, ctypes.addressof(out)),
+                 "fused_gae")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = -(-W // GAE_TILE)
+    ctas = min(out[0], -(-grid // sms))
+    return {"ctas_per_sm": out[0], "threads": out[1],
+            "warps_per_sm": out[0] * out[1] // 32,
+            "dynamic_smem_bytes": out[2], "grid_ctas": grid,
+            "resident_ctas_per_sm": ctas,
+            "resident_warps_per_sm": ctas * out[1] // 32}
 
 
 # =====================================================================

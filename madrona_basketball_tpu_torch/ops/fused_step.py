@@ -17,7 +17,9 @@ same function live here:
   * `fused_multistep(cfg, sf, si, K, ...)` - kernel F
     (csrc/fused_multistep.cu), replacing the Pallas kernel
     `make_fused_multistep` (fused_step.py:1134, pallas_call :1274): K
-    ticks in one launch with the state in registers; its plain version is
+    ticks in one launch, a CTA per 32 worlds whose sim warp keeps the
+    state in registers while helper warps draw the next tick's noise and
+    build the obs in shared memory; its plain version is
     `multistep_rows_plain`.
 
 Kernel A is bound by bytes: per world it reads 9 noise + 72 + 59 state
@@ -75,16 +77,30 @@ def _rsqrt_safe(x):
     return torch.rsqrt(torch.clamp(x, min=1e-30))
 
 
+def _fma(a, b, c):
+    """a * b + c rounded once to float32, a fused multiply-add: the float32
+    product is exact in float64, so only the float64 sum rounds before the
+    final rounding (the two disagree on ~2^-28 of inputs)."""
+    return (a.double() * b.double() + c.double()).to(F32)
+
+
 def shot_aim(ag, i, ax, ay, shot_noise):
     """System 6's aim for agent i at hoop (ax, ay): the shot direction
     (fvx, fvy), the distance along it to the hoop's nearest point t_along
     and the squared miss distance closest_sq = dist2 - t_along^2 (going in
     when t_along >= 0 and closest_sq <= ZONE_R^2).  shot_noise holds the
-    agent's three shot-noise rows (distance, defender, velocity)."""
+    agent's three shot-noise rows (distance, defender, velocity).
+
+    The sums of products are fused multiply-adds where the JAX package's
+    `fused_step_xla` contracts them on the CPU (XLA:CPU fuses one product
+    of `p*q + r*s` into an FMA; found by probing each sum on threshold
+    worlds, tests/test_torch_shot_xla.py).  XLA recomputes fvx inside the
+    fusion of t_along and contracts the other product there, so t_along
+    reads its own copy of fvx."""
     a = ag[i]
     ix = ax - a["pos_x"]
     iy = ay - a["pos_y"]
-    dist2 = ix * ix + iy * iy
+    dist2 = _fma(ix, ix, iy * iy)
     dist = torch.sqrt(dist2)
     inv = _rsqrt_safe(dist2)
     sin_i = w(dist > 0.0, ix * inv, 0.0)
@@ -107,10 +123,10 @@ def shot_aim(ag, i, ax, ay, shot_noise):
                   shot_noise[2] * (C.VEL_DEVIATION_FACTOR * vlen), 0.0)
     # (sin(i+dev), cos(i+dev)) by angle addition (src/game.cpp:302,345)
     sd, cd = torch.sin(dev), torch.cos(dev)
-    fvx = sin_i * cd + cos_i * sd
-    fvy = cos_i * cd - sin_i * sd
-    t_along = ix * fvx + iy * fvy
-    return fvx, fvy, t_along, dist2 - t_along * t_along
+    fvx = _fma(sin_i, cd, cos_i * sd)
+    fvy = _fma(cos_i, cd, -(sin_i * sd))
+    t_along = _fma(ix, _fma(cos_i, sd, sin_i * cd), iy * fvy)
+    return fvx, fvy, t_along, _fma(-t_along, t_along, dist2)
 
 
 def _fwd_from_quat(qw, qx, qy, qz):
@@ -1260,3 +1276,33 @@ def fused_multistep(cfg: SimConfig, sf: torch.Tensor, si: torch.Tensor,
     _build.check(err, "fused_multistep")
     multistep_launches[MULTISTEP_VARIANTS[0 if obs_every_tick else 1]] += 1
     return sf2, si2, obs
+
+
+MULTISTEP_TILE = 32  # worlds per CTA, one sim warp (MS_TILE, sim_world.cuh)
+
+
+def multistep_occupancy(dev, W: int) -> dict:
+    """Kernel F's CTAs and warps per SM, per instance: what an SM could
+    hold (cudaOccupancyMaxActiveBlocksPerMultiprocessor: ctas_per_sm,
+    warps_per_sm), and what a launch over W worlds places on it
+    (resident_*: min(that, ceil(grid / SMs)) CTAs, one sim warp each),
+    with threads and dynamic shared memory."""
+    import ctypes
+    if torch.device(dev).type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    lib = _build.load("fused_multistep")
+    out = (ctypes.c_int * 6)()
+    _build.check(lib.mbb_fused_multistep_occupancy(ctypes.addressof(out)),
+                 "fused_multistep")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = -(-W // MULTISTEP_TILE)
+    res = {}
+    for name, i in (("held_obs", 0), ("every_tick_obs", 3)):
+        ctas = min(out[i], -(-grid // sms))
+        res[name] = {"ctas_per_sm": out[i], "threads": out[i + 1],
+                     "warps_per_sm": out[i] * out[i + 1] // 32,
+                     "dynamic_smem_bytes": out[i + 2], "grid_ctas": grid,
+                     "resident_ctas_per_sm": ctas,
+                     "resident_warps_per_sm": ctas * out[i + 1] // 32,
+                     "resident_sim_warps_per_sm": ctas}
+    return res

@@ -147,10 +147,29 @@ def pick_update_block(W: int, mb_size: int, cap: int = 4096) -> int:
 # Plain versions
 # =====================================================================
 
+def _unit_sum(x):
+    """(H, R) -> (1, R): the sum over the H units in the kernels' order
+    (csrc/update_tile.cuh, `stage_ln_stats` + `quarter_sums`): four runs
+    of H / 4 consecutive units, each added in unit order, then the four
+    run sums in run order.  A LayerNorm turns its mean's rounding into
+    the error of a unit near the mean, where the ReLU decides, so the
+    mean is summed as the kernels sum it, not by a torch reduction whose
+    order depends on the device."""
+    n = x.shape[0] // 4
+    runs = []
+    for r in range(4):
+        acc = x[r * n]
+        for u in range(r * n + 1, (r + 1) * n):
+            acc = acc + x[u]
+        runs.append(acc)
+    return (runs[0] + runs[1] + runs[2] + runs[3])[None]
+
+
 def _ln_fwd(z, scale, bias):
     """Feature axis 0; flax fast-variance numerics."""
-    mu = z.mean(dim=0, keepdim=True)
-    mu2 = (z * z).mean(dim=0, keepdim=True)
+    inv = 1.0 / z.shape[0]
+    mu = _unit_sum(z) * inv
+    mu2 = _unit_sum(z * z) * inv
     var = torch.clamp(mu2 - mu * mu, min=0.0)
     rstd = torch.rsqrt(var + LN_EPS)
     hhat = (z - mu) * rstd
@@ -347,10 +366,13 @@ def _phase_geometry(hp, idx, traj, side, wb):
         raise ValueError(
             f"num_minibatches={hp.num_minibatches} must divide the rollout "
             f"batch ({T}*{W}={T * W} samples) exactly for the update phase")
-    n_mb = hp.update_epochs * hp.num_minibatches
     bpm = hp.minibatch_size // wb
-    if idx.shape != (n_mb * bpm,) or idx.dtype != I32:
-        raise ValueError(f"idx must be ({n_mb * bpm},) int32")
+    if idx.dim() != 1 or idx.numel() < bpm or idx.numel() % bpm or \
+            idx.dtype != I32:
+        raise ValueError(f"idx must be (n * {bpm},) int32: whole minibatches "
+                         f"({hp.update_epochs * hp.num_minibatches} for a "
+                         "phase)")
+    n_mb = idx.numel() // bpm
     if traj.dtype != F32 or rows <= R_LOGP:
         raise ValueError("traj must be (T, rows > R_LOGP, W) float32")
     if side.shape != (T, SIDE_ROWS, W) or side.dtype != F32:
@@ -369,10 +391,11 @@ def _check_mats(*mat_sets):
 @torch.no_grad()
 def update_phase_plain(hp, idx, count: int, traj, side, nrm, ustats,
                        params, mu, nu, *, wb: int):
-    """Plain version of kernel D: E x M minibatches, each the gradient of
-    its `wb`-wide blocks of `idx` then `clip_adam_step` with step
-    count + k + 1.  `ustats` None means the side rows are already
-    normalized.  Returns (params', mu', nu') as tuples of 4 tensors."""
+    """Plain version of kernel D: the E x M minibatches of `idx` (or the
+    whole minibatches it holds), each the gradient of its `wb`-wide blocks
+    then `clip_adam_step` with step count + k + 1.  `ustats` None means
+    the side rows are already normalized.  Returns (params', mu', nu') as
+    tuples of 4 tensors."""
     return _update_phase(hp, idx, count, traj, side, nrm, ustats, params,
                          mu, nu, wb=wb, kinks=False)
 
@@ -610,7 +633,8 @@ def fused_update_phase(hp, idx, count: int, traj, side, nrm, ustats, params,
     """Kernel D on CUDA tensors, `update_phase_plain` on CPU tensors.
 
     idx (E * T * W / wb,) int32: each epoch's permutation of the blocks,
-    epochs in order; count: Adam steps taken so far; ustats (1, 8) for
+    epochs in order (any whole number of minibatches of it runs those
+    minibatches' steps); count: Adam steps taken so far; ustats (1, 8) for
     raw side rows or None for normalized ones; params / mu / nu: 4
     kernel-orientation tensors each.  Returns new (params', mu', nu');
     the inputs are not modified.  One C call issues the phase's

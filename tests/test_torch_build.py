@@ -27,7 +27,9 @@ def test_kernel_signatures_parse_from_sources():
         "obs_moments": [P] * 3 + [I] * 5 + [P],
     }
     # a source's entries besides its kernel's: the resident CTAs per SM
-    occupancy = {"fused_rollout": ["mbb_fused_rollout_occupancy"]}
+    # (kernel C's at a tick count)
+    occupancy = {"fused_rollout": {"mbb_fused_rollout_occupancy": [P]},
+                 "fused_gae": {"mbb_fused_gae_occupancy": [I, P]}}
     # one source, three entries: kernels D, G and H, and their occupancy
     update = {
         "mbb_fused_update_phase": [P, I] + [P] * 8 + [I] * 6 + [F] * 3 +
@@ -37,10 +39,12 @@ def test_kernel_signatures_parse_from_sources():
         "mbb_fused_minibatch_grad": [P] * 5 + [I] * 3 + [F] * 3 + [I, P],
         "mbb_update_occupancy": [P],
     }
-    # one source, two entries: kernel F with in-kernel and external noise
+    # one source, three entries: kernel F with in-kernel and external
+    # noise, and its occupancy
     multistep = {
         "mbb_fused_multistep": [sp] + [P] * 5 + [I] * 3 + [U, U, I, I, P],
         "mbb_fused_multistep_ext": [sp] + [P] * 6 + [I] * 4 + [P],
+        "mbb_fused_multistep_occupancy": [P],
     }
     assert set(want) | {"fused_update", "fused_multistep"} == \
         set(_build.KERNELS)
@@ -48,10 +52,10 @@ def test_kernel_signatures_parse_from_sources():
         got = _build.c_signature(_build.CSRC / f"{name}.cu", f"mbb_{name}")
         assert got == types, name
         assert _build.entries(name) == [f"mbb_{name}"] + \
-            occupancy.get(name, [])
-        for entry in occupancy.get(name, []):
+            list(occupancy.get(name, {}))
+        for entry, types in occupancy.get(name, {}).items():
             assert _build.c_signature(_build.CSRC / f"{name}.cu",
-                                      entry) == [P]
+                                      entry) == types
     assert _build.entries("fused_update") == list(update)
     for entry, types in update.items():
         got = _build.c_signature(_build.CSRC / "fused_update.cu", entry)

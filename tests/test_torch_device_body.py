@@ -5,8 +5,8 @@ The same `step_world` source that kernels A and B run, built for the host
 with contraction off, must give the plain version's integer state exactly
 and its floats to 1e-4 (host libm sin/cos/exp vs torch's, 1/sqrtf for the
 card's rsqrtf).  This checks the transcription here; the card's own
-parity runs in chip_smoke.py.  Kernel F's per-world loop `multistep_world`,
-built the same way (`mbb_host_multistep`), is held against
+parity runs in chip_smoke.py.  Kernel F's CTA, its warp roles run in the
+card's order and built the same way (`mbb_host_multistep`), is held against
 `multistep_rows_plain` at the same tolerance, on external and on Philox
 noise.  On worlds whose shot lands within a few rounding steps of the
 going-in threshold (`shot_margin_inputs`), the shot's outcome - the

@@ -154,3 +154,41 @@ def test_host_feat_grad_matches_minibatch_grad_plain(host):
         mb, feat.shape[1], *_args(hp))
     _grad_close(FU._split(grads),
                 FU.minibatch_grad_plain(hp, feat, nrm, *params))
+
+
+def test_phase_equals_its_minibatches_chained(host):
+    """A phase of 4 minibatches equals its minibatches run one call each,
+    chained, bit for bit: the host build of kernel D and its plain version
+    (chip_smoke.py holds the card's phase that way, each step against the
+    plain step from the same params and moments)."""
+    hp = PPOParams(num_envs=W, num_rollout_steps=T, update_epochs=2,
+                   num_minibatches=2)
+    rng, nrm, params, traj, side, ustats = _inputs(11)
+    wb = 64
+    bpm = hp.minibatch_size // wb
+    idx = torch.tensor(np.concatenate([rng.permutation(T * W // wb)
+                                       for _ in range(2)]), dtype=torch.int32)
+    opt = TT.init_adam(params)
+
+    def host_run(ix, count, mats):
+        p, m, v = (FU._flat(x).clone() for x in mats)
+        host.mbb_host_update_phase(
+            ix.data_ptr(), count, traj.data_ptr(), side.data_ptr(),
+            nrm.data_ptr(), ustats.data_ptr(), p.data_ptr(), m.data_ptr(),
+            v.data_ptr(), 3, 128, W, wb, bpm, ix.numel() // bpm,
+            *_args(hp), float(hp.learning_rate), float(hp.max_grad_norm))
+        return tuple(FU._split(x) for x in (p, m, v))
+
+    def plain_run(ix, count, mats):
+        return FU.update_phase_plain(hp, ix, count, traj, side, nrm, ustats,
+                                     *mats, wb=wb)
+    for run in (host_run, plain_run):
+        whole = run(idx, 0, (params, opt.mu, opt.nu))
+        st = (params, opt.mu, opt.nu)
+        for k in range(4):
+            st = run(idx[k * bpm:(k + 1) * bpm].clone(), k, st)
+        for x, y in zip(whole, st):
+            for a, b in zip(x, y):
+                assert torch.equal(a, b), run.__name__
+    with pytest.raises(ValueError, match="whole minibatches"):
+        plain_run(idx[:bpm + 1], 0, (params, opt.mu, opt.nu))
