@@ -16,10 +16,25 @@ then 4 epochs x 4 minibatches of 65536 samples; trainee 1, no frozen
 opponent, in-kernel Philox noise), once with kernel B (`main_path`) and
 once with `rollout_tiled=True` (kernels I and E, `tiled_path`); each
 checks the results, counts the kernel launches of its run from 0 and
-times every phase with CUDA events.  Then 600 training iterations on
-each path must reach the JAX package's learning band, and the training
-CLI runs as a subprocess (with and without `--rollout-tiled`) and writes
-a loadable checkpoint.  The stepping path comes
+times every phase with CUDA events.  The chunked dispatch
+(`ppo/train.py::make_train_chunk`, one iteration captured as a CUDA graph
+and replayed with its generators reseeded) follows on both paths: 3
+eager iterations against one chunk of 3 from clones of one state, every
+tensor, metric and counter bit for bit (`chunk_parity`,
+`chunk_parity_tiled`), then chunks of 50 (`chunked_path`,
+`chunked_tiled_path`: launches counted from 0 around the first chunk,
+which holds the warm-up step and the capture, none at replay; the
+median of 3 chunks by CUDA events over 50; one chunk profiled for the
+device's busy time, its idle share against the un-profiled chunk; peak
+device memory; the eager iteration of the same state beside it).  Then
+600 training iterations on each path must reach the JAX package's
+learning band, and the same 600 iterations in chunks of 50 must give the
+eager curve bit for bit (`learning_chunked`, `learning_chunked_tiled`).
+The training CLI runs as a subprocess (with and without
+`--rollout-tiled`, at its default auto chunk) and writes a loadable
+checkpoint, and with `--iters-per-dispatch` 0 (auto: 4 here) and 1 it
+writes equal checkpoints at iterations 4 and 8 (`cli_chunk`).  The
+stepping path comes
 next: `FusedEngine` (kernel A's `step`, kernel F's `step_many`), the
 state view and the export at 8192 worlds, held against the plain path on
 the CPU at 256 worlds, the env's reset and step (one with a frozen
@@ -31,7 +46,8 @@ time comes from torch.profiler, beside the CUDA-event time of
 back-to-back wrapper calls and of its plain version; kernel D's is also
 split into its gradient and reduce launches, and the redesigned kernels'
 rows carry ptxas's registers and spills and their warps per SM (what an
-SM could hold; for F and C also what the 8192-world grid places on it).
+SM could hold; for F and C also what the 8192-world grid places on it);
+kernels A and E also carry the median and spread of 30 profiled launches.
 Every phase line carries the card's name and power limit.  Every phase prints
 one JSON line; any failure raises and the exit code is non-zero.  The
 last lines are the per-kernel JSON line, the card's name and power
@@ -223,6 +239,41 @@ def kernel_ms(fn, reps, kernels):
     return cuda_ms(fn, reps)
 
 
+def launch_ms(fn, reps, kernels, need=21):
+    """Device time of each of `reps` profiled fn() calls: per call, the
+    sum over the kernels whose names contain each key of `kernels` (one
+    launch of each per call, in that order; a call whose launches the
+    profiler did not all record is left out).  Profiles up to three
+    windows until `need` calls are whole; returns the list of the
+    largest window (ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    best = []
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((e.time_range.start, k, e.time_range.elapsed_us())
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     for k, key in enumerate(kernels) if key in e.name)
+        calls, cur = [], []
+        for _, k, us in evs:
+            cur = cur + [us] if k == len(cur) else ([us] if k == 0 else [])
+            if len(cur) == len(kernels):
+                calls.append(sum(cur) / 1e3)
+                cur = []
+        if len(calls) > len(best):
+            best = calls
+        if len(best) >= need:
+            break
+    return best
+
+
 def count_ops(fn, *args, **kw):
     """Float arithmetic a plain version issues: elementwise results count
     one op per output element, reductions one per input element, matrix
@@ -334,7 +385,7 @@ def main():
     from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
     from madrona_basketball_tpu_torch.ppo.train_fused import (
         CollectNoise, init_rollout_state, init_train_state, make_collect,
-        make_train_iteration, update_block)
+        make_train_iteration, state_tensors, update_block)
     from madrona_basketball_tpu_torch.utils import checkpoint as CK
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -996,6 +1047,20 @@ def main():
                 "obs_moments": FG.moment_launches, "fused_gae": FG.launches,
                 "meter_scan": TT.launches, **FU.launches}
 
+    def check_path(phase, tiled, launches):
+        """Every kernel of the path launched, none of the other path's."""
+        on_path = ("fused_step", "fused_gae", "meter_scan",
+                   "fused_update_phase") + (
+            ("fused_rollout_tiled", "obs_moments") if tiled else
+            ("fused_rollout",))
+        off_path = ("fused_rollout",) if tiled else \
+            ("fused_rollout_tiled", "obs_moments")
+        if min(launches[k] for k in on_path) < 1:
+            raise Fail(f"{phase} skipped a kernel: {launches}")
+        if any(launches[k] for k in off_path):
+            raise Fail(f"{phase} launched another path's kernel: "
+                       f"{launches}")
+
     def drive(phase, tiled):
         """Warm-up, then three timed iterations of the flagship shape with
         the launches counted from 0 around them and the run's checks.
@@ -1045,17 +1110,7 @@ def main():
                         raise Fail(f"{phase}: non-finite {key}.{f}")
             dones += float(out["traj"][:, FR.R_DONE].sum())
         launches = counts()
-        on_path = ("fused_step", "fused_gae", "meter_scan",
-                   "fused_update_phase") + (
-            ("fused_rollout_tiled", "obs_moments") if tiled else
-            ("fused_rollout",))
-        off_path = ("fused_rollout",) if tiled else \
-            ("fused_rollout_tiled", "obs_moments")
-        if min(launches[k] for k in on_path) < 1:
-            raise Fail(f"{phase} skipped a kernel: {launches}")
-        if any(launches[k] for k in off_path):
-            raise Fail(f"{phase} launched another path's kernel: "
-                       f"{launches}")
+        check_path(phase, tiled, launches)
         if launches["fused_update_phase"] != 3 or \
                 FU.device_launches != 3 * 2 * n_mb:
             raise Fail(f"kernel D: {launches['fused_update_phase']} calls, "
@@ -1092,29 +1147,35 @@ def main():
         emit(line)
         return state, out, train_iteration, launches
 
-    def trace(phase, state, train_iteration):
-        """One more iteration under torch.profiler: device busy share and
-        the kernels by device time (after the counted run, so not in its
-        launches)."""
+    def profiled(fn):
+        """fn() under torch.profiler: (its result, device busy ms (None if
+        the profiler saw no device time), the profiled wall ms, the
+        kernels by device time)."""
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            state, _ = train_iteration(state)
+            res = fn()
             torch.cuda.synchronize()
-            trace_wall = (time.perf_counter() - t0) * 1e3
+            wall_ = (time.perf_counter() - t0) * 1e3
         rows_t = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.key,
                    e.count) for e in prof.key_averages()]
         rows_t = sorted([r for r in rows_t if r[0] > 0], reverse=True)
         busy = sum(r[0] for r in rows_t)
+        return res, (busy or None), wall_, [[round(ms, 4), k[:60], n]
+                                            for ms, k, n in rows_t[:8]]
+
+    def trace(phase, state, train_iteration):
+        """One more iteration under torch.profiler: device busy share and
+        the kernels by device time (after the counted run, so not in its
+        launches)."""
+        (state, _), busy, trace_wall, top = profiled(
+            lambda: train_iteration(state))
         emit({"phase": phase, "what": "one train_iteration",
-              "wall_ms": trace_wall,
-              "device_busy_ms": busy if busy else None,
+              "wall_ms": trace_wall, "device_busy_ms": busy,
               "device_idle_share": (1.0 - busy / trace_wall) if busy
-              else None,
-              "top_device_ms": [[round(ms, 4), k[:60], n]
-                                for ms, k, n in rows_t[:8]]})
+              else None, "top_device_ms": top})
         return state
 
     def learning(phase, tiled):
@@ -1143,13 +1204,162 @@ def main():
         if not -150.0 <= final <= -105.0:
             raise Fail(f"{phase}: mean reward {final} after 600 iterations "
                        "is outside -150..-105")
+        return curve
+
+    def chunk_parity(phase, tiled, state, train_iteration):
+        """From clones of one state, 3 eager iterations (the first under
+        `torch.cuda.set_sync_debug_mode("error")`) against one chunk of 3
+        (`make_train_chunk`: one iteration captured as a CUDA graph,
+        replayed with the generators reseeded): every tensor of the state
+        (weights, normalizers, rows, stats, Adam moments), every metric
+        and the counters (host, and the chunk's device ones) bit for
+        bit."""
+        a, c = copy.deepcopy(state), copy.deepcopy(state)
+        eager = []
+        for i in range(3):
+            # the first under the sync debug mode: an iteration that read
+            # a value on the host could not be captured
+            torch.cuda.set_sync_debug_mode("error" if i == 0 else 0)
+            try:
+                a, o = train_iteration(a)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            eager.append(o["metrics"])
+        chunk = TT.make_train_chunk(train_iteration, 3)
+        c, stacked = chunk(c)
+        torch.cuda.synchronize()
+        ta, tc = state_tensors(a), state_tensors(c)
+        diff = [i for i, (x, y) in enumerate(zip(ta, tc))
+                if not torch.equal(x, y)]
+        mdiff = [f"{k}[{i}]" for i in range(3) for k in eager[i]
+                 if not torch.equal(eager[i][k], stacked[k][i])]
+        st = chunk.captured["static"]
+        counters = {"counter": [a.counter, c.counter, int(st.counter)],
+                    "adam_count": [a.opt.count, c.opt.count, int(st.count)],
+                    "iteration": [a.iteration, c.iteration]}
+        if diff or mdiff or any(len(set(v)) != 1 for v in counters.values()):
+            raise Fail(f"{phase}: the chunk differs from the eager "
+                       f"iterations: tensors {diff}, metrics {mdiff}, "
+                       f"counters {counters}")
+        emit({"phase": phase, "worlds": W, "ticks": T, "iterations": 3,
+              "sync_debug_mode_error_iteration_ok": True,
+              "tensors_equal": len(ta), "metrics_equal": 3 * len(eager[0]),
+              "counters": counters,
+              "mean_reward": [float(m["mean_reward"]) for m in eager],
+              "reward_window": [float(m["reward_window"]) for m in eager]})
+
+    def chunked(phase, tiled, state, train_iteration, eager_phase):
+        """Chunks of 50 iterations at the flagship shape: launches counted
+        from 0 around the first chunk (its warm-up step and capture; the
+        replays count none), then 3 chunks timed with CUDA events, one
+        profiled for the device's busy time; beside it the eager
+        iteration of the same state, un-profiled and profiled, and the
+        peak device memory of the chunked run."""
+        n = 50
+        chunk = TT.make_train_chunk(train_iteration, n)
+        state = copy.deepcopy(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        state, stacked = chunk(state)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = counts()
+        d_launches = FU.device_launches
+        check_path(phase, tiled, launches)
+        times = []
+        for _ in range(3):
+            a, b_ = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            a.record()
+            state, stacked = chunk(state)
+            b_.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b_))
+        peak = torch.cuda.max_memory_allocated(dev)
+        if counts() != launches:
+            raise Fail(f"{phase}: replays counted launches: {counts()}")
+        for k, v in stacked.items():
+            if v.shape != (n,) or not bool(torch.isfinite(v).all()):
+                raise Fail(f"{phase}: metric {k} {tuple(v.shape)} or "
+                           "non-finite")
+        if not all(bool(torch.isfinite(p).all())
+                   for p in state.agent.net.parameters()):
+            raise Fail(f"{phase}: non-finite params")
+        it_ms = statistics.median(times) / n
+        (state, _), c_busy, c_wall, c_top = profiled(lambda: chunk(state))
+        # the eager iteration from the same state, in the same run
+        e_state = copy.deepcopy(state)
+        e_times = []
+        for _ in range(3):
+            a, b_ = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            a.record()
+            e_state, _ = train_iteration(e_state)
+            b_.record()
+            torch.cuda.synchronize()
+            e_times.append(a.elapsed_time(b_))
+        e_ms = statistics.median(e_times)
+        _, e_busy, e_wall, _ = profiled(lambda: train_iteration(e_state))
+        c_busy_it = c_busy / n if c_busy else None
+        emit({"phase": phase, "worlds": W, "ticks": T,
+              "iters_per_dispatch": n, "chunk_ms": times,
+              "iteration_ms": it_ms,
+              "train_env_steps_per_s": W * T / (it_ms / 1e3),
+              "first_chunk_s": first_s,
+              "launches_at_capture": launches,
+              "fused_update_phase_device_launches_at_capture": d_launches,
+              "launch_note": "counted once in the warm-up step and once "
+                             "at capture; replays count none",
+              "device_busy_ms_per_iteration": c_busy_it,
+              "device_idle_share": (1.0 - c_busy_it / it_ms) if c_busy_it
+              else None, "profiled_chunk_wall_ms": c_wall,
+              "top_device_ms_chunk": c_top,
+              "peak_memory_bytes": peak,
+              "eager_iteration_ms": e_ms, "eager_ms": e_times,
+              "eager_train_env_steps_per_s": W * T / (e_ms / 1e3),
+              "eager_device_busy_ms": e_busy,
+              "eager_device_idle_share": (1.0 - e_busy / e_ms) if e_busy
+              else None, "eager_profiled_wall_ms": e_wall,
+              "eager_spans_phase": eager_phase})
+
+    def learning_chunked(phase, tiled, eager_curve):
+        """`learning` through chunks of 50 (`make_train_chunk`): the curve
+        must equal the eager one bit for bit."""
+        l_state = init_train_state(cfg, hp, seed=321, device=dev)
+        l_iter = make_train_iteration(cfg, hp, device=dev,
+                                      rollout_tiled=tiled)
+        chunk = TT.make_train_chunk(l_iter, 50)
+        curve = []
+        t0 = time.perf_counter()
+        for it in range(50, 601, 50):
+            l_state, st = chunk(l_state)
+            curve.append([it, float(st["mean_reward"][-1]),
+                          float(st["mean_episode_length"][-1])])
+        l_secs = time.perf_counter() - t0
+        if not all(bool(torch.isfinite(p).all())
+                   for p in l_state.agent.net.parameters()):
+            raise Fail(f"{phase}: non-finite params")
+        emit({"phase": phase, "iterations": 600, "seed": 321,
+              "iters_per_dispatch": 50, "seconds": l_secs, "curve": curve,
+              "equals_eager_curve": curve == eager_curve})
+        if curve != eager_curve:
+            raise Fail(f"{phase}: the chunked curve differs from the eager "
+                       f"one: {curve} vs {eager_curve}")
 
     state, out, train_iteration, launches = drive("main_path", False)
     state = trace("trace", state, train_iteration)
     t_state, t_out, t_iteration, t_launches = drive("tiled_path", True)
     trace("trace_tiled", t_state, t_iteration)
-    learning("learning", False)
-    learning("learning_tiled", True)
+    chunk_parity("chunk_parity", False, state, train_iteration)
+    chunk_parity("chunk_parity_tiled", True, t_state, t_iteration)
+    chunked("chunked_path", False, state, train_iteration, "main_path")
+    chunked("chunked_tiled_path", True, t_state, t_iteration, "tiled_path")
+    curve = learning("learning", False)
+    curve_t = learning("learning_tiled", True)
+    learning_chunked("learning_chunked", False, curve)
+    learning_chunked("learning_chunked_tiled", True, curve_t)
 
     # ---------------------------------------------------------- cli
     # the training CLI as a user runs it, in a fresh directory inside
@@ -1188,6 +1398,37 @@ def main():
                   "exit_code": proc.returncode, "seconds": cli_secs,
                   "checkpoint": CK.checkpoint_path(model, 4),
                   "checkpoint_tensors": len(saved), "log": logs})
+        # the default --iters-per-dispatch 0 (auto: 4 at these cadences,
+        # so two CUDA-graph chunks) against 1 (eager): equal checkpoints
+        ck, secs = {}, {}
+        for ipd in ("0", "1"):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "madrona_basketball_tpu_torch.cli",
+                 "--num-iterations", "8", "--log-every-n-iterations", "4",
+                 "--save-model-every-n-iterations", "4",
+                 "--iters-per-dispatch", ipd, "--model-name", f"ipd{ipd}"],
+                cwd=tmp, env=env, capture_output=True, text=True,
+                timeout=600)
+            secs[ipd] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise Fail(f"cli --iters-per-dispatch {ipd} exited "
+                           f"{proc.returncode}: {proc.stderr[-3000:]}")
+            want_n = "4" if ipd == "0" else "1"
+            if f"Iterations per dispatch: {want_n}" not in proc.stdout:
+                raise Fail(f"cli --iters-per-dispatch {ipd}: not {want_n} "
+                           f"iterations a dispatch: {proc.stdout[-2000:]}")
+            ck[ipd] = {it: torch.load(Path(tmp) / CK.checkpoint_path(
+                f"ipd{ipd}", it), weights_only=True) for it in (4, 8)}
+        same = {it: sorted(ck["0"][it]) == sorted(ck["1"][it]) and all(
+            torch.equal(ck["0"][it][k], ck["1"][it][k]) for k in ck["1"][it])
+            for it in (4, 8)}
+        emit({"phase": "cli_chunk", "iterations": 8,
+              "iters_per_dispatch": {"0": 4, "1": 1}, "seconds": secs,
+              "checkpoints_equal": same})
+        if not all(same.values()):
+            raise Fail(f"cli: the auto-chunk checkpoints differ from the "
+                       f"--iters-per-dispatch 1 ones: {same}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1387,6 +1628,16 @@ def main():
     ms = {name: (kernel_ms(k, reps, kern), cuda_ms(k, reps, 5),
                  cuda_ms(p, p_reps))
           for name, (k, p, reps, p_reps, kern) in calls.items()}
+    # kernels A and E near half their bounds: each profiled launch of 30
+    # calls (at least 21 recorded whole), median and spread
+    per_launch = {}
+    for name in ("fused_step", "obs_moments"):
+        one = launch_ms(calls[name][0], 30, list(calls[name][4]))
+        per_launch[name] = {
+            "launch_ms_median": statistics.median(one) if one else None,
+            "launch_ms_min": min(one, default=None),
+            "launch_ms_max": max(one, default=None),
+            "launch_ms_n": len(one)}
     # kernel D's device time split into its gradient and reduce launches
     d_split = {k: kernel_ms(calls["fused_update_phase"][0], 3, {k: n_mb})
                for k in grad_k}
@@ -1551,6 +1802,9 @@ def main():
              "madrona_basketball_tpu/ops/fused_gae.py:251", bytes_e,
              ops_e * T * FR.ROLL_OBS * W)):
         bms, by = bound(nbytes, nops)
+        pl = per_launch.get(name, {})
+        if pl.get("launch_ms_median"):
+            pl = {**pl, "bound_share_of_median": bms / pl["launch_ms_median"]}
         n_launch = t_launches[name] if name in ("fused_rollout_tiled",
                                                  "obs_moments") \
             else launches[name]
@@ -1562,7 +1816,7 @@ def main():
                      "bound_by": by, "library_ms": library.get(name),
                      "bytes": nbytes, "ops": nops,
                      "bound_share": bms / ms[name][0],
-                     **design.get(name, {})})
+                     **pl, **design.get(name, {})})
     # kernel F: launches from the bench path; ms per launch of K ticks
     for name, nops in (
             ("fused_multistep_every_tick_obs", ops_a * W * KB),

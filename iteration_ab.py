@@ -3,7 +3,7 @@
 tree's, on one card, in turns.
 
     python3 iteration_ab.py --other DIR [--turns other,this,this,other]
-                            [--tiled | --multistep]
+                            [--tiled | --multistep] [--chunk N]
 
 DIR is another checkout of the repository (for example the parent
 commit, unpacked with `git archive`).  Each turn is a fresh process that
@@ -13,12 +13,21 @@ chip_smoke.py's `main_path` measures: `init_train_state` at the flagship
 shape (8192 worlds x 32 ticks, 4 epochs x 4 minibatches, seed 1),
 warm-up iterations until the 10 s game clock runs out inside the timed
 window, then three iterations timed with CUDA events (the median of each
-span: reset_pulse, rollout, gae, glue, update, and the iteration), then
+span: reset_pulse, rollout, gae, [obs_moments,] glue, update, and the
+iteration), then
 one more iteration under torch.profiler for the device's busy time and
 idle share and the kernels by device time.  One JSON line per turn,
 each with the card's name and power limit; the last line is the
 per-tree medians over the turns.  `--tiled` measures the
 `--rollout-tiled` iteration (chip_smoke.py's `tiled_path`) instead.
+`--chunk N` times this checkout's iteration chunked instead
+(`ppo/train.py::make_train_chunk`: one iteration captured as a CUDA
+graph and replayed N times a dispatch): after the same warm-up, one
+chunk (the capture), then three chunks timed with CUDA events, each
+divided by N, and one chunk profiled (device busy ms an iteration); the
+other tree's turns stay eager (a tree without the chunk), so the two
+compare the dispatch modes.  Every turn also gives its idle share
+against the un-profiled iteration (`device_idle_share_unprofiled`).
 `--multistep` measures kernel F as the stepping bench's engines (c) and
 (d) launch it: 8192 worlds from `init_rows` (seed 0), 5000 ticks a
 launch with in-kernel Philox, obs every tick with agent 0 blanked, and
@@ -45,8 +54,9 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def measure(tree: Path, tiled: bool = False) -> dict:
-    """One turn, in this process, with the port imported from `tree`."""
+def measure(tree: Path, tiled: bool = False, chunk: int = 0) -> dict:
+    """One turn, in this process, with the port imported from `tree`
+    (chunked N = `chunk` iterations a dispatch when it is not 0)."""
     sys.path.insert(0, str(tree))
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -76,7 +86,11 @@ def measure(tree: Path, tiled: bool = False) -> dict:
     for _ in range(warmup):
         state, _ = it_fn(state)
     torch.cuda.synchronize()
-    times = {k: [] for k in SPANS + ("iteration",)}
+    if chunk:
+        return measure_chunk(tree, tiled, chunk, it_fn, state, build_s,
+                             warmup)
+    spans = SPANS[:3] + ("obs_moments",) * tiled + SPANS[3:]
+    times = {k: [] for k in spans + ("iteration",)}
     wall = []
     for _ in range(3):
         evs = [torch.cuda.Event(enable_timing=True)]
@@ -90,7 +104,7 @@ def measure(tree: Path, tiled: bool = False) -> dict:
         state, _ = it_fn(state, mark=mark)
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - w0) * 1e3)
-        for name, a, b in zip(SPANS, evs[:-1], evs[1:]):
+        for name, a, b in zip(spans, evs[:-1], evs[1:]):
             times[name].append(a.elapsed_time(b))
         times["iteration"].append(evs[0].elapsed_time(evs[-1]))
     with profile(activities=[ProfilerActivity.CPU,
@@ -103,15 +117,60 @@ def measure(tree: Path, tiled: bool = False) -> dict:
                     e.count) for e in prof.key_averages()), reverse=True)
     rows = [r for r in rows if r[0] > 0]
     busy = sum(r[0] for r in rows)
-    return {"tree": str(tree), "tiled": tiled, "card": card(),
+    med = {k: statistics.median(v) for k, v in times.items()}
+    return {"tree": str(tree), "tiled": tiled, "chunk": 0, "card": card(),
             "build_s": build_s,
             "warmup_iterations": warmup,
-            "ms_median": {k: statistics.median(v) for k, v in times.items()},
-            "ms": times, "wall_ms": wall, "trace_wall_ms": trace_wall,
+            "ms_median": med, "ms": times, "wall_ms": wall,
+            "trace_wall_ms": trace_wall,
             "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / trace_wall,
+            "device_idle_share_unprofiled": 1.0 - busy / med["iteration"],
             "top_device_ms": [[round(ms, 4), k[:60], n]
                               for ms, k, n in rows[:8]]}
+
+
+def measure_chunk(tree: Path, tiled: bool, n: int, it_fn, state,
+                  build_s: float, warmup: int) -> dict:
+    """The rest of a `--chunk N` turn: the iteration n at a time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from madrona_basketball_tpu_torch.ppo.train import make_train_chunk
+    chunk = make_train_chunk(it_fn, n)
+    t0 = time.perf_counter()
+    state, _ = chunk(state)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    its = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, _ = chunk(state)
+        b.record()
+        torch.cuda.synchronize()
+        its.append(a.elapsed_time(b) / n)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        state, _ = chunk(state)
+        torch.cuda.synchronize()
+        trace_wall = (time.perf_counter() - w0) * 1e3 / n
+    rows = sorted(((getattr(e, "self_device_time_total", 0.0) / 1e3 / n,
+                    e.key, e.count) for e in prof.key_averages()),
+                  reverse=True)
+    rows = [r for r in rows if r[0] > 0]
+    busy = sum(r[0] for r in rows)
+    med = statistics.median(its)
+    return {"tree": str(tree), "tiled": tiled, "chunk": n, "card": card(),
+            "build_s": build_s, "warmup_iterations": warmup,
+            "first_chunk_s": first_s,
+            "ms_median": {"iteration": med}, "ms": {"iteration": its},
+            "trace_wall_ms": trace_wall, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / trace_wall,
+            "device_idle_share_unprofiled": 1.0 - busy / med,
+            "top_device_ms": [[round(ms, 4), k[:60], c]
+                              for ms, k, c in rows[:8]]}
 
 
 def measure_multistep(tree: Path, K: int = 5000) -> dict:
@@ -163,12 +222,14 @@ def main():
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--tiled", action="store_true")
     mode.add_argument("--multistep", action="store_true")
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="time this tree's iteration N at a time")
     ap.add_argument("--measure", type=Path, default=None,
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.measure is not None:
         line = measure_multistep(args.measure) if args.multistep else \
-            measure(args.measure, args.tiled)
+            measure(args.measure, args.tiled, args.chunk)
         print(json.dumps(line), flush=True)
         return
     if args.other is None:
@@ -180,7 +241,9 @@ def main():
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--measure",
              str(trees[turn])] + ["--tiled"] * args.tiled +
-            ["--multistep"] * args.multistep, cwd=trees[turn], env=env,
+            ["--multistep"] * args.multistep +
+            ["--chunk", str(args.chunk)] * (turn == "this"),
+            cwd=trees[turn], env=env,
             capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             raise SystemExit(f"turn {turn} exited {proc.returncode}: "
@@ -197,16 +260,18 @@ def main():
             flush=True)
         return
     summary = {name: {
-        "turns": len(rs),
+        "turns": len(rs), "chunk": rs[0]["chunk"],
         "iteration_ms": [r["ms_median"]["iteration"] for r in rs],
         "span_ms_median": {k: statistics.median(r["ms_median"][k]
                                                 for r in rs)
-                           for k in SPANS + ("iteration",)},
+                           for k in rs[0]["ms_median"]},
         "device_idle_share": [r["device_idle_share"] for r in rs],
+        "device_idle_share_unprofiled": [
+            r["device_idle_share_unprofiled"] for r in rs],
         "device_busy_ms": [r["device_busy_ms"] for r in rs]}
         for name, rs in results.items() if rs}
     print(json.dumps({"iteration_ab": summary, "tiled": args.tiled,
-                      "card": card()}), flush=True)
+                      "chunk": args.chunk, "card": card()}), flush=True)
 
 
 if __name__ == "__main__":

@@ -244,6 +244,23 @@ def stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def device_int(value, device):
+    """A scalar kernel argument that the kernel reads from device memory,
+    so that a CUDA graph replaying the launch sees each replay's value:
+    `value` as a 0-d int32 tensor on `device`.  An int is written there
+    by a fill launch (no host synchronization); a 0-d int32 tensor on
+    `device` passes as it is."""
+    import torch
+    if isinstance(value, torch.Tensor):
+        if value.shape != () or value.dtype != torch.int32 or \
+                value.device != device:
+            raise ValueError(f"a device scalar must be a 0-d int32 tensor "
+                             f"on {device}, got {tuple(value.shape)} "
+                             f"{value.dtype} on {value.device}")
+        return value
+    return torch.full((), int(value), dtype=torch.int32, device=device)
+
+
 def check(err: int, name: str):
     if err != 0:
         msg = _LIBS[name].mbb_error_string(err).decode()

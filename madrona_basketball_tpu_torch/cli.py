@@ -8,9 +8,17 @@ the world count a multiple of 1024): the same flags and defaults, plus
 `--device` (default "cuda"; "cpu" runs the plain torch versions of the
 kernels, for small runs).  Each iteration is
 `ppo/train_fused.py::make_train_iteration`; the log line and the
-checkpoint cadence are the JAX CLI's.  Checkpoints are reference-layout
-`.pth` files under `checkpoints/{model}/{model}_{iteration}.pth`, which
-the JAX CLI's `--trainee-checkpoint` also reads.
+checkpoint cadence are the JAX CLI's.  `--iters-per-dispatch` has the
+JAX CLI's meaning (cli.py:421-436): N iterations per host dispatch
+(`ppo/train.py::make_train_chunk`, on the card one iteration captured as
+a CUDA graph and replayed N times), 0 = auto (the largest divisor of the
+log and save cadences up to 50), 1 = one eager iteration per dispatch;
+a chunk that does not divide both cadences falls back to the auto value,
+and the tail of `--num-iterations` runs one iteration per dispatch, so
+logs and checkpoints land on the same iterations for every N.
+Checkpoints are reference-layout `.pth` files under
+`checkpoints/{model}/{model}_{iteration}.pth`, which the JAX CLI's
+`--trainee-checkpoint` also reads.
 
 Flags of trainer paths the port does not have yet exit with the ROADMAP
 item that ports them, instead of being ignored.
@@ -24,6 +32,7 @@ import time
 from .config import SimConfig
 from .ops.fused_rollout import check_tiled_worlds
 from .ppo.hparams import PPOParams
+from .ppo.train import auto_chunk, make_train_chunk, unstack_metrics
 from .ppo.train_fused import init_train_state, make_train_iteration
 from .utils.checkpoint import checkpoint_path, load_agent, save_agent
 from .utils.timers import PPOTimer
@@ -78,8 +87,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16-policy", action="store_true", default=False)
     p.add_argument("--rollout-block", type=int, default=0)
     p.add_argument("--iters-per-dispatch", type=int, default=0,
-                   help="0 or 1: one iteration per host dispatch (CUDA-"
-                        "graph chunking is not ported yet)")
+                   help="run N training iterations per host dispatch (on "
+                        "the card one iteration captured as a CUDA graph "
+                        "and replayed N times); 0 = auto (largest divisor "
+                        "of the log/save cadences <= 50), 1 = one eager "
+                        "iteration per dispatch")
     return p
 
 
@@ -108,8 +120,6 @@ UNPORTED = (
      "ROADMAP.md queue 1, item 13 (interactive trainer, viewer)"),
     ("--tensorboard", lambda a: a.tensorboard,
      "ROADMAP.md queue 1, item 8 (TensorBoard logging)"),
-    ("--iters-per-dispatch > 1", lambda a: a.iters_per_dispatch not in (0, 1),
-     "ROADMAP.md queue 1, item 8 (chunked dispatch as CUDA graphs)"),
 )
 
 
@@ -156,27 +166,56 @@ def main(argv=None):
           f"Iters: {args.num_iterations}")
     print(f"   Device: {dev}")
 
+    log_every = args.log_every_n_iterations
+    save_every = args.save_model_every_n_iterations
+    chunk_n = args.iters_per_dispatch or auto_chunk(log_every, save_every)
+    if chunk_n > 1 and (log_every % chunk_n or save_every % chunk_n):
+        # a chunk that straddles a save/log boundary would checkpoint
+        # end-of-chunk params under a mid-chunk iteration label
+        safe = auto_chunk(log_every, save_every)
+        print(f"--iters-per-dispatch {chunk_n} does not divide the "
+              f"log/save cadence; using {safe} instead")
+        chunk_n = safe
+    chunk_n = max(1, min(chunk_n, args.num_iterations))
+    print(f"   Iterations per dispatch: {chunk_n}")
+
     state = init_train_state(cfg, hp, args.seed, dev, agent=agent,
                              frozen=frozen)
     train_iteration = make_train_iteration(cfg, hp, dev,
                                            rollout_tiled=args.rollout_tiled)
+    train_chunk = make_train_chunk(train_iteration, chunk_n) \
+        if chunk_n > 1 else None
     timer = PPOTimer(dev)
     timer.start("iter")
-    for iteration in range(1, args.num_iterations + 1):
-        timer.add_steps(hp.num_envs * hp.num_rollout_steps)
-        state, out = train_iteration(state)
-        if iteration % args.log_every_n_iterations == 0:
-            timer.end("iter")
-            m = {k: float(v) for k, v in out["metrics"].items()}
-            print(f"\nUpdate: {iteration}", end=" ")
-            timer.print()
-            print(f"Mean reward: {m['mean_reward']:.2f}. "
-                  f"Mean episode length: {m['mean_episode_length']:.2f}")
-            timer.reset()
-            timer.start("iter")
-        if iteration % args.save_model_every_n_iterations == 0:
-            save_agent(state.agent, checkpoint_path(model_name, iteration))
-            print(f"Model {model_name} saved at iteration {iteration}")
+    iteration = 0
+    while iteration < args.num_iterations:
+        # whole chunks, then the exact tail one iteration per dispatch
+        if train_chunk is not None and \
+                args.num_iterations - iteration >= chunk_n:
+            n = chunk_n
+            state, stacked = train_chunk(state)
+            metric_list = unstack_metrics(stacked, n)
+        else:
+            n = 1
+            state, out = train_iteration(state)
+            metric_list = [out["metrics"]]
+        timer.add_steps(hp.num_envs * hp.num_rollout_steps * n)
+        for metrics in metric_list:
+            iteration += 1
+            if iteration % log_every == 0:
+                timer.end("iter")
+                m = {k: float(v) for k, v in metrics.items()}
+                print(f"\nUpdate: {iteration}", end=" ")
+                timer.print()
+                print(f"Mean reward: {m['mean_reward']:.2f}. "
+                      f"Mean episode length: "
+                      f"{m['mean_episode_length']:.2f}")
+                timer.reset()
+                timer.start("iter")
+            if iteration % save_every == 0:
+                save_agent(state.agent, checkpoint_path(model_name,
+                                                        iteration))
+                print(f"Model {model_name} saved at iteration {iteration}")
     return state
 
 

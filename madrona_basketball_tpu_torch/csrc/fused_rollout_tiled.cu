@@ -32,7 +32,8 @@ fused_rollout_tiled_kernel(SimParams p, float *__restrict__ sf,
                            const float *__restrict__ fpol,
                            const float *__restrict__ ext,
                            float *__restrict__ traj, float *partials, int W,
-                           int T, uint32_t k0, uint32_t k1, int tick_base) {
+                           int T, uint32_t k0, uint32_t k1,
+                           const int *__restrict__ tick_base) {
     rollout_tile<TI, FROZEN, false>(p, sf, si, obs, pol, fpol, ext, traj,
                                     partials, W, T, k0, k1, tick_base);
 }
@@ -40,16 +41,18 @@ fused_rollout_tiled_kernel(SimParams p, float *__restrict__ sf,
 }  // namespace
 
 // sf (72, W), si (59, W), obs (256, W) updated in place; traj (T, 128, W);
-// ext (T * 56, W) or null for in-kernel Philox.  W % 1024 == 0, the JAX
+// ext (T * 56, W) or null for in-kernel Philox, whose ticks start at
+// *tick_base (device memory; null with ext).  W % 1024 == 0, the JAX
 // kernel's contract (any multiple of TILE would do here).
 extern "C" int mbb_fused_rollout_tiled(SimParams p, float *sf, int *si,
                                        float *obs, const float *pol,
                                        const float *fpol, const float *ext,
                                        float *traj, int W, int T, int trainee,
                                        int use_frozen, uint32_t k0,
-                                       uint32_t k1, int tick_base,
+                                       uint32_t k1, const int *tick_base,
                                        cudaStream_t stream) {
-    if (W % 1024 != 0 || T < 1 || (trainee != 0 && trainee != 1))
+    if (W % 1024 != 0 || T < 1 || (trainee != 0 && trainee != 1) ||
+        (ext == nullptr && tick_base == nullptr))
         return (int)cudaErrorInvalidValue;
 #define MBB_I_LAUNCH(TI, FR)                                                  \
     launch_tiles<FR>(fused_rollout_tiled_kernel<TI, FR>, p, sf, si, obs, pol, \

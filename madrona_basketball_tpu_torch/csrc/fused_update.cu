@@ -208,15 +208,18 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
-// Sum the partials (see the header); adam != 0: clip + Adam step t in
-// place, else write the gradient to grads.  gsum (P), slice_sq
-// (RED_CTAS) and counter are D's scratch.
+// Sum the partials (see the header); adam != 0: clip + Adam step
+// *count + k + 1 in place (the step count read from device memory, so a
+// CUDA graph that replays the launch takes each replay's steps), else
+// write the gradient to grads.  gsum (P), slice_sq (RED_CTAS) and
+// counter are D's scratch.
 __global__ void __launch_bounds__(RED_NT)
 update_reduce_kernel(const float *__restrict__ partials, int nparts,
                      float *__restrict__ params, float *__restrict__ mu,
                      float *__restrict__ nu, float *__restrict__ grads,
                      float *gsum, float *slice_sq, int *counter, int adam,
-                     int t, float lr, float max_norm) {
+                     const int *__restrict__ count, int k, float lr,
+                     float max_norm) {
     __shared__ float part[RED_CH][32];
     __shared__ float sq[RED_CTAS];
     __shared__ int last;
@@ -255,6 +258,7 @@ update_reduce_kernel(const float *__restrict__ partials, int nparts,
     }
     __syncthreads();
     const float gn = sqrtf(part[0][0]);
+    const int t = *count + k + 1;
     const float bc1 = bias_correction(ADAM_B1, t);
     const float bc2 = bias_correction(ADAM_B2, t);
     for (int q = tid; q < P; q += RED_NT)
@@ -293,30 +297,31 @@ RedScratch red_scratch(float *partials, int max_parts) {
 
 cudaError_t reduce(const float *partials, int nparts, int max_parts,
                    float *params, float *mu, float *nu, float *grads,
-                   int adam, int t, float lr, float max_norm,
-                   cudaStream_t stream) {
+                   int adam, const int *count, int k, float lr,
+                   float max_norm, cudaStream_t stream) {
     const RedScratch r = red_scratch(const_cast<float *>(partials), max_parts);
     update_reduce_kernel<<<RED_CTAS, RED_NT, 0, stream>>>(
         partials, nparts, params, mu, nu, grads, r.gsum, r.slice_sq,
-        r.counter, adam, t, lr, max_norm);
+        r.counter, adam, count, k, lr, max_norm);
     return cudaGetLastError();
 }
 
 }  // namespace
 
 // Kernel D: the whole update phase, n_mb = E x M minibatches of bpm
-// blocks each, Adam steps count + 1 .. count + n_mb; params / mu / nu
+// blocks each, Adam steps *count + 1 .. *count + n_mb (count in device
+// memory); params / mu / nu
 // (5216 floats each, flat) updated in place.  ustats may be null (side
 // rows already normalized).  partials: (max_parts + 2) x 5216 floats
 // scratch.
 extern "C" int mbb_fused_update_phase(
-    const int *idx, int count, const float *traj, const float *side,
+    const int *idx, const int *count, const float *traj, const float *side,
     const float *nrm, const float *ustats, float *params, float *mu,
     float *nu, float *partials, int max_parts, int rows, int W, int wb,
     int bpm, int n_mb, float clip, float vf_coef, float ent_coef,
     int clip_vloss, float lr, float max_norm, cudaStream_t stream) {
     if (wb < 1 || W % wb != 0 || bpm < 1 || n_mb < 1 || max_parts < 1 ||
-        rows <= R_LOGP)
+        rows <= R_LOGP || count == nullptr)
         return (int)cudaErrorInvalidValue;
     cudaError_t err = set_smem<0>();
     if (err != cudaSuccess) return (int)err;
@@ -333,7 +338,7 @@ extern "C" int mbb_fused_update_phase(
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
         err = reduce(partials, grid, max_parts, params, mu, nu, nullptr, 1,
-                     count + k + 1, lr, max_norm, stream);
+                     count, k, lr, max_norm, stream);
         if (err != cudaSuccess) return (int)err;
     }
     return 0;
@@ -358,7 +363,7 @@ extern "C" int mbb_fused_minibatch_grad_prefetch(
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     return (int)reduce(partials, grid, max_parts, nullptr, nullptr, nullptr,
-                       grads, 0, 0, 0.0f, 0.0f, stream);
+                       grads, 0, nullptr, 0, 0.0f, 0.0f, stream);
 }
 
 // Kernel H: one minibatch's gradient over a row-major (mb, F) feat
@@ -379,7 +384,7 @@ extern "C" int mbb_fused_minibatch_grad(
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     return (int)reduce(partials, grid, max_parts, nullptr, nullptr, nullptr,
-                       grads, 0, 0, 0.0f, 0.0f, stream);
+                       grads, 0, nullptr, 0, 0.0f, 0.0f, stream);
 }
 
 // Resident CTAs per SM of the gradient and the reduce kernels

@@ -118,7 +118,7 @@ LossHp loss_hp(float clip, float vf_coef, float ent_coef, int clip_vloss,
 
 // Kernel D's arguments without the stream and the scratch.
 extern "C" void mbb_host_update_phase(
-    const int *idx, int count, const float *traj, const float *side,
+    const int *idx, const int *count, const float *traj, const float *side,
     const float *nrm, const float *ustats, float *params, float *mu,
     float *nu, int max_parts, int rows, int W, int wb, int bpm, int n_mb,
     float clip, float vf_coef, float ent_coef, int clip_vloss, float lr,
@@ -132,8 +132,8 @@ extern "C" void mbb_host_update_phase(
         const int grid = grad_launch(src, n_tiles, max_parts, nrm, ustats,
                                      params, hp, partials.data());
         const float gn = reduce(partials.data(), grid, g.data());
-        const float bc1 = bias_correction(ADAM_B1, count + k + 1);
-        const float bc2 = bias_correction(ADAM_B2, count + k + 1);
+        const float bc1 = bias_correction(ADAM_B1, *count + k + 1);
+        const float bc2 = bias_correction(ADAM_B2, *count + k + 1);
         for (int p = 0; p < P; ++p)
             adam_one(g[p], gn, max_norm, lr, bc1, bc2, params[p], mu[p],
                      nu[p]);

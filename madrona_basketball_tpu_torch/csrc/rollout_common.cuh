@@ -37,7 +37,10 @@
 // Philox4x32-10 (sim_world.cuh) with key (seed lo, seed hi) and counter
 // (world, tick_base + t, draw group, 0); draw n is word n % 4 of group
 // n / 4, drawn where it is used.  The counter does not depend on T, so one
-// T-tick launch equals T one-tick launches.
+// T-tick launch equals T one-tick launches.  tick_base is read from device
+// memory (an int the wrapper writes, or the trainer's iteration counter
+// times T), so a CUDA graph that replays the launch draws each replay's
+// ticks; it is not read with external noise.
 // ops/fused_rollout.py::philox_noise is the plain twin.
 //
 // Shared memory (floats): policy 6,272 (x2 with the frozen policy) | obs
@@ -307,7 +310,7 @@ __device__ __forceinline__ void rollout_tile(
     float *__restrict__ obs, const float *__restrict__ pol,
     const float *__restrict__ fpol, const float *__restrict__ ext,
     float *__restrict__ traj, float *__restrict__ partials, int W, int T,
-    uint32_t k0, uint32_t k1, int tick_base) {
+    uint32_t k0, uint32_t k1, const int *__restrict__ tick_base) {
     extern __shared__ float smem[];
     constexpr int FI = 1 - TI;
     float *sp = smem;
@@ -326,12 +329,13 @@ __device__ __forceinline__ void rollout_tile(
                               : 0.0f;
     const bool sim = tid < nw;
     const int w = w0 + tid;
+    const int tb = ext == nullptr ? *tick_base : 0;
     World s;
     if (sim) load_world(s, sf, si, W, w);
     __syncthreads();
 
     for (int t = 0; t < T; ++t) {
-        const uint32_t tick = (uint32_t)(tick_base + t);
+        const uint32_t tick = (uint32_t)(tb + t);
         const float *e =
             ext != nullptr ? ext + (size_t)t * EXT_CHUNK * W + w : nullptr;
         float *tr = traj + (size_t)t * ROLL_ROWS * W;
@@ -419,7 +423,7 @@ template <bool FROZEN, class Kernel>
 int launch_tiles(Kernel kernel, SimParams p, float *sf, int *si, float *obs,
                  const float *pol, const float *fpol, const float *ext,
                  float *traj, float *partials, int W, int T, uint32_t k0,
-                 uint32_t k1, int tick_base, cudaStream_t stream) {
+                 uint32_t k1, const int *tick_base, cudaStream_t stream) {
     const size_t smem = ((FROZEN ? 2 : 1) * POL + S_END) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

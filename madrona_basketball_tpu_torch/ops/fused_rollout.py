@@ -386,11 +386,13 @@ launches = 0  # kernel B launches (the wrapper counts, the caller resets)
 def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
                   n_steps: int, trainee_idx: int,
                   noise: torch.Tensor | None = None, seed: int = 0,
-                  tick_base: int = 0, moment_partials: bool = False):
+                  tick_base=0, moment_partials: bool = False):
     """Kernel B on CUDA tensors, the plain version on CPU tensors.
 
     noise=None draws in-kernel Philox noise from (seed, tick_base); a
-    CPU caller gets the same numbers from `philox_noise`.  Returns
+    CPU caller gets the same numbers from `philox_noise`.  tick_base is
+    an int or a 0-d int32 tensor on the card, which the kernel reads
+    there (a CUDA graph replays it with each replay's value).  Returns
     (sf', si', obs', traj (T, 128, W), obs_moments (103, 8)), and with
     moment_partials the per-(tick, 32-world group) (mean, M2) partials
     (T, W / 32, 103, 2) they were merged from."""
@@ -400,7 +402,7 @@ def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
                             frozen_mats, use_frozen)
     if sf.device.type == "cpu":
         if noise is None:
-            noise = philox_noise(seed, tick_base, n_steps, W, sf.device)
+            noise = philox_noise(seed, int(tick_base), n_steps, W, sf.device)
         out = rollout_plain(cfg, sf, si, obs0, mats, frozen_mats,
                             n_steps=n_steps, trainee_idx=trainee_idx,
                             noise=noise)
@@ -427,12 +429,13 @@ def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
     partials = torch.empty((n_steps, W // MOM_GROUP, ROLL_OBS, 2),
                            dtype=F32, device=dev)
     ext = None if noise is None else noise.contiguous()
+    tb = None if noise is not None else _build.device_int(tick_base, dev)
     err = lib.mbb_fused_rollout(
         sim_params(cfg), _build.ptr(sf2), _build.ptr(si2), _build.ptr(obs),
         _build.ptr(pol), _build.ptr(fpol), _build.ptr(ext),
         _build.ptr(traj), _build.ptr(partials), W, n_steps, trainee_idx,
         1 if use_frozen else 0, seed & MASK32, (seed >> 32) & MASK32,
-        tick_base, _build.stream(dev))
+        _build.ptr(tb), _build.stream(dev))
     _build.check(err, "fused_rollout")
     launches += 1
     out = (sf2, si2, obs, traj, combine_obs_moments(partials))
@@ -488,12 +491,14 @@ tiled_launches = 0  # kernel I launches (the wrapper counts, the caller resets)
 def fused_rollout_tiled(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None,
                         *, n_steps: int, trainee_idx: int,
                         noise: torch.Tensor | None = None, seed: int = 0,
-                        tick_base: int = 0):
+                        tick_base=0):
     """Kernel I on CUDA tensors, the plain version on CPU tensors; W must
     be a multiple of 1024.
 
     noise=None draws kernel B's in-kernel Philox stream from (seed,
     tick_base); a CPU caller gets the same numbers from `philox_noise`.
+    tick_base as kernel B takes it (an int or a 0-d int32 tensor on the
+    card).
     Returns (sf', si', obs', traj (T, 128, W))."""
     global tiled_launches
     use_frozen = frozen_mats is not None
@@ -502,7 +507,7 @@ def fused_rollout_tiled(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None,
     check_tiled_worlds(W)
     if sf.device.type == "cpu":
         if noise is None:
-            noise = philox_noise(seed, tick_base, n_steps, W, sf.device)
+            noise = philox_noise(seed, int(tick_base), n_steps, W, sf.device)
         return rollout_tiled_plain(cfg, sf, si, obs0, mats, frozen_mats,
                                    n_steps=n_steps, trainee_idx=trainee_idx,
                                    noise=noise)
@@ -523,11 +528,13 @@ def fused_rollout_tiled(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None,
     fpol = flat_policy(frozen_mats) if use_frozen else pol
     traj = torch.empty((n_steps, ROLL_ROWS, W), dtype=F32, device=dev)
     ext = None if noise is None else noise.contiguous()
+    tb = None if noise is not None else _build.device_int(tick_base, dev)
     err = lib.mbb_fused_rollout_tiled(
         sim_params(cfg), _build.ptr(sf2), _build.ptr(si2), _build.ptr(obs),
         _build.ptr(pol), _build.ptr(fpol), _build.ptr(ext),
         _build.ptr(traj), W, n_steps, trainee_idx, 1 if use_frozen else 0,
-        seed & MASK32, (seed >> 32) & MASK32, tick_base, _build.stream(dev))
+        seed & MASK32, (seed >> 32) & MASK32, _build.ptr(tb),
+        _build.stream(dev))
     _build.check(err, "fused_rollout_tiled")
     tiled_launches += 1
     return sf2, si2, obs, traj

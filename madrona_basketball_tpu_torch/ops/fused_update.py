@@ -628,21 +628,23 @@ def fused_minibatch_grad_prefetch(hp, idx, traj, side, nrm, w1t, w2t, wht,
     return _split(grads)
 
 
-def fused_update_phase(hp, idx, count: int, traj, side, nrm, ustats, params,
+def fused_update_phase(hp, idx, count, traj, side, nrm, ustats, params,
                        mu, nu, *, wb: int):
     """Kernel D on CUDA tensors, `update_phase_plain` on CPU tensors.
 
     idx (E * T * W / wb,) int32: each epoch's permutation of the blocks,
     epochs in order (any whole number of minibatches of it runs those
-    minibatches' steps); count: Adam steps taken so far; ustats (1, 8) for
+    minibatches' steps); count: Adam steps taken so far, an int or a 0-d
+    int32 tensor on the card, which the kernel reads there (a CUDA graph
+    replays it with each replay's value); ustats (1, 8) for
     raw side rows or None for normalized ones; params / mu / nu: 4
     kernel-orientation tensors each.  Returns new (params', mu', nu');
     the inputs are not modified.  One C call issues the phase's
     2 x E x M device launches."""
     global device_launches
     if traj.device.type == "cpu":
-        return update_phase_plain(hp, idx, count, traj, side, nrm, ustats,
-                                  params, mu, nu, wb=wb)
+        return update_phase_plain(hp, idx, int(count), traj, side, nrm,
+                                  ustats, params, mu, nu, wb=wb)
     n_mb, bpm = _phase_geometry(hp, idx, traj, side, wb)
     _check_mats(params, mu, nu)
     if ustats is not None and (ustats.shape != (1, 8) or
@@ -657,8 +659,9 @@ def fused_update_phase(hp, idx, count: int, traj, side, nrm, ustats, params,
     idx, traj, side, nrm = (x.contiguous() for x in (idx, traj, side, nrm))
     us = None if ustats is None else ustats.contiguous()
     p, m, v = _flat(params), _flat(mu), _flat(nu)
+    cnt = _b.device_int(count, dev)
     err = lib.mbb_fused_update_phase(
-        _b.ptr(idx), int(count), _b.ptr(traj), _b.ptr(side), _b.ptr(nrm),
+        _b.ptr(idx), _b.ptr(cnt), _b.ptr(traj), _b.ptr(side), _b.ptr(nrm),
         _b.ptr(us), _b.ptr(p), _b.ptr(m), _b.ptr(v), _b.ptr(_partials(dev)),
         grad_ctas(dev), rows, W, wb, bpm, n_mb, *_loss_args(hp),
         float(hp.learning_rate), float(hp.max_grad_norm), _b.stream(dev))

@@ -9,12 +9,16 @@
     kernel-orientation matrices of ops/fused_update.py;
   * `loss_fn`: the clipped PPO loss on packed obs (train.py:256-300),
     differentiable by autograd.  The tests hold the hand-derived backward
-    of ops/fused_update.py against it; the training path never calls it.
+    of ops/fused_update.py against it; the training path never calls it;
+  * `make_train_chunk` / `unstack_metrics` / `auto_chunk`
+    (train.py:466-502): n iterations a dispatch, on the card one
+    iteration captured as a CUDA graph and replayed n times.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import torch
@@ -131,9 +135,12 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 @dataclasses.dataclass
 class AdamState:
-    """Adam step count (a host int) and the first / second moments, each
-    a tuple of the four kernel-orientation matrices
-    (ops/fused_update.SHAPES), float32."""
+    """Adam step count and the first / second moments, each a tuple of
+    the four kernel-orientation matrices (ops/fused_update.SHAPES),
+    float32.  `count` is a host int; kernel D reads it from device memory,
+    where the eager iteration writes it each call and a captured
+    iteration (ppo/train_fused.py::StaticIteration) keeps its own device
+    counter."""
     count: int
     mu: tuple
     nu: tuple
@@ -225,3 +232,102 @@ def loss_fn(hp, net, obs_rms, o, a, lp, v, adv, ret):
     else:
         c_loss = 0.5 * vf_loss.mean()
     return pg_loss + c_loss * hp.vf_coef - ent.mean() * hp.ent_coef
+
+
+# ---------------------------------------------------------------------
+# Chunked dispatch: n iterations per host dispatch
+# ---------------------------------------------------------------------
+
+def make_train_chunk(train_iteration, n_iters: int):
+    """n_iters whole training iterations per call (the JAX package's
+    `make_train_chunk`, train.py:466-483).
+
+    chunk(state) -> (state', metrics): each metric gains a leading
+    (n_iters,) axis, in iteration order; state' equals n_iters calls of
+    `train_iteration` (the weights updated in state's module in place,
+    as those calls update them).  On a CPU state it is a loop over
+    `train_iteration`.  On a CUDA state the first call captures one
+    iteration (`train_iteration.static`'s `step()`) in a CUDA graph,
+    after a warm-up step on a throwaway copy of the state on a side
+    stream (each kernel's first use, its shared-memory attributes); every
+    call then copies the state into the static buffers and replays the
+    graph n_iters times, reseeding the pulse and permutation generators
+    (registered with the graph) before each replay, with no host
+    synchronization.  The graph's kernels count one launch each, at
+    capture (and one in the warm-up); replays count none.  A failed
+    capture or replay raises; nothing falls back to the eager path.
+    The state's seed is baked into the capture (kernel B's Philox key).
+    `chunk.captured` holds, once captured, "static" (the
+    StaticIteration, whose device counters the replays advance) and
+    "graph"."""
+    if n_iters < 1:
+        raise ValueError(f"n_iters={n_iters} must be >= 1")
+    captured = {}
+
+    def chunk(state):
+        dev = state.sf.device
+        if dev.type == "cpu":
+            rows = []
+            for _ in range(n_iters):
+                state, out = train_iteration(state)
+                rows.append(out["metrics"])
+            return state, {k: torch.stack([m[k] for m in rows])
+                           for k in rows[0]}
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        if not captured:
+            captured.update(_capture(train_iteration, state))
+        static, graph = captured["static"], captured["graph"]
+        from .train_fused import METRICS
+        static.load(state)
+        rows = torch.empty((n_iters, len(METRICS)), dtype=F32, device=dev)
+        for i in range(n_iters):
+            static.reseed(state.seed, state.counter + i)
+            graph.replay()
+            rows[i].copy_(static.metrics)
+        return static.result(state, n_iters), {
+            k: rows[:, j] for j, k in enumerate(METRICS)}
+
+    chunk.captured = captured
+    return chunk
+
+
+def _capture(train_iteration, state) -> dict:
+    """The static form of `train_iteration` loaded with `state`, and one
+    of its steps captured as a CUDA graph."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("a CUDA chunk needs a CUDA card")
+    dev = state.sf.device
+    static = train_iteration.static(state)
+    warm = train_iteration.static(state)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        warm.reseed(state.seed, state.counter)
+        warm.step()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    del warm
+    graph = torch.cuda.CUDAGraph()
+    for gen in static.generators:
+        graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        static.step()
+    return {"static": static, "graph": graph}
+
+
+def unstack_metrics(stacked, n: int) -> list:
+    """Inverse of make_train_chunk's metric stacking: a dict whose values
+    carry a leading (n,) axis -> a list of n per-iteration dicts, in
+    order."""
+    return [{k: v[j] for k, v in stacked.items()} for j in range(n)]
+
+
+def auto_chunk(log_every: int, save_every: int, cap: int = 50) -> int:
+    """Largest iterations-per-dispatch that keeps log/save boundaries on
+    chunk edges (a common divisor of both cadences, capped)."""
+    g = math.gcd(max(1, log_every), max(1, save_every))
+    best = 1
+    for d in range(1, min(g, cap) + 1):
+        if g % d == 0:
+            best = d
+    return best

@@ -39,16 +39,26 @@ weights are written back into the agent's module in place and the Adam
 state is replaced; `out` is the collect's.
 
 Noise: by default the pulse draws its 9 rows from a torch.Generator
-seeded by (seed, counter) and the rollout uses kernel B's in-kernel
-Philox with key = seed and tick_base = counter * T, so every iteration
-gets fresh, reproducible streams; the update's block permutations come
-from a second generator seeded by (seed, counter).
-`collect(state, noise=...)` and `train_iteration(state, noise=...,
-perms=...)` inject all draws instead (the tests' path).
+seeded by `pulse_seed(seed, counter)` and the rollout uses kernel B's
+in-kernel Philox with key = seed and tick_base = counter * T, so every
+iteration gets fresh, reproducible streams; the update's block
+permutations come from a second generator seeded by
+`perm_seed(seed, counter)`.  Each generator is made once and reseeded
+before every iteration, which gives the draws of a fresh generator of
+that seed.  `collect(state, noise=...)` and `train_iteration(state,
+noise=..., perms=...)` inject all draws instead (the tests' path).
+
+`train_iteration.static(state)` is the iteration's static-buffer form,
+`StaticIteration`: the state copied into tensors that keep their
+addresses, and `step()`, one iteration from those tensors back into
+them that reads tick_base and the Adam count from device counters and
+advances them.  `ppo/train.py::make_train_chunk` captures one `step()`
+in a CUDA graph and replays it.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable, Optional
 
@@ -61,7 +71,8 @@ from ..engine_fused import draw_noise_rows
 from ..models import agent as agent_lib
 from ..models.agent import Agent
 from ..models.normalize import EPS as RMS_EPS
-from ..models.normalize import _rms_merge, rms_update_padded_moments
+from ..models.normalize import (RMSState, _rms_merge,
+                                rms_update_padded_moments)
 from ..ops import fused_gae as FG
 from ..ops import fused_rollout as FR
 from ..ops import fused_update as FU
@@ -119,8 +130,37 @@ class CollectNoise:
     pulse_frozen_u: Optional[torch.Tensor] = None
 
 
+def pulse_seed(seed: int, counter: int) -> int:
+    """The seed of iteration `counter`'s reset-pulse draws."""
+    return (seed * 1_000_003 + counter) % (2 ** 63)
+
+
+def perm_seed(seed: int, counter: int) -> int:
+    """The seed of iteration `counter`'s block permutations."""
+    return ((seed * 1_000_003 + counter) * 1_000_033 + 7) % (2 ** 63)
+
+
 def make_collect(cfg: SimConfig, hp: PPOParams, device="cuda",
                  rollout_tiled: bool = False):
+    run, gen = _collect_body(cfg, hp, device, rollout_tiled)
+
+    @torch.no_grad()
+    def collect(state: RolloutState, noise: Optional[CollectNoise] = None,
+                mark: Optional[Callable[[str], None]] = None):
+        """One iteration's experience; `mark(name)` (optional) is called
+        after each phase, for timing."""
+        if noise is None:
+            gen.manual_seed(pulse_seed(state.seed, state.counter))
+        return run(state, noise, mark, state.counter * hp.num_rollout_steps)
+
+    return collect
+
+
+def _collect_body(cfg: SimConfig, hp: PPOParams, device, rollout_tiled):
+    """(run, gen): `run(state, noise, mark, tick_base)` is the collect
+    with the pulse drawn from the generator `gen` as it stands (unless
+    `noise` is given) and kernel B's Philox ticks from tick_base (an int
+    or a 0-d int32 tensor on the card)."""
     ti = hp.trainee_idx
     fi = 1 - ti
     T = hp.num_rollout_steps
@@ -129,6 +169,7 @@ def make_collect(cfg: SimConfig, hp: PPOParams, device="cuda",
     dev = torch.device(device)
     if rollout_tiled:
         FR.check_tiled_worlds(hp.num_envs)
+    gen = torch.Generator(device=dev)
 
     def reset_pulse(state: RolloutState, noise: Optional[CollectNoise]):
         si = state.si.clone()
@@ -140,8 +181,6 @@ def make_collect(cfg: SimConfig, hp: PPOParams, device="cuda",
             pulse = noise.pulse
             f_u = noise.pulse_frozen_u
         else:
-            gen = torch.Generator(device=dev).manual_seed(
-                (state.seed * 1_000_003 + state.counter) % (2 ** 63))
             pulse = draw_noise_rows(hp.num_envs, gen, dev)
             f_u = (torch.rand((FR.N_LOGITS, hp.num_envs), generator=gen,
                               device=dev) if hp.use_frozen else None)
@@ -157,10 +196,8 @@ def make_collect(cfg: SimConfig, hp: PPOParams, device="cuda",
         return sf, si, obs
 
     @torch.no_grad()
-    def collect(state: RolloutState, noise: Optional[CollectNoise] = None,
-                mark: Optional[Callable[[str], None]] = None):
-        """One iteration's experience; `mark(name)` (optional) is called
-        after each phase, for timing."""
+    def run(state: RolloutState, noise: Optional[CollectNoise], mark,
+            tick_base):
         mark = mark or (lambda name: None)
         agent = state.agent
         sf, si, obs = reset_pulse(state, noise)
@@ -169,7 +206,7 @@ def make_collect(cfg: SimConfig, hp: PPOParams, device="cuda",
         mats = FR.pack_policy(agent)
         fmats = FR.pack_policy(state.frozen) if hp.use_frozen else None
         kw = dict(n_steps=T, trainee_idx=ti, seed=state.seed,
-                  tick_base=state.counter * T,
+                  tick_base=tick_base,
                   noise=None if noise is None else noise.rollout)
         if rollout_tiled:
             sf, si, obs, traj = FR.fused_rollout_tiled(cfg, sf, si, obs,
@@ -243,7 +280,7 @@ def make_collect(cfg: SimConfig, hp: PPOParams, device="cuda",
                                     counter=state.counter + 1)
         return state, out
 
-    return collect
+    return run, gen
 
 
 # ---------------------------------------------------------------------
@@ -291,15 +328,40 @@ def make_train_iteration(cfg: SimConfig, hp: PPOParams, device="cuda",
     n_blocks = T * (hp.num_envs // wb)
     n_updates = hp.update_epochs * hp.num_minibatches
     dev = torch.device(device)
-    collect = make_collect(cfg, hp, device, rollout_tiled)
+    run_collect, pulse_gen = _collect_body(cfg, hp, device, rollout_tiled)
+    perm_gen = torch.Generator(device=dev)
 
-    def draw_perms(state: TrainState):
-        gen = torch.Generator(device=dev).manual_seed(
-            ((state.seed * 1_000_003 + state.counter) * 1_000_033 + 7) %
-            (2 ** 63))
-        return torch.stack([torch.randperm(n_blocks, generator=gen,
-                                           device=dev)
-                            for _ in range(hp.update_epochs)])
+    def reseed(seed: int, counter: int):
+        """Seed both generators for iteration `counter`."""
+        pulse_gen.manual_seed(pulse_seed(seed, counter))
+        perm_gen.manual_seed(perm_seed(seed, counter))
+
+    def run(state: TrainState, noise, perms, mark, tick_base, count):
+        """One iteration with kernel B's tick_base and the Adam count
+        given (ints, or 0-d int32 tensors on the card), drawing what is
+        not injected from the generators as they stand."""
+        mark_ = mark or (lambda name: None)
+        if perms is None:
+            perms = torch.stack([torch.randperm(n_blocks, generator=perm_gen,
+                                                device=dev)
+                                 for _ in range(hp.update_epochs)])
+        if tuple(perms.shape) != (hp.update_epochs, n_blocks):
+            raise ValueError(f"perms must be ({hp.update_epochs}, "
+                             f"{n_blocks})")
+        state, out = run_collect(state, noise, mark, tick_base)
+        agent = state.agent
+        with torch.no_grad():
+            params, mu, nu = FU.fused_update_phase(
+                hp, perms.to(device=dev, dtype=I32).reshape(-1), count,
+                out["traj"], out["side"], FU.pack_norm(agent.obs_rms),
+                out["ustats"], FU.pack_weights(agent.net), state.opt.mu,
+                state.opt.nu, wb=wb)
+            FU.unpack_weights(agent.net, *params)
+        mark_("update")
+        opt = AdamState(count=state.opt.count + n_updates, mu=mu, nu=nu)
+        state = dataclasses.replace(state, opt=opt,
+                                    iteration=state.iteration + 1)
+        return state, out
 
     def train_iteration(state: TrainState,
                         noise: Optional[CollectNoise] = None,
@@ -309,26 +371,115 @@ def make_train_iteration(cfg: SimConfig, hp: PPOParams, device="cuda",
         permutations; `mark(name)` is called after each phase (the
         collect's, then "update").  Returns (state', out), `out` as
         `collect` gives it, the metrics at out["metrics"]."""
-        mark_ = mark or (lambda name: None)
-        if perms is None:
-            perms = draw_perms(state)
-        if tuple(perms.shape) != (hp.update_epochs, n_blocks):
-            raise ValueError(f"perms must be ({hp.update_epochs}, "
-                             f"{n_blocks})")
-        state, out = collect(state, noise, mark)
-        agent = state.agent
-        with torch.no_grad():
-            params, mu, nu = FU.fused_update_phase(
-                hp, perms.to(device=dev, dtype=I32).reshape(-1),
-                state.opt.count, out["traj"], out["side"],
-                FU.pack_norm(agent.obs_rms), out["ustats"],
-                FU.pack_weights(agent.net), state.opt.mu, state.opt.nu,
-                wb=wb)
-            FU.unpack_weights(agent.net, *params)
-        mark_("update")
-        opt = AdamState(count=state.opt.count + n_updates, mu=mu, nu=nu)
-        state = dataclasses.replace(state, opt=opt,
-                                    iteration=state.iteration + 1)
-        return state, out
+        reseed(state.seed, state.counter)
+        return run(state, noise, perms, mark, state.counter * T,
+                   state.opt.count)
 
+    def static(state: TrainState) -> "StaticIteration":
+        """This iteration's static-buffer form, loaded with `state`."""
+        return StaticIteration(state, run, reseed, (pulse_gen, perm_gen),
+                               T, n_updates)
+
+    train_iteration.static = static
     return train_iteration
+
+
+# ---------------------------------------------------------------------
+# The static-buffer form (what a CUDA graph captures)
+# ---------------------------------------------------------------------
+
+# the iteration's metrics, in the order of StaticIteration.metrics
+METRICS = ("mean_reward", "mean_episode_length", "reward_window",
+           "adv_abs_mean", "value_mean")
+
+
+def state_tensors(state: TrainState) -> list:
+    """Every tensor of a TrainState, in a fixed order: both agents'
+    weights and normalizers, the rows, the episode stats, Adam's
+    moments."""
+    out = []
+    for a in (state.agent, state.frozen):
+        out += list(a.net.parameters())
+        out += [getattr(r, f) for r in (a.obs_rms, a.value_rms)
+                for f in ("mean", "var", "count")]
+    out += [state.sf, state.si, state.obs]
+    out += [getattr(state.stats, f.name)
+            for f in dataclasses.fields(EpisodeStats)]
+    return out + list(state.opt.mu) + list(state.opt.nu)
+
+
+def _clone_rms(r: RMSState) -> RMSState:
+    return RMSState(mean=r.mean.clone(), var=r.var.clone(),
+                    count=r.count.clone())
+
+
+class StaticIteration:
+    """One training iteration on tensors that keep their addresses.
+
+    `self.state` is a TrainState of the iteration's own tensors; its host
+    ints are unused: `counter` and `count` (0-d int32 on the state's
+    device) hold the iteration counter and the Adam step count.  `load`
+    copies a TrainState in; `step()` runs one iteration from the buffers
+    (tick_base = counter * T and the Adam count read on the device, the
+    pulse and the permutations drawn from `generators` as they stand),
+    copies the result back into them, writes the metrics (METRICS order)
+    into `metrics` and advances both counters: nothing in it reads a
+    value on the host, so a CUDA graph can capture it.  Before each
+    `step()` the caller reseeds the generators (`reseed(seed, counter)`),
+    which makes it the eager `train_iteration`.  `result(state, n)` is
+    the TrainState after n steps from `state`: the weights are copied
+    into state's module in place (as the eager iteration updates it),
+    every other tensor is a copy."""
+
+    def __init__(self, state: TrainState, run, reseed, generators, T: int,
+                 n_updates: int):
+        self._run, self._T, self._n_updates = run, T, n_updates
+        self.reseed, self.generators = reseed, generators
+        self.state = copy.deepcopy(state)
+        dev = state.sf.device
+        self.counter = torch.zeros((), dtype=I32, device=dev)
+        self.count = torch.zeros((), dtype=I32, device=dev)
+        self.metrics = torch.zeros((len(METRICS),), dtype=F32, device=dev)
+        self.load(state)
+
+    @torch.no_grad()
+    def load(self, state: TrainState):
+        if state.seed != self.state.seed:
+            raise ValueError(f"seed {state.seed}: these buffers run kernel "
+                             f"B's Philox key {self.state.seed}")
+        for dst, src in zip(state_tensors(self.state), state_tensors(state)):
+            dst.copy_(src)
+        self.counter.fill_(state.counter)
+        self.count.fill_(state.opt.count)
+
+    @torch.no_grad()
+    def step(self):
+        st = self.state
+        new, out = self._run(st, None, None, None, self.counter * self._T,
+                             self.count)
+        for dst, src in zip(state_tensors(st), state_tensors(new)):
+            if dst is not src:      # the weights are updated in place
+                dst.copy_(src)
+        self.metrics.copy_(torch.stack([out["metrics"][k]
+                                        for k in METRICS]))
+        self.counter.add_(1)
+        self.count.add_(self._n_updates)
+
+    @torch.no_grad()
+    def result(self, state: TrainState, n: int) -> TrainState:
+        s = self.state
+        for dst, src in zip(state.agent.net.parameters(),
+                            s.agent.net.parameters()):
+            dst.copy_(src)
+        agent = Agent(net=state.agent.net,
+                      obs_rms=_clone_rms(s.agent.obs_rms),
+                      value_rms=_clone_rms(s.agent.value_rms))
+        stats = EpisodeStats(**{f.name: getattr(s.stats, f.name).clone()
+                                for f in dataclasses.fields(EpisodeStats)})
+        opt = AdamState(count=state.opt.count + n * self._n_updates,
+                        mu=tuple(m.clone() for m in s.opt.mu),
+                        nu=tuple(v.clone() for v in s.opt.nu))
+        return dataclasses.replace(
+            state, agent=agent, sf=s.sf.clone(), si=s.si.clone(),
+            obs=s.obs.clone(), stats=stats, counter=state.counter + n,
+            opt=opt, iteration=state.iteration + n)

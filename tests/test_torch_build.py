@@ -20,10 +20,10 @@ def test_kernel_signatures_parse_from_sources():
     sp = _build.SimParams
     want = {
         "fused_step": [sp] + [P] * 6 + [I, P],
-        "fused_rollout": [sp] + [P] * 8 + [I] * 4 + [U, U, I, P],
+        "fused_rollout": [sp] + [P] * 8 + [I] * 4 + [U, U, P, P],
         "fused_gae": [P] * 8 + [I] * 7 + [F, F, P],
         "meter_scan": [P] * 3 + [I] * 2 + [P],
-        "fused_rollout_tiled": [sp] + [P] * 7 + [I] * 4 + [U, U, I, P],
+        "fused_rollout_tiled": [sp] + [P] * 7 + [I] * 4 + [U, U, P, P],
         "obs_moments": [P] * 3 + [I] * 5 + [P],
     }
     # a source's entries besides its kernel's: the resident CTAs per SM
@@ -32,7 +32,7 @@ def test_kernel_signatures_parse_from_sources():
                  "fused_gae": {"mbb_fused_gae_occupancy": [I, P]}}
     # one source, three entries: kernels D, G and H, and their occupancy
     update = {
-        "mbb_fused_update_phase": [P, I] + [P] * 8 + [I] * 6 + [F] * 3 +
+        "mbb_fused_update_phase": [P, P] + [P] * 8 + [I] * 6 + [F] * 3 +
         [I, F, F, P],
         "mbb_fused_minibatch_grad_prefetch": [P] * 7 + [I] * 5 + [F] * 3 +
         [I, P],
@@ -69,6 +69,28 @@ def test_kernel_signatures_parse_from_sources():
     host = _build.c_signature(_build.CSRC / "host_step.cpp",
                               "mbb_host_multistep")
     assert host == [sp] + [P] * 6 + [I] * 3 + [U, U, I, I]
+
+
+def test_iteration_scalars_are_read_from_device_memory():
+    """Kernel B's and I's tick_base and kernel D's Adam count (and its
+    host twin's) are `const int *` parameters, typed as pointers, so a
+    CUDA graph that replays the launch reads each replay's value."""
+    for src, entry, name in (
+            ("fused_rollout.cu", "mbb_fused_rollout", "tick_base"),
+            ("fused_rollout_tiled.cu", "mbb_fused_rollout_tiled",
+             "tick_base"),
+            ("fused_update.cu", "mbb_fused_update_phase", "count"),
+            ("host_update.cpp", "mbb_host_update_phase", "count")):
+        text = _build._strip_comments((_build.CSRC / src).read_text())
+        params = text.split(f"{entry}(", 1)[1].split(")", 1)[0]
+        names = [p.split("*")[-1].split()[-1] for p in params.split(",")]
+        decl = params.split(",")[names.index(name)]
+        assert "const int *" in " ".join(decl.split()), (entry, decl)
+        types = _build.c_signature(_build.CSRC / src, entry)
+        assert types[names.index(name)] is P, entry
+    host = _build.c_signature(_build.CSRC / "host_update.cpp",
+                              "mbb_host_update_phase")
+    assert host == [P] * 9 + [I] * 6 + [F] * 3 + [I, F, F]
 
 
 def test_sim_params_struct_matches_header():

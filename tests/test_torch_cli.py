@@ -104,7 +104,7 @@ def test_foreign_obs_tail_is_zeroed_with_a_warning(tmp_path):
     ["--bf16-policy"], ["--rollout-block", "2048"], ["--shuffle-block", "1"],
     ["--data-parallel"],
     ["--dp-update"], ["--distributed"], ["--interactive"], ["--viewer"],
-    ["--tensorboard"], ["--iters-per-dispatch", "10"]])
+    ["--tensorboard"], ["--backend", "structured"]])
 def test_unported_flags_exit_naming_the_roadmap_item(flags):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         cli.main(SMALL + ["--num-iterations", "1"] + flags)

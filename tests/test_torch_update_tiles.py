@@ -97,8 +97,9 @@ def test_host_phase_matches_update_phase_plain(host, wb, max_parts,
     for phase in range(2):
         idx = torch.tensor(rng.permutation(n_blocks), dtype=torch.int32)
         p, m, v = (FU._flat(x).clone() for x in mats)
+        cnt = torch.tensor([count], dtype=torch.int32)
         host.mbb_host_update_phase(
-            idx.data_ptr(), count, traj.data_ptr(), side.data_ptr(),
+            idx.data_ptr(), cnt.data_ptr(), traj.data_ptr(), side.data_ptr(),
             nrm.data_ptr(), ustats.data_ptr(), p.data_ptr(), m.data_ptr(),
             v.data_ptr(), max_parts, 128, W, wb, hp.minibatch_size // wb, 2,
             *_args(hp), float(hp.learning_rate), float(hp.max_grad_norm))
@@ -172,8 +173,9 @@ def test_phase_equals_its_minibatches_chained(host):
 
     def host_run(ix, count, mats):
         p, m, v = (FU._flat(x).clone() for x in mats)
+        cnt = torch.tensor([count], dtype=torch.int32)
         host.mbb_host_update_phase(
-            ix.data_ptr(), count, traj.data_ptr(), side.data_ptr(),
+            ix.data_ptr(), cnt.data_ptr(), traj.data_ptr(), side.data_ptr(),
             nrm.data_ptr(), ustats.data_ptr(), p.data_ptr(), m.data_ptr(),
             v.data_ptr(), 3, 128, W, wb, bpm, ix.numel() // bpm,
             *_args(hp), float(hp.learning_rate), float(hp.max_grad_norm))
@@ -192,3 +194,40 @@ def test_phase_equals_its_minibatches_chained(host):
                 assert torch.equal(a, b), run.__name__
     with pytest.raises(ValueError, match="whole minibatches"):
         plain_run(idx[:bpm + 1], 0, (params, opt.mu, opt.nu))
+
+
+def test_host_phase_reads_the_adam_count_from_memory(host):
+    """Kernel D takes its Adam count from device memory (so a CUDA graph
+    replays each iteration's count): the host build, given the count 37
+    in memory, matches the plain phase at the int count 37 at the tiers
+    above, differs from the phase at count 0, and leaves the count as it
+    found it."""
+    hp = PPOParams(num_envs=W, num_rollout_steps=T, update_epochs=1,
+                   num_minibatches=2)
+    rng, nrm, params, traj, side, ustats = _inputs(13)
+    wb = 64
+    idx = torch.tensor(rng.permutation(T * W // wb), dtype=torch.int32)
+    mu = tuple(torch.tensor(rng.normal(scale=1e-3, size=x.shape),
+                            dtype=torch.float32) for x in params)
+    nu = tuple(m * m for m in mu)
+    out = {}
+    for count in (37, 0):
+        p, m, v = (FU._flat(x).clone() for x in (params, mu, nu))
+        cnt = torch.tensor([count], dtype=torch.int32)
+        host.mbb_host_update_phase(
+            idx.data_ptr(), cnt.data_ptr(), traj.data_ptr(), side.data_ptr(),
+            nrm.data_ptr(), ustats.data_ptr(), p.data_ptr(), m.data_ptr(),
+            v.data_ptr(), 3, 128, W, wb, hp.minibatch_size // wb, 2,
+            *_args(hp), float(hp.learning_rate), float(hp.max_grad_norm))
+        assert int(cnt[0]) == count
+        out[count] = (p, m, v)
+    assert not torch.equal(out[37][0], out[0][0])
+    *want, rep = FU.update_phase_kinks(hp, idx, 37, traj, side, nrm, ustats,
+                                       params, mu, nu, wb=wb)
+    assert rep["samples"] <= 1e-3 * rep["of_samples"]
+    for name, got, ws, allow in zip(("params", "mu", "nu"), out[37], want,
+                                    rep["allow"]):
+        for i, (g, w, a) in enumerate(zip(FU._split(got), ws, allow)):
+            lim = 1e-4 if name == "params" else 1e-4 * float(w.abs().max())
+            assert not bool(((g - w).abs() > lim + a).any()), \
+                f"{name}[{i}]: {float((g - w).abs().max())}"
