@@ -21,7 +21,9 @@ times every phase with CUDA events.  The chunked dispatch
 and replayed with its generators reseeded) follows on both paths: 3
 eager iterations against one chunk of 3 from clones of one state, every
 tensor, metric and counter bit for bit (`chunk_parity`,
-`chunk_parity_tiled`), then chunks of 50 (`chunked_path`,
+`chunk_parity_tiled`, and `chunk_parity_frozen`: the league's iteration
+with the frozen opponent, kernel B's frozen forward and the pulse's
+frozen draws), then chunks of 50 (`chunked_path`,
 `chunked_tiled_path`: launches counted from 0 around the first chunk,
 which holds the warm-up step and the capture, none at replay; the
 median of 3 chunks by CUDA events over 50; one chunk profiled for the
@@ -41,7 +43,30 @@ the CPU at 256 worlds, the env's reset and step (one with a frozen
 policy), and the stepping bench (`python -m
 madrona_basketball_tpu_torch.bench 8192`) as a subprocess, whose JSON
 line is re-emitted; each path's kernel launches are counted from 0
-around that path alone.  Each kernel's own device
+around that path alone.  The eval path (infer.py) follows: the per-step
+loop and the eval chunk (32 ticks captured as a CUDA graph, the stop
+tested on the device) at 256 worlds of `SimConfig(time_per_period=1.0)`
+must agree bit for bit - counts, every npz array, the final rows - with
+the episodes stopping mid-chunk and, without a stop, over the 8-tick tail
+of 200 ticks, deterministic and stochastic with a frozen opponent; the
+per-step tick body and an eager chunk tick run under
+`torch.cuda.set_sync_debug_mode("error")` (`eval_parity`); 16 ticks of
+injected noise and Gumbel draws on the card against the plain path on the
+CPU, at the CLI's 10 worlds and at 256 (`eval_card_vs_cpu`); ms a tick
+and eval env-steps/s of both loops through `infer` at the CLI's defaults
+(10 worlds, 5 episodes, log on) and at 8192 worlds x 320 ticks (no stop,
+no log), kernel A's launches counted from 0 around each run, a 32-tick
+window of each (median of 3, the chunked-over-per-step ratio taken from
+these medians), one window profiled, and peak memory (`eval_path`).  The eval CLI runs as a subprocess on the `cli`
+phase's checkpoint and with `--model-name` (`infer_cli`: the npz keys,
+shapes and dtypes against NPZ_SCHEMA).  The league's CLI
+(`selfplay.main`, 1 cycle x 100 iterations a generation at 8192 worlds)
+runs in a temp directory in this process, its launches counted from 0,
+its printed lines time-stamped (seconds a generation), its checkpoints
+and reward lines checked, then `multi_gen_infer` over one generation
+against the other's last checkpoint (`selfplay`).  A train state saved
+after 2 flagship iterations and restored continues bit for bit
+(`resume`).  Each kernel's own device
 time comes from torch.profiler, beside the CUDA-event time of
 back-to-back wrapper calls and of its plain version; kernel D's is also
 split into its gradient and reduce launches, and the redesigned kernels'
@@ -349,6 +374,46 @@ def host_multistep_lib():
     return lib
 
 
+# the eval log's keys, per-world shapes and dtypes (the reference's key
+# schema, scripts/infer.py:116-129, as madrona_basketball_tpu/infer.py
+# writes it): (shape after (T, W), dtype); hoop_pos is (W, 2, 3) and
+# num_episodes a 0-d int64
+NPZ_SCHEMA = {"agent_pos": ((2, 3), "float32"),
+              "ball_pos": ((1, 3), "float32"),
+              "ball_vel": ((1, 3), "float32"),
+              "orientation": ((2, 4), "float32"),
+              "ball_physics": ((1, 7), "int32"),
+              "agent_possession": ((2, 3), "int32"),
+              "game_state": ((14,), "float32"),
+              "rewards": ((2,), "float32"),
+              "actions": ((2, 6), "int32"),
+              "done": ((), "float32")}
+
+
+def check_npz(path, worlds) -> int:
+    """Raise unless the npz at `path` has the eval log's schema for
+    `worlds` worlds and finite floats; returns its tick count."""
+    import numpy as np
+    raw = dict(np.load(path))
+    want = {**NPZ_SCHEMA, "hoop_pos": None, "num_episodes": None}
+    if set(raw) != set(want):
+        raise Fail(f"{path}: keys {sorted(raw)}")
+    T = raw["done"].shape[0]
+    shapes = {k: ((T, worlds) + shp, dt)
+              for k, (shp, dt) in NPZ_SCHEMA.items()}
+    shapes["hoop_pos"] = ((worlds, 2, 3), "float32")
+    shapes["num_episodes"] = ((), "int64")
+    for k, (shp, dt) in shapes.items():
+        if raw[k].shape != shp or raw[k].dtype.name != dt:
+            raise Fail(f"{path}: {k} {raw[k].shape} {raw[k].dtype}, want "
+                       f"{shp} {dt}")
+        if dt == "float32" and not np.isfinite(raw[k]).all():
+            raise Fail(f"{path}: {k} holds non-finite values")
+    if T < 1:
+        raise Fail(f"{path}: no ticks logged")
+    return T
+
+
 def bound(nbytes, nops):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = nops / FP32_FLOP_PER_S * 1e3
@@ -385,7 +450,8 @@ def main():
     from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
     from madrona_basketball_tpu_torch.ppo.train_fused import (
         CollectNoise, init_rollout_state, init_train_state, make_collect,
-        make_train_iteration, state_tensors, update_block)
+        make_train_iteration, restore_train_state, save_train_state,
+        state_tensors, update_block)
     from madrona_basketball_tpu_torch.utils import checkpoint as CK
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1354,6 +1420,12 @@ def main():
     trace("trace_tiled", t_state, t_iteration)
     chunk_parity("chunk_parity", False, state, train_iteration)
     chunk_parity("chunk_parity_tiled", True, t_state, t_iteration)
+    # the league's iteration: kernel B's frozen forward and the pulse's
+    # frozen draws, captured
+    hp_f = dataclasses.replace(hp, use_frozen=True)
+    chunk_parity("chunk_parity_frozen", False,
+                 init_train_state(cfg, hp_f, seed=11, device=dev),
+                 make_train_iteration(cfg, hp_f, device=dev))
     chunked("chunked_path", False, state, train_iteration, "main_path")
     chunked("chunked_tiled_path", True, t_state, t_iteration, "tiled_path")
     curve = learning("learning", False)
@@ -1429,6 +1501,32 @@ def main():
         if not all(same.values()):
             raise Fail(f"cli: the auto-chunk checkpoints differ from the "
                        f"--iters-per-dispatch 1 ones: {same}")
+        # the eval CLI as a user runs it, at its defaults (10 worlds, 5
+        # episodes, the eval chunk), on the `cli` phase's checkpoint, then
+        # with --model-name over that run's checkpoints
+        icli = {}
+        for what, flags, log in (
+                ("single", ["--trainee-checkpoint",
+                            CK.checkpoint_path("chip_smoke", 4)],
+                 "logs/inference_trajectories.npz"),
+                ("model_name", ["--model-name", "chip_smoke"],
+                 "logs/mgi/chip_smoke_/chip_smoke_4.npz")):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "madrona_basketball_tpu_torch.infer",
+                 *flags], cwd=tmp, env=env, capture_output=True, text=True,
+                timeout=600)
+            secs_i = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise Fail(f"infer cli {flags} exited {proc.returncode}: "
+                           f"{proc.stderr[-3000:]}")
+            ticks_i = check_npz(Path(tmp) / log, 10)
+            icli[what] = {"flags": flags, "seconds": secs_i, "npz": log,
+                          "ticks": ticks_i, "log": [
+                              ln for ln in proc.stdout.splitlines()
+                              if ln.startswith(("All ", "Found "))]}
+        emit({"phase": "infer_cli", "runs": icli,
+              "npz_schema": "keys, shapes and dtypes as NPZ_SCHEMA"})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1547,6 +1645,357 @@ def main():
     emit(bench_line)
     emit({"phase": "bench", "seconds": bench_secs,
           "engines": list(engines.values())})
+
+    # ---------------------------------------------------------- eval
+    # the eval path (infer.py): kernel A a tick with the policy in torch,
+    # per step or as the eval chunk (K ticks captured as a CUDA graph)
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from madrona_basketball_tpu_torch import infer as IF
+    from madrona_basketball_tpu_torch import selfplay as SP
+    ev_tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
+    cfg_e = SimConfig(time_per_period=1.0)
+    ev_agents = [init_agent(torch.Generator().manual_seed(s), dev)
+                 for s in (21, 22)]
+
+    def quiet(fn, *a, **kw):
+        """fn's result, its prints kept off this script's stdout."""
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(*a, **kw)
+
+    def eval_run(name, chunk_size, stochastic, num_episodes, worlds,
+                 cfg_, max_steps, log=True, frozen_on=None):
+        """One `infer` from a fresh env (seed 31): (counts, npz arrays or
+        None, engine, seconds, peak bytes)."""
+        frozen_on = stochastic if frozen_on is None else frozen_on
+        fp = IF.make_policy_fn(ev_agents[1], IF.generator(1, dev)) \
+            if frozen_on else None
+        env_ = BasketballEnv(worlds, cfg_, seed=31, frozen_policy=fp,
+                             trainee_agent_idx=1, device=dev)
+        path = os.path.join(ev_tmp, f"{name}.npz") if log else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        c_ = quiet(IF.infer, env_, ev_agents[0], path, num_episodes,
+                   max_steps, stochastic, seed=0, trainee_idx=1,
+                   frozen_params=ev_agents[1] if frozen_on else None,
+                   chunk_size=chunk_size)
+        torch.cuda.synchronize()
+        secs_ = time.perf_counter() - t0
+        return (c_, dict(np.load(path)) if log else None, env_.engine,
+                secs_, torch.cuda.max_memory_allocated(dev))
+
+    # eval_parity: per step against the chunk of 32, bit for bit
+    parity = []
+    for stochastic in (False, True):
+        for n_ep in (1, 0):
+            a_ = eval_run("p1", 1, stochastic, n_ep, 256, cfg_e, 200)
+            b_ = eval_run("p32", 32, stochastic, n_ep, 256, cfg_e, 200)
+            T_ = a_[1]["done"].shape[0]
+            bad = [k for k in a_[1] if a_[1][k].dtype != b_[1][k].dtype or
+                   not np.array_equal(a_[1][k], b_[1][k])]
+            if set(a_[1]) != set(b_[1]) or bad or \
+                    not np.array_equal(a_[0], b_[0]) or \
+                    any(not torch.equal(getattr(a_[2], r), getattr(b_[2], r))
+                        for r in ("sf", "si", "obs")):
+                raise Fail(f"eval_parity stochastic={stochastic} "
+                           f"num_episodes={n_ep}: the chunk differs from "
+                           f"the per-step loop: arrays {bad}, counts "
+                           f"{a_[0].sum()} vs {b_[0].sum()}")
+            if (n_ep == 1 and (T_ % 32 == 0 or not (a_[0] >= 1).all())) or \
+                    (n_ep == 0 and T_ != 200):
+                raise Fail(f"eval_parity: {T_} ticks, counts {a_[0].min()}"
+                           f"..{a_[0].max()}: not the stop or tail case")
+            parity.append({"stochastic_frozen": stochastic,
+                           "num_episodes": n_ep, "ticks": T_,
+                           "stop": "mid-chunk" if n_ep else
+                           "max_steps tail of 8",
+                           "arrays_equal": len(a_[1]),
+                           "episodes": int(a_[0].sum())})
+    # the per-step tick body and an eager eval-chunk tick read nothing on
+    # the host (what the capture needs)
+    sd_env = BasketballEnv(256, cfg_e, seed=32, trainee_agent_idx=1,
+                           device=dev)
+    sd_pol = IF.make_policy_fn(ev_agents[0], IF.generator(0, dev))
+    sd_obs, _, _ = sd_env.reset()
+    sd_chunk = IF.EvalChunk(cfg_e, sd_env.engine, sd_pol, None, 1, 2, 1,
+                            True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sd_env.step(sd_pol(sd_obs))
+        IF.log_row(sd_env.engine.sf, sd_env.engine.si, 1)
+        sd_chunk.tick(0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    emit({"phase": "eval_parity", "worlds": 256, "chunk": 32,
+          "max_steps": 200, "time_per_period": 1.0, "cases": parity,
+          "sync_debug_mode_error_tick_ok": True})
+
+    # eval_card_vs_cpu: 16 ticks of injected draws, the card's per-step
+    # loop against the plain path on the CPU, at the eval CLI's 10 worlds
+    # (one partial block of kernel A, row stride 10) and at 256
+    tc = 16
+    cvc_cases = []
+    for wc in (10, 256):
+        g_cpu = torch.Generator().manual_seed(41)
+        c_noise = [draw_noise_rows(wc, g_cpu, "cpu") for _ in range(tc + 1)]
+
+        def gumbels(n, wc=wc, g_cpu=g_cpu):
+            return [FR.gumbel_from_uniform(torch.rand((wc, FR.N_LOGITS),
+                                                      generator=g_cpu))
+                    for _ in range(n)]
+        c_gt, c_gf = gumbels(tc), gumbels(tc + 1)
+        cvc = []                     # the card's run, then the CPU's
+        for dv in (dev, torch.device("cpu")):
+            agents_ = [CK.load_agent(CK.save_agent(a, os.path.join(
+                ev_tmp, f"a{i}.pth")), dv) for i, a in enumerate(ev_agents)]
+            env_ = BasketballEnv(wc, cfg, seed=33, trainee_agent_idx=1,
+                                 device=dv, frozen_policy=IF.make_policy_fn(
+                                     agents_[1], None,
+                                     gumbel=iter([g.to(dv) for g in c_gf])))
+            if cvc:                # the card env's initial rows
+                env_.engine.sf, env_.engine.si = (r.cpu() for r in cvc[0][3])
+            init_rows_ = (env_.engine.sf.clone(), env_.engine.si.clone())
+            path = os.path.join(ev_tmp, f"cvc_{wc}_{len(cvc)}.npz")
+            c_ = quiet(IF.infer, env_, agents_[0], path, 0, tc, True, seed=0,
+                       trainee_idx=1, frozen_params=agents_[1], chunk_size=1,
+                       noise=iter([n.to(dv) for n in c_noise]),
+                       gumbel=iter([g.to(dv) for g in c_gt]))
+            cvc.append((c_, dict(np.load(path)), env_.engine, init_rows_))
+        torch.cuda.synchronize()
+        g_log, c_log = cvc[0][1], cvc[1][1]
+        keys_ = sorted(c_log)
+        if sorted(g_log) != keys_ or g_log["done"].shape[0] != tc or any(
+                g_log[k].shape != c_log[k].shape or
+                g_log[k].dtype != c_log[k].dtype for k in keys_):
+            raise Fail(f"eval_card_vs_cpu {wc} worlds: the npz schemas "
+                       "differ")
+        cvc_err = compare(f"eval card vs cpu {wc} worlds", [
+            torch.from_numpy(g_log[k]) for k in keys_] + [
+            getattr(cvc[0][2], r).cpu() for r in ("sf", "si", "obs")],
+            [torch.from_numpy(c_log[k]) for k in keys_] + [
+            getattr(cvc[1][2], r) for r in ("sf", "si", "obs")],
+            atol=1e-4, rel=True)
+        cvc_cases.append({"worlds": wc, "ticks": tc,
+                          "max_err_rel_to_max_1_abs": cvc_err})
+    emit({"phase": "eval_card_vs_cpu", "cases": cvc_cases,
+          "frozen": True, "stochastic": True, "arrays": keys_,
+          "reference": "plain path on the CPU"})
+
+    # eval_path: ms a tick and eval env-steps/s, per step against the
+    # chunk, at the CLI's defaults (10 worlds, log on) and at 8192 worlds
+    # x 320 ticks without stopping or logging; kernel A's launches
+    # counted from 0 around each run
+    eval_launches = {}
+
+    def per_step_ticks(env_, pol, n, log):
+        """n ticks of infer's per-step loop body (policy, env step, log
+        row and done fetched to the host)."""
+        obs_ = env_.get_obs()
+        for _ in range(n):
+            obs_, _, done_ = env_.step(pol(obs_))
+            if log:
+                for v in IF.log_row(env_.engine.sf, env_.engine.si,
+                                    1).values():
+                    v.cpu()
+                done_.cpu()
+
+    ev_cases = []
+    for label, worlds, cfg_, n_ep, max_steps, log in (
+            ("cli_defaults_10", 10, cfg, 5, 10000, True),
+            ("fleet_8192", W, cfg, 0, 320, False)):
+        row = {"case": label, "worlds": worlds, "num_episodes": n_ep,
+               "max_steps": max_steps, "log": log}
+        for mode, k in (("per_step", 1), ("chunked", 32)):
+            FS.launches = 0
+            c_, logs_, eng_, secs_, peak_ = eval_run(
+                f"{label}_{mode}", k, True, n_ep, worlds, cfg_, max_steps,
+                log=log, frozen_on=False)
+            n_a = FS.launches
+            ticks_ = logs_["done"].shape[0] if log else max_steps
+            if log:
+                check_npz(os.path.join(ev_tmp, f"{label}_{mode}.npz"),
+                          worlds)
+            want_a = 1 + ticks_ if k == 1 else 1 + 1 + k
+            if n_a != want_a:
+                raise Fail(f"eval_path {label} {mode}: kernel A launched "
+                           f"{n_a} times, want {want_a}")
+            eval_launches[f"{label}_{mode}"] = n_a
+            # one profiled window of 32 ticks from a fresh env
+            env_ = BasketballEnv(worlds, cfg_, seed=34, trainee_agent_idx=1,
+                                 device=dev)
+            pol = IF.make_policy_fn(ev_agents[0], IF.generator(0, dev))
+            env_.reset()
+            if k == 1:
+                def window(env_=env_, pol=pol, log=log):
+                    per_step_ticks(env_, pol, 32, log)
+            else:
+                chunk_ = IF.make_eval_chunk(env_, pol, None, 32, 0, log)
+
+                def window(chunk_=chunk_, log=log):
+                    chunk_.run(32)
+                    int(chunk_.t_used)
+                    if log:
+                        for buf in chunk_.logs.values():
+                            buf.cpu()
+            window()
+            torch.cuda.synchronize()
+            w_ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                window()
+                torch.cuda.synchronize()
+                w_ms.append((time.perf_counter() - t0) * 1e3)
+            _, busy_, p_wall, top_ = profiled(window)
+            ms_tick = secs_ * 1e3 / ticks_
+            w_tick = statistics.median(w_ms) / 32
+            row[mode] = {
+                "ticks": ticks_, "seconds": secs_, "ms_per_tick": ms_tick,
+                "eval_env_steps_per_s": worlds * ticks_ / secs_,
+                "episodes": int(c_.sum()), "kernel_a_launches": n_a,
+                "peak_memory_bytes": peak_,
+                "window_32_ticks_ms": w_ms, "window_ms_per_tick": w_tick,
+                "window_device_busy_ms": busy_,
+                "window_device_idle_share": (1.0 - busy_ /
+                                             statistics.median(w_ms))
+                if busy_ else None, "profiled_window_wall_ms": p_wall,
+                "top_device_ms": top_}
+        # the ratio from the windows' medians: one infer call also holds
+        # the chunk's capture, which dominates a short call
+        row["chunked_speedup_window_ms_per_tick"] = \
+            row["per_step"]["window_ms_per_tick"] / \
+            row["chunked"]["window_ms_per_tick"]
+        row["chunked_speedup_infer_call_ms_per_tick"] = \
+            row["per_step"]["ms_per_tick"] / row["chunked"]["ms_per_tick"]
+        ev_cases.append(row)
+    emit({"phase": "eval_path", "cases": ev_cases,
+          "launch_note": "kernel A: per step one a tick plus the reset; "
+                         "chunked one for the reset, one in the capture's "
+                         "warm-up tick and 32 at capture, none at replay",
+          "ms_per_tick_note": "host clock around infer (env set-up "
+                              "excluded, the npz write included) over its "
+                              "ticks; the windows are 32 ticks of a fresh "
+                              "env, the per-step body or one replay and "
+                              "its fetch"})
+
+    # ---------------------------------------------------------- selfplay
+    # the league's CLI at 1 cycle x 100 iterations a generation, in a temp
+    # directory, in this process so that its launches can be counted;
+    # each printed line is time-stamped as it arrives
+    class Stamped(io.TextIOBase):
+        def __init__(self):
+            self.buf, self.lines = "", []
+
+        def write(self, text):
+            self.buf += text
+            while "\n" in self.buf:
+                line, self.buf = self.buf.split("\n", 1)
+                self.lines.append((time.perf_counter(), line))
+            return len(text)
+
+    sp_dir = tempfile.mkdtemp(dir=_build.BUILD_DIR)
+    cwd = os.getcwd()
+    out_sp = Stamped()
+    reset_counts()
+    try:
+        os.chdir(sp_dir)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out_sp):
+            SP.main(["--num-training-cycles", "1", "--iter-per-agent", "100",
+                     "--num-envs", str(W), "--device", str(dev)])
+        torch.cuda.synchronize()
+        sp_secs = time.perf_counter() - t0
+        sp_launches = counts()
+        check_path("selfplay", False, sp_launches)
+        marks = [(t_, ln) for t_, ln in out_sp.lines
+                 if "GENERATION" in ln or "Cycle" in ln]
+        gens = {}
+        for (ta, la), (tb, _) in zip(marks, marks[1:]):
+            name = la.split("(")[1].split(")")[0]
+            gens[name] = {"seconds": tb - ta, "ms_per_iteration":
+                          (tb - ta) * 1e3 / 100}
+        rewards = [ln.strip() for _, ln in out_sp.lines
+                   if "mean_reward=" in ln]
+        for name in ("model_1_gen_0", "model_0_gen_0"):
+            files = sorted(os.listdir(os.path.join("checkpoints", name)))
+            if files != sorted(f"{name}_{i}.pth"
+                               for i in range(10, 101, 10)):
+                raise Fail(f"selfplay {name} checkpoints: {files}")
+            if not any(f"[{name}] iter 100:" in ln for ln in rewards):
+                raise Fail(f"selfplay: no mean-reward line of {name}")
+            sd_ = torch.load(os.path.join("checkpoints", name,
+                                          f"{name}_100.pth"),
+                             weights_only=True)
+            if not all(bool(torch.isfinite(v).all()) for v in sd_.values()):
+                raise Fail(f"selfplay {name}: non-finite checkpoint")
+        for i in (0, 1):
+            CK.load_agent(f"checkpoints/model_{i}_initial.pth", dev)
+        if set(gens) != {"model_1_gen_0", "model_0_gen_0"}:
+            raise Fail(f"selfplay: generations {sorted(gens)}")
+        # multi-generation eval over one generation, against the other
+        # generation's last checkpoint (one episode a world)
+        FS.launches = 0
+        t0 = time.perf_counter()
+        quiet(IF.multi_gen_infer, "model_1_gen_0", num_envs=10,
+              frozen_checkpoint="checkpoints/model_0_gen_0/"
+                                "model_0_gen_0_100.pth",
+              num_episodes=1, device=dev)
+        torch.cuda.synchronize()
+        mgi_secs = time.perf_counter() - t0
+        mgi = sorted(os.listdir("logs/mgi/model_1_gen_0_"))
+        if mgi != sorted(f"model_1_gen_0_{i}.npz"
+                         for i in range(10, 101, 10)):
+            raise Fail(f"multi_gen_infer wrote {mgi}")
+        mgi_ticks = [check_npz(os.path.join("logs/mgi/model_1_gen_0_", f),
+                               10) for f in mgi]
+        mgi_launches = FS.launches
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(sp_dir, ignore_errors=True)
+    emit({"phase": "selfplay", "flags": "--num-training-cycles 1 "
+          f"--iter-per-agent 100 --num-envs {W}", "seconds": sp_secs,
+          "generations": gens, "reward_lines": rewards,
+          "launches": sp_launches,
+          "fused_update_phase_device_launches": FU.device_launches,
+          "launch_note": "each generation: 10 chunks of 10 iterations, "
+                         "one warm-up step and one capture counted",
+          "multi_gen_infer": {"checkpoints": len(mgi), "worlds": 10,
+                              "num_episodes": 1, "frozen": True,
+                              "ticks": mgi_ticks, "seconds": mgi_secs,
+                              "kernel_a_launches": mgi_launches}})
+
+    # ---------------------------------------------------------- resume
+    # a train state saved after 2 iterations and restored continues bit
+    # for bit like the uninterrupted run
+    rs_iter = make_train_iteration(cfg, hp, device=dev)
+    rs_state = init_train_state(cfg, hp, seed=5, device=dev)
+    for _ in range(2):
+        rs_state, _ = rs_iter(rs_state)
+    rs_path = save_train_state(rs_state, os.path.join(ev_tmp, "ts.pt"))
+    restored = restore_train_state(rs_path, dev)
+    cont_a, o_a = rs_iter(copy.deepcopy(rs_state))
+    cont_b, o_b = rs_iter(restored)
+    torch.cuda.synchronize()
+    ta_, tb_ = state_tensors(cont_a), state_tensors(cont_b)
+    rs_diff = [i for i, (x, y) in enumerate(zip(ta_, tb_))
+               if not torch.equal(x, y)]
+    rs_mdiff = [k for k in o_a["metrics"]
+                if not torch.equal(o_a["metrics"][k], o_b["metrics"][k])]
+    rs_counters = [(cont_a.counter, cont_b.counter),
+                   (cont_a.opt.count, cont_b.opt.count),
+                   (cont_a.iteration, cont_b.iteration)]
+    if rs_diff or rs_mdiff or any(a != b for a, b in rs_counters):
+        raise Fail(f"resume: tensors {rs_diff}, metrics {rs_mdiff}, "
+                   f"counters {rs_counters}")
+    emit({"phase": "resume", "worlds": W, "ticks": T,
+          "iterations": "2, save, restore, 1", "tensors_equal": len(ta_),
+          "metrics_equal": len(o_a["metrics"]),
+          "file_bytes": os.path.getsize(rs_path)})
+    shutil.rmtree(ev_tmp, ignore_errors=True)
 
     # ---------------------------------------------------------- kernel times
     pulse_si = state.si.clone()
@@ -1817,6 +2266,9 @@ def main():
                      "bytes": nbytes, "ops": nops,
                      "bound_share": bms / ms[name][0],
                      **pl, **design.get(name, {})})
+    # kernel A's launches on the eval path (eval_path, counted from 0
+    # around each run)
+    rows[0]["eval_launches"] = eval_launches
     # kernel F: launches from the bench path; ms per launch of K ticks
     for name, nops in (
             ("fused_multistep_every_tick_obs", ops_a * W * KB),

@@ -85,20 +85,37 @@ def init_agent(gen: torch.Generator, device="cuda",
                  value_rms=rms_init(1, device))
 
 
+def _actor(ap: Agent, obs):
+    """(the actor's logits, the backbone's features) of raw obs."""
+    h = ap.net.backbone(rms_normalize(ap.obs_rms, obs, clamp=5.0))
+    return ap.net.actor(h), h
+
+
+def _choose(logits, gumbel, buckets):
+    """The per-bucket first argmax of the logits, plus `gumbel` when
+    given (Gumbel-max sampling)."""
+    return action_dist.best(logits if gumbel is None else logits + gumbel,
+                            buckets)
+
+
 @torch.no_grad()
 def forward(ap: Agent, obs, gumbel=None,
             buckets: Sequence[int] = C.ACTION_BUCKETS):
     """(actions, summed log-probs, value) - scripts/agent.py:140-154.
     With `gumbel` given it samples (Gumbel-max); without, it takes the
     per-bucket argmax."""
-    x = rms_normalize(ap.obs_rms, obs, clamp=5.0)
-    logits, value = ap.net(x)
-    if gumbel is not None:
-        actions, lps = action_dist.sample(gumbel, logits, buckets)
-    else:
-        actions = action_dist.best(logits, buckets)
-        lps = action_dist.log_probs(logits, actions, buckets)
-    return actions, lps.sum(dim=-1), value
+    logits, h = _actor(ap, obs)
+    actions = _choose(logits, gumbel, buckets)
+    lps = action_dist.log_probs(logits, actions, buckets)
+    return actions, lps.sum(dim=-1), ap.net.critic(h)[..., 0]
+
+
+@torch.no_grad()
+def act(ap: Agent, obs, gumbel=None,
+        buckets: Sequence[int] = C.ACTION_BUCKETS):
+    """`forward`'s actions alone, without the log-probs and the critic
+    head (the JAX policy's jit drops those when they go unused)."""
+    return _choose(_actor(ap, obs)[0], gumbel, buckets)
 
 
 @torch.no_grad()

@@ -60,6 +60,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 from typing import Callable, Optional
 
 import torch
@@ -301,6 +302,73 @@ def init_train_state(cfg: SimConfig, hp: PPOParams, seed: int,
     return TrainState(**{f.name: getattr(rs, f.name)
                          for f in dataclasses.fields(RolloutState)},
                       opt=opt, iteration=0)
+
+
+# ---- full train-state resume (madrona_basketball_tpu/utils/
+# checkpoint.py:87-97): the pulse and permutation generators are reseeded
+# from (seed, counter) before every iteration, so a restored state
+# continues bit for bit like the run that saved it ----
+
+_RMS = ("obs_rms", "value_rms")
+_RMS_FIELDS = ("mean", "var", "count")
+
+
+def _agent_tensors(agent: Agent) -> dict:
+    return {"net": {k: v.detach().cpu().clone()
+                    for k, v in agent.net.state_dict().items()},
+            **{attr: {f: getattr(getattr(agent, attr), f).detach().cpu()
+                      for f in _RMS_FIELDS}
+               for attr in _RMS}}
+
+
+def _agent_from(d: dict, device) -> Agent:
+    net = agent_lib.ActorCritic()
+    net.load_state_dict(d["net"])
+    return Agent(net=net.to(device),
+                 **{attr: RMSState(**{f: d[attr][f].to(device)
+                                      for f in _RMS_FIELDS})
+                    for attr in _RMS})
+
+
+def save_train_state(state: TrainState, path: str) -> str:
+    """`torch.save` of the whole `TrainState` (rows, episode stats, both
+    agents, Adam's moments and step count, seed, iteration counter) as
+    plain dicts of CPU tensors and ints, so `restore_train_state` loads
+    it with `weights_only=True`."""
+    stats = state.stats
+    blob = {
+        "agent": _agent_tensors(state.agent),
+        "frozen": _agent_tensors(state.frozen),
+        "rows": {k: getattr(state, k).detach().cpu()
+                 for k in ("sf", "si", "obs")},
+        "stats": {f.name: getattr(stats, f.name).detach().cpu()
+                  for f in dataclasses.fields(stats)},
+        "opt": {"count": state.opt.count,
+                "mu": [m.detach().cpu() for m in state.opt.mu],
+                "nu": [v.detach().cpu() for v in state.opt.nu]},
+        "seed": state.seed, "counter": state.counter,
+        "iteration": state.iteration,
+    }
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save(blob, path)
+    return path
+
+
+def restore_train_state(path: str, device="cuda") -> TrainState:
+    """The `TrainState` that `save_train_state` wrote, on `device`."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    opt = blob["opt"]
+    return TrainState(
+        agent=_agent_from(blob["agent"], device),
+        frozen=_agent_from(blob["frozen"], device),
+        **{k: v.to(device) for k, v in blob["rows"].items()},
+        stats=EpisodeStats(**{k: v.to(device)
+                              for k, v in blob["stats"].items()}),
+        seed=blob["seed"], counter=blob["counter"],
+        opt=AdamState(count=opt["count"],
+                      mu=tuple(m.to(device) for m in opt["mu"]),
+                      nu=tuple(v.to(device) for v in opt["nu"])),
+        iteration=blob["iteration"])
 
 
 def update_block(hp: PPOParams) -> int:

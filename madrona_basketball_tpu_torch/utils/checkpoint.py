@@ -1,13 +1,24 @@
-"""Agent checkpoints in the reference `.pth` layout (port of the `.pth`
-half of `madrona_basketball_tpu/utils/checkpoint.py:25-82` and
+"""Agent checkpoints (port of
+`madrona_basketball_tpu/utils/checkpoint.py:25-84` and
 `utils/torch_compat.py`).
 
-A checkpoint is `torch.save` of the reference `Agent.state_dict()`
-(scripts/ppo.py:337-350): the `ActorCritic` keys as they are
-(`backbone.{3k}` Linear, `backbone.{3k+1}` LayerNorm, `actor`, `critic`)
-plus both normalizers as float64 buffers `obs_norm.{mean,var,count}` and
-`value_norm.{mean,var,count}`.  The JAX package's `load_agent` reads these
-files, and its `torch_state_dict_from_agent_params` writes them.
+Agent files, by suffix:
+  * `.pth` / `.pt`: `torch.save` of the reference `Agent.state_dict()`
+    (scripts/ppo.py:337-350): the `ActorCritic` keys as they are
+    (`backbone.{3k}` Linear, `backbone.{3k+1}` LayerNorm, `actor`,
+    `critic`) plus both normalizers as float64 buffers
+    `obs_norm.{mean,var,count}` and `value_norm.{mean,var,count}`.  The
+    JAX package's `load_agent` reads these files, and its
+    `torch_state_dict_from_agent_params` writes them.  `checkpoint_path`
+    names this layout.
+  * `.ckpt`: the JAX package's own agent file, `flax.serialization.
+    to_bytes(AgentParams)`, written and read with the package's msgpack
+    codec (utils/flax_msgpack.py) and mapped by utils/jax_params.py.
+Both go through the same architecture check and obs-tail repair.
+
+The counterpart of the JAX module's train-state resume (`:87-97`),
+`save_train_state` / `restore_train_state`, lives beside `TrainState` in
+ppo/train_fused.py.
 """
 
 from __future__ import annotations
@@ -15,15 +26,19 @@ from __future__ import annotations
 import os
 import warnings
 
+import numpy as np
 import torch
 
 from .. import constants as C
 from ..models.agent import ActorCritic, Agent
-from ..models.normalize import RMSState
+from ..models.normalize import RMSState, rms_init
+from . import flax_msgpack
+from .jax_params import agent_from_numpy, agent_to_numpy
 
 F32 = torch.float32
 F64 = torch.float64
 _NORMS = (("obs_norm", "obs_rms"), ("value_norm", "value_rms"))
+AGENT_SUFFIXES = (".pth", ".pt", ".ckpt")
 
 
 def state_dict(agent: Agent) -> dict:
@@ -37,9 +52,20 @@ def state_dict(agent: Agent) -> dict:
     return sd
 
 
+def _is_ckpt(path: str) -> bool:
+    if not path.endswith(AGENT_SUFFIXES):
+        raise ValueError(f"{path}: an agent file ends in one of "
+                         f"{AGENT_SUFFIXES}")
+    return path.endswith(".ckpt")
+
+
 def save_agent(agent: Agent, path: str) -> str:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    torch.save(state_dict(agent), path)
+    if _is_ckpt(path):
+        with open(path, "wb") as f:
+            f.write(flax_msgpack.packb(agent_to_numpy(agent)))
+    else:
+        torch.save(state_dict(agent), path)
     return path
 
 
@@ -60,9 +86,32 @@ def _zero_obs_tail(mean: torch.Tensor, path: str) -> torch.Tensor:
     return mean
 
 
+def _shapes(tree) -> dict:
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    return tuple(np.shape(tree))
+
+
+def _load_ckpt(path: str, device) -> Agent:
+    with open(path, "rb") as f:
+        tree = flax_msgpack.unpackb(f.read())
+    want = _shapes(agent_to_numpy(Agent(
+        net=ActorCritic(), obs_rms=rms_init(C.OBS_SIZE, "cpu"),
+        value_rms=rms_init(1, "cpu"))))
+    got = _shapes(tree)
+    if got != want:
+        raise ValueError(f"{path}: architecture does not match the port's "
+                         f"ActorCritic: found {got}, expected {want}")
+    return agent_from_numpy(tree, device)
+
+
 def load_agent(path: str, device="cuda") -> Agent:
-    """Inverse of `save_agent`; raises if the file's architecture is not
-    the port's ActorCritic."""
+    """Inverse of `save_agent` (the format by the suffix); raises if the
+    file's architecture is not the port's ActorCritic."""
+    if _is_ckpt(path):
+        agent = _load_ckpt(path, device)
+        agent.obs_rms.mean = _zero_obs_tail(agent.obs_rms.mean, path)
+        return agent
     sd = torch.load(path, map_location="cpu", weights_only=True)
     net = ActorCritic()
     want = {k: tuple(v.shape) for k, v in net.state_dict().items()}

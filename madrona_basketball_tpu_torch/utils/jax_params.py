@@ -2,14 +2,18 @@
 port.
 
 `agent_from_numpy(tree)` takes a JAX `AgentParams` converted with
-`jax.tree.map(np.asarray, ap)` (so it needs no JAX import here) and
-returns the port's `Agent`.  Flax Dense kernels are (in, out); torch
+`jax.tree.map(np.asarray, ap)` (so it needs no JAX import here), or its
+flax state dict (nested dicts, as a `.ckpt` file holds it), and returns
+the port's `Agent`; `agent_to_numpy(agent)` is its inverse, the state
+dict in flax's key order.  Flax Dense kernels are (in, out); torch
 Linear weights are (out, in), so kernels are transposed.
 `adam_from_numpy(opt_state)` does the same for the trainer's optax chain
 state.
 """
 
 from __future__ import annotations
+
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -26,9 +30,15 @@ def _t(x, device):
     return torch.tensor(np.asarray(x, np.float32), device=device)
 
 
+def _field(tree, name):
+    """`tree.name`, or `tree[name]` for a state dict."""
+    return tree[name] if isinstance(tree, Mapping) else getattr(tree, name)
+
+
 def _rms_from(st, device) -> RMSState:
-    return RMSState(mean=_t(st.mean, device), var=_t(st.var, device),
-                    count=_t(st.count, device).reshape(()))
+    return RMSState(mean=_t(_field(st, "mean"), device),
+                    var=_t(_field(st, "var"), device),
+                    count=_t(_field(st, "count"), device).reshape(()))
 
 
 @torch.no_grad()
@@ -50,10 +60,38 @@ def _net_from_numpy(pp, device) -> ActorCritic:
 
 
 def agent_from_numpy(tree, device="cuda") -> Agent:
-    """JAX AgentParams (numpy leaves) -> Agent."""
-    return Agent(net=_net_from_numpy(tree.params["params"], device),
-                 obs_rms=_rms_from(tree.obs_rms, device),
-                 value_rms=_rms_from(tree.value_rms, device))
+    """JAX AgentParams or its state dict (numpy leaves) -> Agent."""
+    return Agent(net=_net_from_numpy(_field(tree, "params")["params"],
+                                     device),
+                 obs_rms=_rms_from(_field(tree, "obs_rms"), device),
+                 value_rms=_rms_from(_field(tree, "value_rms"), device))
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().to("cpu", F32).numpy().copy()
+
+
+def agent_to_numpy(agent: Agent) -> dict:
+    """Agent -> the flax state dict of the JAX `AgentParams` holding the
+    same values (float32 numpy leaves), its keys in the order the JAX
+    package's `save_agent` writes them (the param dicts sorted, as
+    `jax.device_get` leaves them)."""
+    lin, ln = layers(agent.net)
+    heads = [(agent.net.actor, None), (agent.net.critic, None)]
+    pp = {}
+    for k, (li, nm) in enumerate(list(zip(lin, ln)) + heads):
+        pp[f"Dense_{k}"] = {"bias": _np(li.bias),
+                            "kernel": _np(li.weight).T.copy()}
+        if nm is not None:
+            pp[f"LayerNorm_{k}"] = {"bias": _np(nm.bias),
+                                    "scale": _np(nm.weight)}
+    pp = dict(sorted(pp.items()))
+
+    def rms(r):
+        return {"mean": _np(r.mean), "var": _np(r.var),
+                "count": _np(r.count).reshape(())}
+    return {"params": {"params": pp}, "obs_rms": rms(agent.obs_rms),
+            "value_rms": rms(agent.value_rms)}
 
 
 def adam_from_numpy(opt_state, device="cuda") -> AdamState:
