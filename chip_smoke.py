@@ -66,7 +66,33 @@ its printed lines time-stamped (seconds a generation), its checkpoints
 and reward lines checked, then `multi_gen_infer` over one generation
 against the other's last checkpoint (`selfplay`).  A train state saved
 after 2 flagship iterations and restored continues bit for bit
-(`resume`).  Each kernel's own device
+(`resume`).  The data-parallel trainer follows, on an in-process NCCL
+group of one rank (its collectives run for real): kernels B and I at
+world_base 4096 on 4096 worlds equal the right half of the whole-fleet
+launch bit for bit (`parity_rollout_world_base`, earlier, beside parity
+I); one iteration of the plain `--data-parallel` path equals the tiled
+flagship's bit for bit (kernel I is kernel B's tile body, kernel E the
+same obs moments) and the flagship's but for the obs moments (1e-5 of
+max(1, |x|); params within 1e-4 after the iteration); one `--dp-update`
+iteration's collect equals the flagship's bit for bit, and its update,
+held per Adam step (kernel G, the all-reduce, torch clip + Adam) at
+kernel D's kink-aware tiers, equals its steps chained; launches counted
+from 0 around 3 eager iterations of each (kernel G 16 an iteration,
+kernel E on the plain path), eager and chunked iteration times beside
+the flagship's, the idle share and peak memory (`dp_path`); 3 eager
+iterations against a chunk of 3 with the collectives captured, bit for
+bit (`dp_chunk_parity*`); two gloo ranks of 4096 worlds on this one card
+(a harness choice: NCCL takes one rank a GPU) against the one-rank 8192
+run: plain bit for bit, dp_update with the rows, value normalizer,
+episode stats and meters bit for bit, the obs normalizer at 1e-5 of
+max(1, |x|) and the learner within 5e-3 (`dp_two_rank`); 600 dp_update
+iterations from seed 321 in chunks of 50 inside the learning band
+(`learning_dp_update`); the CLI with `--data-parallel`, with
+`--data-parallel --dp-update` and with `--distributed --data-parallel`
+under torchrun's variables at world size 1, each at its auto chunk of
+50, writing a loadable checkpoint (`cli_dp`); and the weak-scaling
+sweep's one-GPU row (`python -m madrona_basketball_tpu_torch.
+bench_scaling`, re-emitted as `bench_scaling`).  Each kernel's own device
 time comes from torch.profiler, beside the CUDA-event time of
 back-to-back wrapper calls and of its plain version; kernel D's is also
 split into its gradient and reduce launches, and the redesigned kernels'
@@ -418,6 +444,81 @@ def bound(nbytes, nops):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = nops / FP32_FLOP_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+TWO_RANK_SEED = 4
+
+
+def _two_rank_record(state, out) -> dict:
+    """CPU copies of what dp_two_rank compares: the learner (weights and
+    Adam moments), both normalizers, the frozen agent, the rows, the
+    episode stats and the metrics of a whole TrainState."""
+    def cpu(x):
+        return x.detach().to("cpu", copy=True)
+    rec = {}
+    for name, xs in (("learner.param", state.agent.net.parameters()),
+                     ("learner.mu", state.opt.mu),
+                     ("learner.nu", state.opt.nu),
+                     ("frozen", state.frozen.net.parameters())):
+        rec.update({f"{name}{i}": cpu(x) for i, x in enumerate(xs)})
+    for r in ("obs_rms", "value_rms"):
+        rec.update({f"{r}.{f}": cpu(getattr(getattr(state.agent, r), f))
+                    for f in ("mean", "var", "count")})
+    rec.update({k: cpu(getattr(state, k)) for k in ("sf", "si", "obs")})
+    rec.update({f"stats.{f.name}": cpu(getattr(state.stats, f.name))
+                for f in dataclasses.fields(state.stats)})
+    rec.update({f"metrics.{k}": cpu(v) for k, v in out["metrics"].items()})
+    return rec
+
+
+def two_rank_tier(key: str, want, dp_update: bool) -> float:
+    """dp_two_rank's tier for one record entry: plain, every entry bit
+    for bit; dp_update, the learner within JAX's 5e-3 envelope of the
+    stratified shuffle, the obs normalizer at the cross-shard Chan
+    combine's 1e-5 of max(1, |x|), the two metrics averaged over the
+    ranks within 1e-4, everything else (rows, value normalizer, episode
+    stats and meters, the frozen agent) bit for bit."""
+    if not dp_update:
+        return 0.0
+    if key.startswith("learner."):
+        return 5e-3
+    if key.startswith("obs_rms."):
+        return 1e-5 * max(1.0, float(want.abs().max()))
+    if key in ("metrics.adv_abs_mean", "metrics.value_mean"):
+        return 1e-4
+    return 0.0
+
+
+def _two_rank_worker(rank: int, out_dir: str):
+    """One of two gloo ranks on cuda:0: one iteration of the plain and of
+    the dp_update data-parallel path from `init_train_state(TWO_RANK_SEED)`
+    at W worlds (W / 2 a rank); rank 0 saves the gathered state."""
+    import torch
+    import torch.distributed as dist
+    from madrona_basketball_tpu_torch.config import SimConfig
+    from madrona_basketball_tpu_torch.parallel import mesh as PM
+    from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
+    from madrona_basketball_tpu_torch.ppo.train_fused import (
+        init_train_state, make_train_iteration)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/rdv",
+                            rank=rank, world_size=2)
+    try:
+        mesh = PM.make_mesh(DEVICE)
+        cfg, hp = SimConfig(), PPOParams(num_envs=W, num_rollout_steps=T)
+        for dp in (False, True):
+            st = PM.shard_train_state(init_train_state(
+                cfg, hp, seed=TWO_RANK_SEED, device=mesh.device), mesh, dp)
+            it = make_train_iteration(cfg, hp, mesh.device, mesh=mesh,
+                                      dp_update=dp)
+            st, out = it(st)
+            whole = PM.gather_train_state(st, mesh, dp)
+            if rank == 0:
+                torch.save(_two_rank_record(whole, out),
+                           f"{out_dir}/two_rank_{int(dp)}.pt")
+    finally:
+        dist.destroy_process_group()
 
 
 def main():
@@ -1031,6 +1132,38 @@ def main():
           "vs_kernel_b": {"diverged_world_fraction": frac_ib,
                           "max_abs_err_agreeing_worlds": e_ib,
                           "bit_identical": b_eq_i}})
+
+    # ---------------------------------------------------------- world_base
+    # a data-parallel rank's shard: kernels B and I on the right half of
+    # the fleet (4096 worlds at world_base = 4096, the same seed and
+    # state) draw what the whole-fleet launch draws for those worlds, so
+    # every output equals the right half of the 32-tick launches above
+    # bit for bit (kernel B's fold partials too); the plain Philox draw
+    # the same
+    h = slice(W // 2, W)
+    half = [x[:, h].contiguous() for x in (k_sf, k_si, obs0)]
+    kb_h = FR.fused_rollout(cfg, *half, mats, n_steps=T, trainee_idx=1,
+                            seed=seed, world_base=W // 2,
+                            moment_partials=True)
+    ki_h = FR.fused_rollout_tiled(cfg, *half, mats, n_steps=T,
+                                  trainee_idx=1, seed=seed,
+                                  world_base=W // 2)
+    torch.cuda.synchronize()
+    wb_eq = {
+        "B": [torch.equal(a, b_[..., h]) for a, b_ in zip(kb_h[:4], k32[:4])]
+        + [torch.equal(kb_h[5], k32[5][:, W // 64:])],
+        "I": [torch.equal(a, b_[..., h]) for a, b_ in zip(ki_h, ki32)],
+        "philox_noise": [torch.equal(
+            FR.philox_noise(seed, 0, 2, W // 2, dev, world_base=W // 2),
+            FR.philox_noise(seed, 0, 2, W, dev)[:, h])]}
+    if not all(all(v) for v in wb_eq.values()):
+        raise Fail(f"world_base {W // 2}: the shard differs from the right "
+                   f"half of the whole-fleet launch: {wb_eq}")
+    emit({"phase": "parity_rollout_world_base", "worlds": W // 2,
+          "world_base": W // 2, "ticks": T, "noise": "philox",
+          "bit_identical": {k: len(v) for k, v in wb_eq.items()},
+          "compared": "B: sf, si, obs, traj, fold partials; I: sf, si, "
+                      "obs, traj; philox_noise: 2 ticks"})
 
     # ---------------------------------------------------------- parity E
     # on kernel I's 32-tick flagship trajectory, tier 1e-5 of max(1, |x|)
@@ -1997,6 +2130,369 @@ def main():
           "file_bytes": os.path.getsize(rs_path)})
     shutil.rmtree(ev_tmp, ignore_errors=True)
 
+    # ---------------------------------------------------------- data parallel
+    # The multi-GPU trainer on this card: an in-process NCCL group of one
+    # rank (its collectives run for real), the plain `--data-parallel`
+    # iteration (kernel E for the obs moments, D on the gathered
+    # trajectory) and `--dp-update` (kernel G a minibatch, the gradient
+    # all-reduced, torch clip + Adam) at the flagship shape.
+    import torch.distributed as dist
+    from madrona_basketball_tpu_torch.parallel import mesh as PM
+    from madrona_basketball_tpu_torch.parallel.distributed import \
+        init_single_process
+    from madrona_basketball_tpu_torch.ppo.train_fused import dp_update_phase
+    init_single_process(DEVICE)
+    mesh = PM.make_mesh(DEVICE)
+    if mesh.backend != "nccl" or mesh.size != 1:
+        raise Fail(f"the in-process group is {mesh.backend} of {mesh.size}")
+    nblk = T * W // wb
+    plain_it = make_train_iteration(cfg, hp, dev, mesh=mesh)
+    dpu_it = make_train_iteration(cfg, hp, dev, mesh=mesh, dp_update=True)
+
+    def shard(st, dp=False):
+        return PM.shard_train_state(copy.deepcopy(st), mesh, dp)
+
+    def dp_timing(it_fn, st):
+        """Eager: 3 iterations by CUDA events (median), one more profiled
+        for the device's busy time; chunked: the first chunk of 50 (its
+        warm-up and capture), then 3 chunks by CUDA events and one
+        profiled; peak device memory of the chunked run (and over what
+        the process held before it)."""
+        st = copy.deepcopy(st)
+        e_times = []
+        for _ in range(3):
+            a, b_ = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            a.record()
+            st, _ = it_fn(st)
+            b_.record()
+            torch.cuda.synchronize()
+            e_times.append(a.elapsed_time(b_))
+        (st, _), e_busy, e_wall, _ = profiled(lambda: it_fn(st))
+        n = 50
+        chunk = TT.make_train_chunk(it_fn, n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        start_mem = torch.cuda.memory_allocated(dev)
+        st, _ = chunk(st)
+        c_times = []
+        for _ in range(3):
+            a, b_ = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            a.record()
+            st, stacked = chunk(st)
+            b_.record()
+            torch.cuda.synchronize()
+            c_times.append(a.elapsed_time(b_))
+        peak = torch.cuda.max_memory_allocated(dev)
+        for k, v in stacked.items():
+            if v.shape != (n,) or not bool(torch.isfinite(v).all()):
+                raise Fail(f"chunk metric {k} {tuple(v.shape)} or "
+                           "non-finite")
+        _, busy, c_wall, top = profiled(lambda: chunk(st))
+        it_ms = statistics.median(c_times) / n
+        busy_it = busy / n if busy else None
+        e_ms = statistics.median(e_times)
+        return {"eager_iteration_ms": e_ms, "eager_ms": e_times,
+                "eager_train_env_steps_per_s": W * T / (e_ms / 1e3),
+                "eager_device_busy_ms": e_busy,
+                "eager_device_idle_share": (1.0 - e_busy / e_ms) if e_busy
+                else None, "eager_profiled_wall_ms": e_wall,
+                "iters_per_dispatch": n, "chunk_ms": c_times,
+                "chunked_iteration_ms": it_ms,
+                "chunked_train_env_steps_per_s": W * T / (it_ms / 1e3),
+                "device_busy_ms_per_iteration": busy_it,
+                "device_idle_share": (1.0 - busy_it / it_ms) if busy_it
+                else None, "profiled_chunk_wall_ms": c_wall,
+                "top_device_ms_chunk": top, "peak_memory_bytes": peak,
+                "peak_over_start_bytes": peak - start_mem}
+
+    try:
+        # dp_path: one iteration of each path from one flagship state on
+        # the same permutations
+        s0 = copy.deepcopy(state)
+        P = torch.stack([torch.randperm(nblk, generator=gen, device=dev)
+                         for _ in range(hp.update_epochs)])
+        f1, fo = train_iteration(copy.deepcopy(s0), perms=P)
+        t1, to_ = t_iteration(copy.deepcopy(s0), perms=P)
+        p1, po = plain_it(shard(s0), perms=P)
+        d1, do = dpu_it(shard(s0, True), perms=P[None])
+        torch.cuda.synchronize()
+
+        def diff_tensors(a, b_):
+            return [i for i, (x, y) in enumerate(zip(state_tensors(a),
+                                                     state_tensors(b_)))
+                    if not torch.equal(x, y)]
+
+        def diff_out(oa, ob, keys):
+            bad = [k for k in keys if not torch.equal(oa[k], ob[k])]
+            bad += [f"{r}.{f}" for r in ("value_rms",)
+                    for f in ("mean", "var", "count")
+                    if not torch.equal(getattr(oa[r], f), getattr(ob[r], f))]
+            bad += [f"metrics.{k}" for k in oa["metrics"]
+                    if not torch.equal(oa["metrics"][k], ob["metrics"][k])]
+            return bad
+        # plain data-parallel == the tiled flagship (kernel I == kernel B,
+        # kernel E on the same trajectory), every tensor
+        plain_vs_tiled = diff_tensors(p1, t1) + diff_out(
+            po, to_, ("traj", "side", "ustats"))
+        if plain_vs_tiled:
+            raise Fail(f"dp_path: plain data-parallel differs from the "
+                       f"tiled flagship: {plain_vs_tiled}")
+        # plain vs the flagship: the same collect but for the obs moments
+        # (kernel E, not B's fold); the update from those normalizers
+        plain_vs_flag = diff_out(po, fo, ("traj", "side", "ustats"))
+        if plain_vs_flag:
+            raise Fail(f"dp_path: plain data-parallel collect differs from "
+                       f"the flagship's: {plain_vs_flag}")
+        om_rel = max(float(((getattr(po["obs_rms"], f) -
+                             getattr(fo["obs_rms"], f)).abs() /
+                            torch.clamp(getattr(fo["obs_rms"], f).abs(),
+                                        min=1.0)).max())
+                     for f in ("mean", "var"))
+        if om_rel > 1e-5:
+            raise Fail(f"dp_path: plain obs normalizer {om_rel} of max(1, "
+                       "|x|) from the flagship's")
+        plain_params = max(float((a - b_).abs().max()) for a, b_ in zip(
+            FU.pack_weights(p1.agent.net), FU.pack_weights(f1.agent.net)))
+        if plain_params > 1e-4:
+            raise Fail(f"dp_path: plain data-parallel params {plain_params} "
+                       "from the flagship's after one iteration")
+        # dp_update at one rank: the collect equals the flagship's bit for
+        # bit (one shard's Chan combine is the identity)
+        dp_vs_flag = diff_out(do, fo, ("traj", "side", "ustats")) + [
+            f"obs_rms.{f}" for f in ("mean", "var", "count")
+            if not torch.equal(getattr(do["obs_rms"], f),
+                               getattr(fo["obs_rms"], f))] + [
+            k for k in ("sf", "si", "obs")
+            if not torch.equal(getattr(d1, k), getattr(f1, k))]
+        if dp_vs_flag:
+            raise Fail(f"dp_path: the dp_update collect differs from the "
+                       f"flagship's: {dp_vs_flag}")
+        # the dp update held per Adam step, at kernel D's kink-aware tiers
+        # (parity D): each step (kernel G, the all-reduce, torch clip +
+        # Adam) against the plain step from the same params and moments;
+        # the steps chained equal the iteration's update bit for bit
+        u_nrm_dp = FU.pack_norm(fo["obs_rms"])
+        idx = P.reshape(-1).to(torch.int32)
+        st = (FU.pack_weights(s0.agent.net), s0.opt.mu, s0.opt.nu)
+        dp_err, n_kink, allow_max = {}, 0, dict.fromkeys(("params", "mu",
+                                                           "nu"), 0.0)
+        for k in range(n_mb):
+            s_idx = idx[k * bpm:(k + 1) * bpm]
+            sk = dp_update_phase(hp, mesh, s_idx, s0.opt.count + k,
+                                 fo["traj"], fo["side"], fo["ustats"],
+                                 u_nrm_dp, *st, wb=wb)
+            *sp, rep = FU.update_phase_kinks(
+                hp, s_idx, s0.opt.count + k, fo["traj"], fo["side"],
+                u_nrm_dp, fo["ustats"], *st, wb=wb)
+            n_kink += rep["samples"]
+            for name, ks, ps, als in zip(("params", "mu", "nu"), sk, sp,
+                                         rep["allow"]):
+                for i, (k_, p_, a_) in enumerate(zip(ks, ps, als)):
+                    if not bool(torch.isfinite(k_).all()):
+                        raise Fail(f"dp update step {k} {name}[{i}]: "
+                                   "non-finite")
+                    d = (k_ - p_).abs()
+                    lim = (1e-4 if name == "params" else
+                           1e-4 * float(p_.abs().max())) / n_mb
+                    if bool((d > lim + a_).any()):
+                        raise Fail(f"dp update step {k} {name}[{i}]: error "
+                                   f"{float(d.max())} above {lim} + the "
+                                   f"kink allowance (max {float(a_.max())})")
+                    dp_err[name] = max(dp_err.get(name, 0.0),
+                                       float(d.max()))
+                    allow_max[name] = max(allow_max[name], float(a_.max()))
+            st = sk
+        if n_kink > 1e-3 * n_mb * hp.minibatch_size:
+            raise Fail(f"dp update: {n_kink} samples at a kink of the loss")
+        dp_composed = all(
+            torch.equal(a, b_) for u, v in zip(st, (
+                FU.pack_weights(d1.agent.net), d1.opt.mu, d1.opt.nu))
+            for a, b_ in zip(u, v))
+        if not dp_composed:
+            raise Fail("dp update: the iteration's update differs from its "
+                       "steps chained")
+        errs["dp_update_step"] = dp_err["params"]
+        dp_drift = max(float((a - b_).abs().max()) for a, b_ in zip(
+            FU.pack_weights(d1.agent.net), FU.pack_weights(f1.agent.net)))
+
+        # launches counted from 0 around 3 eager iterations of each path
+        dp_launch = {}
+        for mode, it_fn, dp in (("plain", plain_it, False),
+                                ("dp_update", dpu_it, True)):
+            st_m = shard(s0, dp)
+            reset_counts()
+            for _ in range(3):
+                st_m, o_m = it_fn(st_m)
+            torch.cuda.synchronize()
+            dp_launch[mode] = {**counts(),
+                               "fused_update_phase_device_launches":
+                               FU.device_launches}
+        on = {"plain": ("fused_step", "fused_rollout", "fused_gae",
+                        "meter_scan", "obs_moments", "fused_update_phase"),
+              "dp_update": ("fused_step", "fused_rollout", "fused_gae",
+                            "meter_scan", "fused_minibatch_grad_prefetch")}
+        for mode, ks in on.items():
+            got_l = dp_launch[mode]
+            off = [k for k in ("fused_rollout_tiled", "fused_minibatch_grad",
+                               "fused_update_phase", "obs_moments",
+                               "fused_minibatch_grad_prefetch")
+                   if k not in ks and got_l[k]]
+            if min(got_l[k] for k in ks) < 1 or off:
+                raise Fail(f"dp_path {mode}: launches {got_l}")
+        if dp_launch["dp_update"]["fused_minibatch_grad_prefetch"] != \
+                3 * n_mb or dp_launch["plain"]["obs_moments"] != 3:
+            raise Fail(f"dp_path: G {dp_launch['dp_update']}, E "
+                       f"{dp_launch['plain']} in 3 iterations")
+        timing = {"flagship": dp_timing(train_iteration, s0),
+                  "plain": dp_timing(plain_it, shard(s0)),
+                  "dp_update": dp_timing(dpu_it, shard(s0, True))}
+        emit({"phase": "dp_path", "worlds": W, "ticks": T, "ranks": 1,
+              "backend": "nccl", "epochs": hp.update_epochs,
+              "minibatches": hp.num_minibatches,
+              "plain_equals_tiled_flagship": True,
+              "plain_collect_equals_flagship_but_obs_moments": True,
+              "plain_obs_rms_rel_err": om_rel,
+              "plain_params_from_flagship": plain_params,
+              "dp_update_collect_equals_flagship": True,
+              "dp_update_step_max_abs_err": dp_err,
+              "dp_update_step_kinks": {"samples_at_a_kink": n_kink,
+                                       "of_samples": n_mb * hp.minibatch_size,
+                                       "max_allowance": allow_max},
+              "dp_update_equals_its_steps_chained": dp_composed,
+              "dp_update_params_from_flagship": dp_drift,
+              "launches_3_iterations": dp_launch, "timing": timing})
+
+        # dp_chunk_parity: 3 eager iterations against a chunk of 3, the
+        # collectives captured with NCCL, bit for bit
+        chunk_parity("dp_chunk_parity", False, shard(s0), plain_it)
+        chunk_parity("dp_chunk_parity_dp_update", False, shard(s0, True),
+                     dpu_it)
+
+        # dp_two_rank: two gloo ranks on this one card (NCCL refuses two
+        # ranks on one GPU; gloo carries the CUDA tensors through the
+        # host), 2 x 4096 worlds against the one-rank 8192 run
+        two_dir = tempfile.mkdtemp(dir=_build.BUILD_DIR)
+        import torch.multiprocessing as mp
+        t0 = time.perf_counter()
+        mp.spawn(_two_rank_worker, args=(two_dir,), nprocs=2)
+        two_secs = time.perf_counter() - t0
+        two = {}
+        for dp in (False, True):
+            it_fn = dpu_it if dp else plain_it
+            one_st, one_o = it_fn(shard(init_train_state(
+                cfg, hp, seed=TWO_RANK_SEED, device=dev), dp))
+            got = torch.load(os.path.join(two_dir, f"two_rank_{int(dp)}.pt"))
+            want = _two_rank_record(one_st, one_o)
+            if sorted(got) != sorted(want):
+                raise Fail(f"dp_two_rank: records {sorted(got)}")
+            close = {k: float((got[k].double() - want[k].double()).abs()
+                              .max()) for k in want
+                     if not torch.equal(got[k], want[k])}
+            bad = [k for k, e in close.items()
+                   if not e <= two_rank_tier(k, want[k], dp)]
+            if bad:
+                raise Fail(f"dp_two_rank dp_update={dp}: {bad} above their "
+                           f"tiers ({close})")
+            two["dp_update" if dp else "plain"] = {
+                "bit_identical": len(want) - len(close),
+                "of": len(want), "not_bit_identical": close}
+        shutil.rmtree(two_dir, ignore_errors=True)
+        emit({"phase": "dp_two_rank", "ranks": 2, "worlds_per_rank": W // 2,
+              "backend": "gloo on one card (a harness choice: NCCL takes "
+                         "one rank a GPU)", "iterations": 1,
+              "seconds": two_secs, **two})
+
+        # learning_dp_update: 600 iterations from seed 321 in chunks of 50
+        l_state = shard(init_train_state(cfg, hp, seed=321, device=dev),
+                        True)
+        l_chunk = TT.make_train_chunk(
+            make_train_iteration(cfg, hp, dev, mesh=mesh, dp_update=True), 50)
+        curve_dp = []
+        t0 = time.perf_counter()
+        for it in range(50, 601, 50):
+            l_state, st_l = l_chunk(l_state)
+            curve_dp.append([it, float(st_l["mean_reward"][-1]),
+                             float(st_l["mean_episode_length"][-1])])
+        l_secs = time.perf_counter() - t0
+        final = curve_dp[-1][1]
+        emit({"phase": "learning_dp_update", "iterations": 600, "seed": 321,
+              "iters_per_dispatch": 50, "seconds": l_secs,
+              "curve": curve_dp, "final_mean_reward": final,
+              "band": [-150.0, -105.0]})
+        if not -150.0 <= final <= -105.0:
+            raise Fail(f"learning_dp_update: mean reward {final} after 600 "
+                       "iterations is outside -150..-105")
+    finally:
+        dist.destroy_process_group()
+
+    # cli_dp: the CLI as a user runs it on this card, each at the default
+    # auto chunk (50 iterations a dispatch at the 100 / 100 cadences)
+    root = Path(FU.__file__).resolve().parents[2]
+    cli_tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
+    try:
+        base_env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            filter(None, [str(root), os.environ.get("PYTHONPATH")])))
+        import socket
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        torchrun = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                        RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+        for model, flags, extra_env, want in (
+                ("dp", ["--data-parallel"], {}, "Data-parallel over 1"),
+                ("dpu", ["--data-parallel", "--dp-update"], {},
+                 "sharded update"),
+                ("dist", ["--distributed", "--data-parallel"], torchrun,
+                 "torch.distributed: 1 process(es), 1 global GPU(s), nccl")):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "madrona_basketball_tpu_torch.cli",
+                 "--num-iterations", "100", "--model-name", model, *flags],
+                cwd=cli_tmp, env={**base_env, **extra_env},
+                capture_output=True, text=True, timeout=600)
+            secs = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise Fail(f"cli {flags} exited {proc.returncode}: "
+                           f"{proc.stderr[-3000:]}")
+            if want not in proc.stdout or \
+                    "Iterations per dispatch: 50" not in proc.stdout:
+                raise Fail(f"cli {flags}: {proc.stdout[-2000:]}")
+            path = Path(cli_tmp) / CK.checkpoint_path(model, 100)
+            saved = torch.load(path, weights_only=True)
+            back = CK.state_dict(CK.load_agent(str(path), dev))
+            if sorted(back) != sorted(saved) or not all(
+                    torch.equal(back[k], saved[k]) for k in saved) or \
+                    not all(bool(torch.isfinite(v).all())
+                            for v in saved.values()):
+                raise Fail(f"cli {flags}: the checkpoint does not load back "
+                           "equal and finite")
+            emit({"phase": "cli_dp", "flags": flags,
+                  "env": sorted(extra_env), "seconds": secs,
+                  "checkpoint": CK.checkpoint_path(model, 100),
+                  "log": [ln for ln in proc.stdout.splitlines()
+                          if ln.startswith(("Update:", "Mean reward",
+                                            "Model ", "Data-parallel",
+                                            "torch.distributed"))]})
+        # the weak-scaling sweep's n = 1 row (one visible GPU)
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "madrona_basketball_tpu_torch.bench_scaling",
+             "--worlds-per-gpu", str(W)], cwd=cli_tmp, env=base_env,
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise Fail(f"bench_scaling exited {proc.returncode}: "
+                       f"{proc.stderr[-3000:]}")
+        rows_s = [json.loads(ln) for ln in proc.stdout.splitlines()
+                  if ln.startswith("{")]
+        if len(rows_s) != torch.cuda.device_count() or \
+                rows_s[0]["gpus"] != 1:
+            raise Fail(f"bench_scaling printed {rows_s}")
+        emit({"phase": "bench_scaling", **rows_s[0]})
+    finally:
+        shutil.rmtree(cli_tmp, ignore_errors=True)
+
     # ---------------------------------------------------------- kernel times
     pulse_si = state.si.clone()
     for r in RESET_ROWS:
@@ -2257,8 +2753,17 @@ def main():
         n_launch = t_launches[name] if name in ("fused_rollout_tiled",
                                                  "obs_moments") \
             else launches[name]
+        path_of = {}
+        if name == "fused_minibatch_grad_prefetch":
+            # kernel G's path is --dp-update: dp_path's 3 iterations
+            n_launch = dp_launch["dp_update"][name]
+            path_of = {"launches_path": "dp_path (dp_update, 3 iterations)",
+                       "launches_per_iteration": n_launch // 3}
+        elif name in dp_launch["plain"]:
+            path_of = {"dp_plain_launches": dp_launch["plain"][name],
+                       "dp_update_launches": dp_launch["dp_update"][name]}
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": n_launch,
+                     "replaces": rep, "launches": n_launch, **path_of,
                      "max_abs_err": errs[name], "ms": ms[name][0],
                      "wrapper_ms": ms[name][1],
                      "plain_ms": ms[name][2], "bound_ms": bms,
@@ -2295,7 +2800,10 @@ def main():
           "rollout, this GAE pass, the meter recursion, the PPO loss's "
           "hand-derived gradient with clip + Adam, or K sim ticks; "
           "fused_rollout_tiled and obs_moments count their launches on "
-          "tiled_path, the other rows on main_path; fused_update_phase "
+          "tiled_path, fused_minibatch_grad_prefetch (kernel G) on dp_path's "
+          "--dp-update iterations, the other rows on main_path "
+          "(dp_plain_launches / dp_update_launches: dp_path's 3 iterations "
+          "of each data-parallel mode); fused_update_phase "
           "launches "
           f"2 x E x M = {2 * n_mb} kernels per wrapper call, and its ms "
           "sums them; fused_multistep's ms is one launch of "

@@ -18,7 +18,22 @@ and the tail of `--num-iterations` runs one iteration per dispatch, so
 logs and checkpoints land on the same iterations for every N.
 Checkpoints are reference-layout `.pth` files under
 `checkpoints/{model}/{model}_{iteration}.pth`, which the JAX CLI's
-`--trainee-checkpoint` also reads.
+`--trainee-checkpoint` also reads.  `--tensorboard` writes every metric
+of each log iteration as a scalar to `runs/{model}` (tensorboardX,
+through `utils/wandb_logger.py::WandbLogger`).
+
+Multi-GPU (cli.py:93-109,286-296,343-397 of the JAX CLI): one process a
+GPU over torch.distributed (NCCL on the card, gloo with `--device cpu`).
+`--data-parallel` splits the worlds over every visible GPU (each rank
+W / size, ppo/train_fused.py's data mesh): started plainly it spawns one
+worker per visible GPU (on one GPU, or the CPU, it runs as the one rank
+of an in-process group); under torchrun (RANK and WORLD_SIZE in the
+environment) or `--distributed` it joins that group.  `--dp-update` (with
+`--data-parallel`, untiled) shards the GAE and the update too: kernel G
+a minibatch on each rank, the gradient summed over the ranks.
+`--distributed` joins the group first (`parallel/distributed.py::
+init_distributed`: torchrun's variables, or a warning and one process).
+Only rank 0 prints, saves checkpoints and writes TensorBoard.
 
 Flags of trainer paths the port does not have yet exit with the ROADMAP
 item that ports them, instead of being ignored.
@@ -27,15 +42,25 @@ item that ports them, instead of being ignored.
 from __future__ import annotations
 
 import argparse
+import os
+import socket
+import sys
 import time
+
+import torch
+import torch.distributed as dist
 
 from .config import SimConfig
 from .ops.fused_rollout import check_tiled_worlds
 from .ppo.hparams import PPOParams
+from .parallel.distributed import init_distributed, init_single_process
+from .parallel.mesh import make_mesh, shard_train_state
 from .ppo.train import auto_chunk, make_train_chunk, unstack_metrics
-from .ppo.train_fused import init_train_state, make_train_iteration
+from .ppo.train_fused import (DP_UPDATE_NEEDS, init_train_state,
+                              make_train_iteration)
 from .utils.checkpoint import checkpoint_path, load_agent, save_agent
 from .utils.timers import PPOTimer
+from .utils.wandb_logger import WandbLogger
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,7 +94,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default=PPOParams.shuffle_block,
                    help="the unfused update's shuffle granularity")
     p.add_argument("--viewer", action="store_true", default=False)
-    p.add_argument("--tensorboard", action="store_true", default=False)
+    p.add_argument("--tensorboard", action="store_true", default=False,
+                   help="log every metric of each log iteration to "
+                        "runs/{model-name} (tensorboardX; rank 0)")
     p.add_argument("--backend", choices=("fused", "structured", "xla-rows"),
                    default="fused")
     p.add_argument("--interactive", action="store_true", default=False)
@@ -79,9 +106,18 @@ def build_parser() -> argparse.ArgumentParser:
                    default=True)
     p.add_argument("--fused-gae", action=argparse.BooleanOptionalAction,
                    default=None)
-    p.add_argument("--data-parallel", action="store_true", default=False)
-    p.add_argument("--dp-update", action="store_true", default=False)
-    p.add_argument("--distributed", action="store_true", default=False)
+    p.add_argument("--data-parallel", action="store_true", default=False,
+                   help="split the worlds over every visible GPU, one "
+                        "process each (spawned, or torchrun's); the "
+                        "learner replicates, the trajectory is gathered")
+    p.add_argument("--dp-update", action="store_true", default=False,
+                   help="with --data-parallel (untiled): shard the GAE and "
+                        "the update too; the 5216-float gradient is summed "
+                        "over the ranks each minibatch")
+    p.add_argument("--distributed", action="store_true", default=False,
+                   help="join the torch.distributed group first "
+                        "(torchrun's MASTER_ADDR / MASTER_PORT / RANK / "
+                        "WORLD_SIZE)")
     p.add_argument("--rollout-tiled", action="store_true", default=False)
     p.add_argument("--bf16-traj", action="store_true", default=False)
     p.add_argument("--bf16-policy", action="store_true", default=False)
@@ -108,18 +144,10 @@ UNPORTED = (
      _ALT),
     ("--bf16-traj", lambda a: a.bf16_traj, _ALT),
     ("--bf16-policy", lambda a: a.bf16_policy, _ALT),
-    ("--data-parallel", lambda a: a.data_parallel,
-     "ROADMAP.md queue 1, item 12 (multi-GPU)"),
-    ("--dp-update", lambda a: a.dp_update,
-     "ROADMAP.md queue 1, item 12 (multi-GPU)"),
-    ("--distributed", lambda a: a.distributed,
-     "ROADMAP.md queue 1, item 12 (multi-GPU)"),
     ("--interactive", lambda a: a.interactive,
      "ROADMAP.md queue 1, item 13 (interactive trainer, viewer)"),
     ("--viewer", lambda a: a.viewer,
      "ROADMAP.md queue 1, item 13 (interactive trainer, viewer)"),
-    ("--tensorboard", lambda a: a.tensorboard,
-     "ROADMAP.md queue 1, item 8 (TensorBoard logging)"),
 )
 
 
@@ -130,14 +158,83 @@ def check_ported(args):
                              f"the PyTorch package yet ({item})")
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _worker(rank: int, argv, port: int, n: int):
+    """One spawned `--data-parallel` rank: torchrun's variables, then
+    `main`."""
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(n), LOCAL_RANK=str(rank))
+    main(argv)
+
+
+def _join_group(args, argv) -> tuple:
+    """(owns, spawned): join or make the process group the flags ask for.
+    owns: this call initialized it (and `main` destroys it); spawned: the
+    ranks ran in workers, this process has nothing left to do."""
+    was = dist.is_initialized()
+    torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if args.distributed or (args.data_parallel and torchrun):
+        n = init_distributed(device=args.device)
+        if dist.is_initialized() and dist.get_rank() == 0:
+            print(f"torch.distributed: {dist.get_world_size()} process(es), "
+                  f"{n} global GPU(s), {dist.get_backend()}")
+    if args.data_parallel and not dist.is_initialized():
+        n = torch.cuda.device_count() \
+            if torch.device(args.device).type == "cuda" else 1
+        if n > 1:
+            import torch.multiprocessing as mp
+            argv = sys.argv[1:] if argv is None else list(argv)
+            mp.spawn(_worker, args=(argv, _free_port(), n), nprocs=n)
+            return False, True
+        init_single_process(args.device)
+    return dist.is_initialized() and not was, False
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     check_ported(args)
-    if args.rollout_tiled:
+    if args.dp_update and not args.data_parallel:
+        raise SystemExit("--dp-update requires --data-parallel and the "
+                         "fused-GAE flagship path")
+    if args.dp_update and args.rollout_tiled:
+        raise SystemExit(DP_UPDATE_NEEDS)
+    if args.rollout_tiled and not args.data_parallel:
         try:
             check_tiled_worlds(args.num_envs)
         except ValueError as e:
             raise SystemExit(f"--rollout-tiled: {e}") from None
+    owns, spawned = _join_group(args, argv)
+    if spawned:
+        return None
+    try:
+        return _train(args)
+    finally:
+        if owns:
+            dist.destroy_process_group()
+
+
+def _train(args):
+    is_main = not dist.is_initialized() or dist.get_rank() == 0
+    mesh = None
+    dev = args.device
+    if args.data_parallel:
+        mesh = make_mesh(dev)
+        dev = mesh.device
+        if args.num_envs % mesh.size:
+            raise SystemExit(f"--num-envs {args.num_envs} must divide evenly "
+                             f"over {mesh.size} devices")
+        if args.rollout_tiled:
+            try:
+                check_tiled_worlds(args.num_envs // mesh.size)
+            except ValueError as e:
+                raise SystemExit(f"--rollout-tiled: {e}") from None
+    elif torch.device(dev).type == "cuda" and dist.is_initialized():
+        dev = torch.device("cuda", torch.cuda.current_device())
     model_name = args.model_name or \
         f"MadronaBasketball__{args.seed}__{int(time.time())}"
     cfg = SimConfig(one_on_one=not args.full_game,
@@ -159,12 +256,17 @@ def main(argv=None):
     frozen = load_agent(args.frozen_checkpoint, dev) \
         if args.frozen_checkpoint else None
 
-    print("🎯 TRAINING CONFIGURATION:")
-    print(f"   Trainee Agent Index: {hp.trainee_idx}")
-    print(f"   Frozen Checkpoint: {args.frozen_checkpoint}")
-    print(f"   Model: {model_name}  Envs: {hp.num_envs}  "
-          f"Iters: {args.num_iterations}")
-    print(f"   Device: {dev}")
+    if is_main:
+        print("🎯 TRAINING CONFIGURATION:")
+        print(f"   Trainee Agent Index: {hp.trainee_idx}")
+        print(f"   Frozen Checkpoint: {args.frozen_checkpoint}")
+        print(f"   Model: {model_name}  Envs: {hp.num_envs}  "
+              f"Iters: {args.num_iterations}")
+        print(f"   Device: {dev}")
+        if mesh is not None:
+            print(f"Data-parallel over {mesh.size} devices "
+                  f"({hp.num_envs // mesh.size} worlds each"
+                  f"{', sharded update' if args.dp_update else ''})")
 
     log_every = args.log_every_n_iterations
     save_every = args.save_model_every_n_iterations
@@ -173,16 +275,27 @@ def main(argv=None):
         # a chunk that straddles a save/log boundary would checkpoint
         # end-of-chunk params under a mid-chunk iteration label
         safe = auto_chunk(log_every, save_every)
-        print(f"--iters-per-dispatch {chunk_n} does not divide the "
-              f"log/save cadence; using {safe} instead")
+        if is_main:
+            print(f"--iters-per-dispatch {chunk_n} does not divide the "
+                  f"log/save cadence; using {safe} instead")
         chunk_n = safe
     chunk_n = max(1, min(chunk_n, args.num_iterations))
-    print(f"   Iterations per dispatch: {chunk_n}")
+    if is_main:
+        print(f"   Iterations per dispatch: {chunk_n}")
 
     state = init_train_state(cfg, hp, args.seed, dev, agent=agent,
                              frozen=frozen)
+    if mesh is not None:
+        state = shard_train_state(state, mesh, args.dp_update)
     train_iteration = make_train_iteration(cfg, hp, dev,
-                                           rollout_tiled=args.rollout_tiled)
+                                           rollout_tiled=args.rollout_tiled,
+                                           mesh=mesh,
+                                           dp_update=args.dp_update)
+    # a missing tensorboardX raises ImportError here, as in the JAX CLI
+    logger = WandbLogger("madrona_basketball", model_name,
+                         tensorboard_dir=f"runs/{model_name}",
+                         use_wandb=False) \
+        if args.tensorboard and is_main else None
     train_chunk = make_train_chunk(train_iteration, chunk_n) \
         if chunk_n > 1 else None
     timer = PPOTimer(dev)
@@ -205,17 +318,22 @@ def main(argv=None):
             if iteration % log_every == 0:
                 timer.end("iter")
                 m = {k: float(v) for k, v in metrics.items()}
-                print(f"\nUpdate: {iteration}", end=" ")
-                timer.print()
-                print(f"Mean reward: {m['mean_reward']:.2f}. "
-                      f"Mean episode length: "
-                      f"{m['mean_episode_length']:.2f}")
+                if is_main:
+                    print(f"\nUpdate: {iteration}", end=" ")
+                    timer.print()
+                    print(f"Mean reward: {m['mean_reward']:.2f}. "
+                          f"Mean episode length: "
+                          f"{m['mean_episode_length']:.2f}")
+                if logger is not None:
+                    logger.log(m, iteration)
                 timer.reset()
                 timer.start("iter")
-            if iteration % save_every == 0:
+            if iteration % save_every == 0 and is_main:
                 save_agent(state.agent, checkpoint_path(model_name,
                                                         iteration))
                 print(f"Model {model_name} saved at iteration {iteration}")
+    if logger is not None:
+        logger.close()
     return state
 
 

@@ -39,28 +39,33 @@ fused_rollout_kernel(SimParams p, float *__restrict__ sf,
                      const float *__restrict__ fpol,
                      const float *__restrict__ ext, float *__restrict__ traj,
                      float *__restrict__ partials, int W, int T, uint32_t k0,
-                     uint32_t k1, const int *__restrict__ tick_base) {
+                     uint32_t k1, const int *__restrict__ tick_base,
+                     int world_base) {
     rollout_tile<TI, FROZEN, true>(p, sf, si, obs, pol, fpol, ext, traj,
-                                   partials, W, T, k0, k1, tick_base);
+                                   partials, W, T, k0, k1, tick_base,
+                                   world_base);
 }
 
 }  // namespace
 
 // sf (72, W), si (59, W), obs (256, W) updated in place; traj (T, 128, W);
 // partials (T, W / 32, 103, 2); ext (T * 56, W) or null for in-kernel
-// Philox, whose ticks start at *tick_base (device memory; null with ext).
+// Philox, whose ticks start at *tick_base (device memory; null with ext)
+// and whose worlds are numbered from world_base (0 for a whole fleet).
 extern "C" int mbb_fused_rollout(SimParams p, float *sf, int *si, float *obs,
                                  const float *pol, const float *fpol,
                                  const float *ext, float *traj,
                                  float *partials, int W, int T, int trainee,
                                  int use_frozen, uint32_t k0, uint32_t k1,
-                                 const int *tick_base, cudaStream_t stream) {
+                                 const int *tick_base, int world_base,
+                                 cudaStream_t stream) {
     if (W % 32 != 0 || W < 32 || T < 1 || (trainee != 0 && trainee != 1) ||
-        (ext == nullptr && tick_base == nullptr))
+        world_base < 0 || (ext == nullptr && tick_base == nullptr))
         return (int)cudaErrorInvalidValue;
 #define MBB_B_LAUNCH(TI, FR)                                                 \
     launch_tiles<FR>(fused_rollout_kernel<TI, FR>, p, sf, si, obs, pol, fpol, \
-                     ext, traj, partials, W, T, k0, k1, tick_base, stream)
+                     ext, traj, partials, W, T, k0, k1, tick_base,            \
+                     world_base, stream)
     if (trainee == 0)
         return use_frozen ? MBB_B_LAUNCH(0, true) : MBB_B_LAUNCH(0, false);
     return use_frozen ? MBB_B_LAUNCH(1, true) : MBB_B_LAUNCH(1, false);

@@ -33,31 +33,33 @@ fused_rollout_tiled_kernel(SimParams p, float *__restrict__ sf,
                            const float *__restrict__ ext,
                            float *__restrict__ traj, float *partials, int W,
                            int T, uint32_t k0, uint32_t k1,
-                           const int *__restrict__ tick_base) {
+                           const int *__restrict__ tick_base, int world_base) {
     rollout_tile<TI, FROZEN, false>(p, sf, si, obs, pol, fpol, ext, traj,
-                                    partials, W, T, k0, k1, tick_base);
+                                    partials, W, T, k0, k1, tick_base,
+                                    world_base);
 }
 
 }  // namespace
 
 // sf (72, W), si (59, W), obs (256, W) updated in place; traj (T, 128, W);
 // ext (T * 56, W) or null for in-kernel Philox, whose ticks start at
-// *tick_base (device memory; null with ext).  W % 1024 == 0, the JAX
-// kernel's contract (any multiple of TILE would do here).
+// *tick_base (device memory; null with ext) and whose worlds are numbered
+// from world_base, as kernel B's.  W % 1024 == 0, the JAX kernel's
+// contract (any multiple of TILE would do here).
 extern "C" int mbb_fused_rollout_tiled(SimParams p, float *sf, int *si,
                                        float *obs, const float *pol,
                                        const float *fpol, const float *ext,
                                        float *traj, int W, int T, int trainee,
                                        int use_frozen, uint32_t k0,
                                        uint32_t k1, const int *tick_base,
-                                       cudaStream_t stream) {
+                                       int world_base, cudaStream_t stream) {
     if (W % 1024 != 0 || T < 1 || (trainee != 0 && trainee != 1) ||
-        (ext == nullptr && tick_base == nullptr))
+        world_base < 0 || (ext == nullptr && tick_base == nullptr))
         return (int)cudaErrorInvalidValue;
 #define MBB_I_LAUNCH(TI, FR)                                                  \
     launch_tiles<FR>(fused_rollout_tiled_kernel<TI, FR>, p, sf, si, obs, pol, \
                      fpol, ext, traj, nullptr, W, T, k0, k1, tick_base,       \
-                     stream)
+                     world_base, stream)
     if (trainee == 0)
         return use_frozen ? MBB_I_LAUNCH(0, true) : MBB_I_LAUNCH(0, false);
     return use_frozen ? MBB_I_LAUNCH(1, true) : MBB_I_LAUNCH(1, false);

@@ -35,7 +35,10 @@
 //
 // Noise: external ((T * 56, W), the pack_rollout_noise layout) or in-kernel
 // Philox4x32-10 (sim_world.cuh) with key (seed lo, seed hi) and counter
-// (world, tick_base + t, draw group, 0); draw n is word n % 4 of group
+// (world_base + world, tick_base + t, draw group, 0): the world's index in
+// the whole fleet, so a launch on the columns [world_base, world_base + W)
+// of a fleet draws what a launch on the whole fleet draws for them (one
+// rank's shard of a data-parallel run); draw n is word n % 4 of group
 // n / 4, drawn where it is used.  The counter does not depend on T, so one
 // T-tick launch equals T one-tick launches.  tick_base is read from device
 // memory (an int the wrapper writes, or the trainer's iteration counter
@@ -310,7 +313,8 @@ __device__ __forceinline__ void rollout_tile(
     float *__restrict__ obs, const float *__restrict__ pol,
     const float *__restrict__ fpol, const float *__restrict__ ext,
     float *__restrict__ traj, float *__restrict__ partials, int W, int T,
-    uint32_t k0, uint32_t k1, const int *__restrict__ tick_base) {
+    uint32_t k0, uint32_t k1, const int *__restrict__ tick_base,
+    int world_base) {
     extern __shared__ float smem[];
     constexpr int FI = 1 - TI;
     float *sp = smem;
@@ -329,6 +333,7 @@ __device__ __forceinline__ void rollout_tile(
                               : 0.0f;
     const bool sim = tid < nw;
     const int w = w0 + tid;
+    const uint32_t gw = (uint32_t)(world_base + w);  // Philox's world
     const int tb = ext == nullptr ? *tick_base : 0;
     World s;
     if (sim) load_world(s, sf, si, W, w);
@@ -347,7 +352,7 @@ __device__ __forceinline__ void rollout_tile(
 #pragma unroll
                 for (int r = 0; r < NL; ++r) u[r] = e[(size_t)(EXT_TU + r) * W];
             } else {
-                philox_draws<N_NOISE_ROWS, NL>(u, (uint32_t)w, tick, k0, k1);
+                philox_draws<N_NOISE_ROWS, NL>(u, gw, tick, k0, k1);
             }
             int act[6];
             const float logp = sample_tile(sm + S_OUT, u, tid, act);
@@ -370,7 +375,7 @@ __device__ __forceinline__ void rollout_tile(
                     for (int r = 0; r < NL; ++r)
                         u[r] = e[(size_t)(EXT_FU + r) * W];
                 } else {
-                    philox_draws<N_NOISE_ROWS + NL, NL>(u, (uint32_t)w, tick,
+                    philox_draws<N_NOISE_ROWS + NL, NL>(u, gw, tick,
                                                         k0, k1);
                 }
                 int act[6];
@@ -398,7 +403,7 @@ __device__ __forceinline__ void rollout_tile(
                 for (int r = 0; r < N_NOISE_ROWS; ++r) nz[r] = e[(size_t)r * W];
             } else {
                 float u[N_NOISE_ROWS];
-                philox_draws<0, N_NOISE_ROWS>(u, (uint32_t)w, tick, k0, k1);
+                philox_draws<0, N_NOISE_ROWS>(u, gw, tick, k0, k1);
 #pragma unroll
                 for (int r = 0; r < N_NOISE_ROWS - 1; ++r)
                     nz[r] = 2.0f * u[r] - 1.0f;
@@ -423,14 +428,15 @@ template <bool FROZEN, class Kernel>
 int launch_tiles(Kernel kernel, SimParams p, float *sf, int *si, float *obs,
                  const float *pol, const float *fpol, const float *ext,
                  float *traj, float *partials, int W, int T, uint32_t k0,
-                 uint32_t k1, const int *tick_base, cudaStream_t stream) {
+                 uint32_t k1, const int *tick_base, int world_base,
+                 cudaStream_t stream) {
     const size_t smem = ((FROZEN ? 2 : 1) * POL + S_END) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<(W + TILE - 1) / TILE, NT, smem, stream>>>(
         p, sf, si, obs, pol, fpol, ext, traj, partials, W, T, k0, k1,
-        tick_base);
+        tick_base, world_base);
     return (int)cudaGetLastError();
 }
 

@@ -139,11 +139,13 @@ def gae_plain(traj, carry, next_value_n, vstats, *, gamma: float,
     moments = torch.zeros((nb, 8), dtype=F32, device=traj.device)
     n_per = float(T * gb)
     for c, x in enumerate((v_un, adv, ret)):
-        xb = x.reshape(T, nb, gb)
-        m = xb.sum(dim=(0, 2)) * (1.0 / n_per)
+        # a row of T * gb values a block: each block's sums run in the
+        # same order whatever the fleet's width (a data-parallel rank's
+        # blocks are the whole fleet's), as the kernel's do
+        xb = x.reshape(T, nb, gb).transpose(0, 1).reshape(nb, T * gb)
+        m = xb.sum(dim=1) * (1.0 / n_per)
         moments[:, 2 * c] = m
-        moments[:, 2 * c + 1] = ((xb - m[None, :, None]) ** 2).sum(
-            dim=(0, 2))
+        moments[:, 2 * c + 1] = ((xb - m[:, None]) ** 2).sum(dim=1)
 
     curr, lens = carry[0], carry[1]
     ticks = torch.zeros((nb, T, 8), dtype=F32, device=traj.device)

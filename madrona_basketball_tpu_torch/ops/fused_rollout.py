@@ -25,9 +25,12 @@ kflop per world-tick, which makes its bound the operations.
 Noise comes two ways.  External: a (T * EXT_NOISE_CHUNK, W) matrix in the
 `pack_rollout_noise` layout (tests and parity checks).  In-kernel: a
 hand-written Philox4x32-10 with key = seed and counter
-(world, tick_base + t, draw group, 0); `philox_noise` is the same
-generator in plain torch.  The counter never mentions the launch length,
-so one T-tick launch equals T one-tick launches with tick_base = t.
+(world_base + world, tick_base + t, draw group, 0); `philox_noise` is
+the same generator in plain torch.  The counter never mentions the launch
+length, so one T-tick launch equals T one-tick launches with tick_base =
+t; it holds the world's index in the whole fleet, so a launch on the
+columns [world_base, world_base + W) of a fleet (a data-parallel rank's
+shard) draws what a launch on the whole fleet draws for those worlds.
 
   * `fused_rollout_tiled` - kernel I (csrc/fused_rollout_tiled.cu),
     replacing the Pallas kernel `make_fused_rollout_tiled`
@@ -243,10 +246,12 @@ def bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
 
 
 def philox_uniforms(seed: int, tick: int, num_worlds: int,
-                    device="cuda") -> torch.Tensor:
-    """(N_DRAWS, W) uniforms of one tick: counter (world, tick, group, 0),
-    key (seed lo, seed hi); draw n is word n % 4 of group n // 4."""
-    wv = torch.arange(num_worlds, dtype=I64, device=device)
+                    device="cuda", world_base: int = 0) -> torch.Tensor:
+    """(N_DRAWS, W) uniforms of one tick: counter (world_base + world,
+    tick, group, 0), key (seed lo, seed hi); draw n is word n % 4 of
+    group n // 4."""
+    wv = torch.arange(world_base, world_base + num_worlds, dtype=I64,
+                      device=device)
     k0, k1 = seed & MASK32, (seed >> 32) & MASK32
     words = []
     for g in range(N_DRAW_GROUPS):
@@ -258,12 +263,14 @@ def philox_uniforms(seed: int, tick: int, num_worlds: int,
 
 
 def philox_noise(seed: int, tick_base: int, n_steps: int, num_worlds: int,
-                 device="cuda") -> torch.Tensor:
-    """The in-kernel noise of a launch as an external-noise matrix
-    (T * EXT_NOISE_CHUNK, W): sim rows 0-7 = 2u - 1, row 8 = u."""
+                 device="cuda", world_base: int = 0) -> torch.Tensor:
+    """The in-kernel noise of a launch on worlds [world_base, world_base +
+    W) as an external-noise matrix (T * EXT_NOISE_CHUNK, W): sim rows 0-7
+    = 2u - 1, row 8 = u."""
     chunks, t_u, f_u = [], [], []
     for t in range(n_steps):
-        u = philox_uniforms(seed, tick_base + t, num_worlds, device)
+        u = philox_uniforms(seed, tick_base + t, num_worlds, device,
+                            world_base)
         chunks.append(torch.cat([2.0 * u[:N_NOISE_ROWS - 1] - 1.0,
                                  u[N_NOISE_ROWS - 1:N_NOISE_ROWS]]))
         t_u.append(u[N_NOISE_ROWS:N_NOISE_ROWS + N_LOGITS])
@@ -380,19 +387,28 @@ def _rollout_plain(cfg: SimConfig, sf, si, obs0, mats, frozen_mats, *,
     return sf, si, obs, traj, combine_obs_moments(torch.stack(partials))
 
 
+def _check_world_base(world_base):
+    if not isinstance(world_base, int) or not 0 <= world_base < 2 ** 31:
+        raise ValueError(f"world_base must be an int in [0, 2**31), got "
+                         f"{world_base!r}")
+
+
 launches = 0  # kernel B launches (the wrapper counts, the caller resets)
 
 
 def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
                   n_steps: int, trainee_idx: int,
                   noise: torch.Tensor | None = None, seed: int = 0,
-                  tick_base=0, moment_partials: bool = False):
+                  tick_base=0, world_base: int = 0,
+                  moment_partials: bool = False):
     """Kernel B on CUDA tensors, the plain version on CPU tensors.
 
-    noise=None draws in-kernel Philox noise from (seed, tick_base); a
-    CPU caller gets the same numbers from `philox_noise`.  tick_base is
-    an int or a 0-d int32 tensor on the card, which the kernel reads
-    there (a CUDA graph replays it with each replay's value).  Returns
+    noise=None draws in-kernel Philox noise from (seed, tick_base), the
+    worlds numbered from world_base (a shard's first column in the whole
+    fleet); a CPU caller gets the same numbers from `philox_noise`.
+    tick_base is an int or a 0-d int32 tensor on the card, which the
+    kernel reads there (a CUDA graph replays it with each replay's
+    value).  Returns
     (sf', si', obs', traj (T, 128, W), obs_moments (103, 8)), and with
     moment_partials the per-(tick, 32-world group) (mean, M2) partials
     (T, W / 32, 103, 2) they were merged from."""
@@ -400,9 +416,11 @@ def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
     use_frozen = frozen_mats is not None
     W = _check_rollout_args(sf, si, obs0, n_steps, noise, mats,
                             frozen_mats, use_frozen)
+    _check_world_base(world_base)
     if sf.device.type == "cpu":
         if noise is None:
-            noise = philox_noise(seed, int(tick_base), n_steps, W, sf.device)
+            noise = philox_noise(seed, int(tick_base), n_steps, W, sf.device,
+                                 world_base)
         out = rollout_plain(cfg, sf, si, obs0, mats, frozen_mats,
                             n_steps=n_steps, trainee_idx=trainee_idx,
                             noise=noise)
@@ -435,7 +453,7 @@ def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
         _build.ptr(pol), _build.ptr(fpol), _build.ptr(ext),
         _build.ptr(traj), _build.ptr(partials), W, n_steps, trainee_idx,
         1 if use_frozen else 0, seed & MASK32, (seed >> 32) & MASK32,
-        _build.ptr(tb), _build.stream(dev))
+        _build.ptr(tb), world_base, _build.stream(dev))
     _build.check(err, "fused_rollout")
     launches += 1
     out = (sf2, si2, obs, traj, combine_obs_moments(partials))
@@ -491,12 +509,13 @@ tiled_launches = 0  # kernel I launches (the wrapper counts, the caller resets)
 def fused_rollout_tiled(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None,
                         *, n_steps: int, trainee_idx: int,
                         noise: torch.Tensor | None = None, seed: int = 0,
-                        tick_base=0):
+                        tick_base=0, world_base: int = 0):
     """Kernel I on CUDA tensors, the plain version on CPU tensors; W must
     be a multiple of 1024.
 
     noise=None draws kernel B's in-kernel Philox stream from (seed,
-    tick_base); a CPU caller gets the same numbers from `philox_noise`.
+    tick_base, world_base); a CPU caller gets the same numbers from
+    `philox_noise`.
     tick_base as kernel B takes it (an int or a 0-d int32 tensor on the
     card).
     Returns (sf', si', obs', traj (T, 128, W))."""
@@ -505,9 +524,11 @@ def fused_rollout_tiled(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None,
     W = _check_rollout_args(sf, si, obs0, n_steps, noise, mats,
                             frozen_mats, use_frozen)
     check_tiled_worlds(W)
+    _check_world_base(world_base)
     if sf.device.type == "cpu":
         if noise is None:
-            noise = philox_noise(seed, int(tick_base), n_steps, W, sf.device)
+            noise = philox_noise(seed, int(tick_base), n_steps, W, sf.device,
+                                 world_base)
         return rollout_tiled_plain(cfg, sf, si, obs0, mats, frozen_mats,
                                    n_steps=n_steps, trainee_idx=trainee_idx,
                                    noise=noise)
@@ -533,7 +554,7 @@ def fused_rollout_tiled(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None,
         sim_params(cfg), _build.ptr(sf2), _build.ptr(si2), _build.ptr(obs),
         _build.ptr(pol), _build.ptr(fpol), _build.ptr(ext),
         _build.ptr(traj), W, n_steps, trainee_idx, 1 if use_frozen else 0,
-        seed & MASK32, (seed >> 32) & MASK32, _build.ptr(tb),
+        seed & MASK32, (seed >> 32) & MASK32, _build.ptr(tb), world_base,
         _build.stream(dev))
     _build.check(err, "fused_rollout_tiled")
     tiled_launches += 1

@@ -153,19 +153,23 @@ def init_adam(params: Sequence[torch.Tensor]) -> AdamState:
 
 
 @torch.no_grad()
-def clip_adam_step(params, mu, nu, grads, t: int, *, lr: float,
+def clip_adam_step(params, mu, nu, grads, t, *, lr: float,
                    max_norm: float):
     """One optimizer step at Adam step t (count after the step), optax's
     formulas exactly:
       u  = g if |g| < c else g / |g| * c     (|g| over all leaves)
       m' = (1 - b1) u + b1 m;   v' = (1 - b2) u^2 + b2 v
       p' = p - lr * (m' / (1 - b1^t)) / (sqrt(v' / (1 - b2^t)) + eps).
-    Returns (params', mu', nu') as tuples."""
+    t is an int (the bias corrections on the CPU) or a 0-d int tensor
+    (on its own device: a CUDA graph replays the step with each replay's
+    count, and no value crosses to the host).  Returns (params', mu',
+    nu') as tuples."""
     gn = torch.sqrt(sum((g * g).sum() for g in grads))
     small = gn < max_norm
-    tt = torch.tensor(float(t), dtype=F32)
-    bc1 = (1.0 - torch.tensor(ADAM_B1, dtype=F32) ** tt).to(gn.device)
-    bc2 = (1.0 - torch.tensor(ADAM_B2, dtype=F32) ** tt).to(gn.device)
+    tt = t.to(dtype=F32) if isinstance(t, torch.Tensor) else \
+        torch.tensor(float(t), dtype=F32)
+    bc1 = (1.0 - torch.full_like(tt, ADAM_B1) ** tt).to(gn.device)
+    bc2 = (1.0 - torch.full_like(tt, ADAM_B2) ** tt).to(gn.device)
     out_p, out_m, out_v = [], [], []
     for p, m, v, g in zip(params, mu, nu, grads):
         u = torch.where(small, g, (g / gn) * max_norm)
@@ -256,6 +260,9 @@ def make_train_chunk(train_iteration, n_iters: int):
     synchronization.  The graph's kernels count one launch each, at
     capture (and one in the warm-up); replays count none.  A failed
     capture or replay raises; nothing falls back to the eager path.
+    Under a data mesh (`train_iteration.mesh`) the graph holds the
+    iteration's collectives too, which needs NCCL: a CUDA chunk over
+    another backend (gloo copies through the host) raises.
     The state's seed is baked into the capture (kernel B's Philox key).
     `chunk.captured` holds, once captured, "static" (the
     StaticIteration, whose device counters the replays advance) and
@@ -275,6 +282,11 @@ def make_train_chunk(train_iteration, n_iters: int):
                            for k in rows[0]}
         if dev.type != "cuda":
             raise ValueError(f"unsupported device {dev}")
+        mesh = getattr(train_iteration, "mesh", None)
+        if mesh is not None and mesh.backend != "nccl":
+            raise ValueError(f"a CUDA chunk under a data mesh captures its "
+                             f"collectives, which needs NCCL, not "
+                             f"{mesh.backend}")
         if not captured:
             captured.update(_capture(train_iteration, state))
         static, graph = captured["static"], captured["graph"]

@@ -48,6 +48,35 @@ before every iteration, which gives the draws of a fresh generator of
 that seed.  `collect(state, noise=...)` and `train_iteration(state,
 noise=..., perms=...)` inject all draws instead (the tests' path).
 
+Data parallel (`mesh`, a parallel/mesh.py::DataMesh; the port of the
+JAX trainer's `--data-parallel`, train_fused.py:167-183,261-330,366-382):
+each rank holds its W_l = W / size worlds' rows (`shard_train_state`),
+and every rank runs the same program.  The pulse draws its rows for all W
+worlds and takes the rank's columns; kernel B (or I) steps the rank's
+worlds with its Philox counter at world_base = rank * W_l, so a k-rank
+run draws exactly the one-rank run's noise.  Then:
+
+  * plain (`dp_update=False`): the trajectory and the last trainee obs
+    are all-gathered into world order; next_value, kernel C, the meter
+    scan, kernel E (the obs moments: B's fold is per shard) and kernel D
+    run on the whole fleet on every rank, the stats carry whole too.
+    D is deterministic, so the learner stays bit-identical across ranks
+    with no broadcast;
+  * `dp_update=True` (`--dp-update`, train_fused.py:155-159,407-520,
+    641-660; the untiled path only): B's fold and kernel C run on the
+    rank's worlds (the stats carry sharded too); the per-shard obs
+    moments merge by the JAX package's cross-shard Chan combine, C's
+    block moments and meter partials are all-gathered and stacked (exact
+    when W_l is a multiple of C's block, so the shards' blocks are the
+    fleet's).  The update never gathers the trajectory: per minibatch
+    kernel G (ops/fused_update.py::fused_minibatch_grad_prefetch) takes
+    the gradient over the rank's blocks, the 5216 floats are summed over
+    the ranks and scaled by 1 / size, and `clip_adam_step` runs on every
+    rank.  The shuffle is stratified (PARITY.md deviation 7): each rank
+    permutes its own T * W_l / wb_l blocks; every rank draws all
+    (size, E, T * W_l / wb_l) permutations and takes row `rank`, so one
+    rank draws the flagship's own permutations.
+
 `train_iteration.static(state)` is the iteration's static-buffer form,
 `StaticIteration`: the state copied into tensors that keep their
 addresses, and `step()`, one iteration from those tensors back into
@@ -60,6 +89,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 import os
 from typing import Callable, Optional
 
@@ -79,8 +109,11 @@ from ..ops import fused_rollout as FR
 from ..ops import fused_update as FU
 from ..ops.fused_step import fused_step
 from ..ops.layout import ACTION_ROWS, N_OBS_ROWS, RESET_ROWS
+from ..parallel.mesh import DataMesh, all_gather, all_gather_columns, \
+    all_reduce_
 from .hparams import PPOParams
-from .train import AdamState, EpisodeStats, init_adam, init_stats, meter_scan
+from .train import (AdamState, EpisodeStats, clip_adam_step, init_adam,
+                    init_stats, meter_scan)
 
 F32 = torch.float32
 I32 = torch.int32
@@ -141,6 +174,47 @@ def perm_seed(seed: int, counter: int) -> int:
     return ((seed * 1_000_003 + counter) * 1_000_033 + 7) % (2 ** 63)
 
 
+DP_UPDATE_NEEDS = ("dp_update shards the update phase over the data mesh "
+                   "(per-minibatch gradient psum); it requires a mesh and "
+                   "the (untiled) fused-GAE flagship path")
+
+
+def shard_worlds(hp: PPOParams, mesh: Optional[DataMesh],
+                 rollout_tiled: bool = False, dp_update: bool = False) -> int:
+    """W_l, the worlds of one rank (W without a mesh), after checking
+    that they meet the kernels' geometry: kernel I's 1024-world tiles,
+    kernel B's 32-world warps, and under dp_update kernel C's world
+    block (the shards' blocks must be the fleet's for the stacked block
+    moments and meter partials to be exact)."""
+    if dp_update and (mesh is None or rollout_tiled):
+        raise ValueError(DP_UPDATE_NEEDS)
+    W_l = hp.num_envs if mesh is None else mesh.worlds(hp.num_envs)
+    if rollout_tiled:
+        FR.check_tiled_worlds(W_l)
+    if mesh is None:
+        return W_l
+    if W_l % FR.MOM_GROUP:
+        raise ValueError(f"{W_l} worlds a rank: the rollout kernel takes "
+                         f"whole warps of {FR.MOM_GROUP} worlds")
+    gb = FG.pick_gae_block(hp.num_envs)
+    if dp_update and W_l % gb:
+        raise ValueError(f"dp_update: {W_l} worlds a rank must be a "
+                         f"multiple of kernel C's {gb}-world block, or the "
+                         "ranks' block moments and meter partials are not "
+                         "the whole fleet's")
+    return W_l
+
+
+def combine_shard_moments(m: torch.Tensor):
+    """The JAX package's cross-shard Chan combine (train_fused.py:641-650)
+    of per-shard (ROLL_OBS, 8) [mean, M2, n, 0...] moment blocks stacked
+    (size, ROLL_OBS, 8) over equal shards -> (mean, M2, n)."""
+    means, m2s, ns = m[:, :, 0], m[:, :, 1], m[:, :, 2]
+    gmean = means.mean(dim=0)
+    gm2 = m2s.sum(dim=0) + (ns * (means - gmean[None]) ** 2).sum(dim=0)
+    return gmean, gm2, ns.sum(dim=0)[0]
+
+
 def make_collect(cfg: SimConfig, hp: PPOParams, device="cuda",
                  rollout_tiled: bool = False):
     run, gen = _collect_body(cfg, hp, device, rollout_tiled)
@@ -157,20 +231,27 @@ def make_collect(cfg: SimConfig, hp: PPOParams, device="cuda",
     return collect
 
 
-def _collect_body(cfg: SimConfig, hp: PPOParams, device, rollout_tiled):
+def _collect_body(cfg: SimConfig, hp: PPOParams, device, rollout_tiled,
+                  mesh: Optional[DataMesh] = None, dp_update: bool = False):
     """(run, gen): `run(state, noise, mark, tick_base)` is the collect
     with the pulse drawn from the generator `gen` as it stands (unless
     `noise` is given) and kernel B's Philox ticks from tick_base (an int
-    or a 0-d int32 tensor on the card)."""
+    or a 0-d int32 tensor on the card).  Under a mesh the state holds the
+    rank's columns and `noise` the whole fleet's draws."""
     ti = hp.trainee_idx
     fi = 1 - ti
     T = hp.num_rollout_steps
     ti_lo = ti * OBS
     fi_lo = fi * OBS
     dev = torch.device(device)
-    if rollout_tiled:
-        FR.check_tiled_worlds(hp.num_envs)
+    shard_worlds(hp, mesh, rollout_tiled, dp_update)
+    gather = mesh is not None and not dp_update
+    cols = None if mesh is None else mesh.columns(hp.num_envs)
     gen = torch.Generator(device=dev)
+
+    def local(x):
+        """The rank's columns of a whole-fleet draw."""
+        return x if cols is None or x is None else x[:, cols].contiguous()
 
     def reset_pulse(state: RolloutState, noise: Optional[CollectNoise]):
         si = state.si.clone()
@@ -179,12 +260,12 @@ def _collect_body(cfg: SimConfig, hp: PPOParams, device, rollout_tiled):
         for r in ACTION_ROWS[ti]:
             si[r] = 0
         if noise is not None:
-            pulse = noise.pulse
-            f_u = noise.pulse_frozen_u
+            pulse = local(noise.pulse)
+            f_u = local(noise.pulse_frozen_u)
         else:
-            pulse = draw_noise_rows(hp.num_envs, gen, dev)
-            f_u = (torch.rand((FR.N_LOGITS, hp.num_envs), generator=gen,
-                              device=dev) if hp.use_frozen else None)
+            pulse = local(draw_noise_rows(hp.num_envs, gen, dev))
+            f_u = local(torch.rand((FR.N_LOGITS, hp.num_envs), generator=gen,
+                                   device=dev) if hp.use_frozen else None)
         if hp.use_frozen:
             fa, _, _ = agent_lib.forward(
                 state.frozen, state.obs[fi_lo:fi_lo + OBS].T,
@@ -208,7 +289,9 @@ def _collect_body(cfg: SimConfig, hp: PPOParams, device, rollout_tiled):
         fmats = FR.pack_policy(state.frozen) if hp.use_frozen else None
         kw = dict(n_steps=T, trainee_idx=ti, seed=state.seed,
                   tick_base=tick_base,
-                  noise=None if noise is None else noise.rollout)
+                  noise=None if noise is None else local(noise.rollout))
+        if cols is not None:
+            kw["world_base"] = cols.start
         if rollout_tiled:
             sf, si, obs, traj = FR.fused_rollout_tiled(cfg, sf, si, obs,
                                                        mats, fmats, **kw)
@@ -216,8 +299,15 @@ def _collect_body(cfg: SimConfig, hp: PPOParams, device, rollout_tiled):
             sf, si, obs, traj, om = FR.fused_rollout(cfg, sf, si, obs, mats,
                                                      fmats, **kw)
         mark("rollout")
+        obs_t = obs[ti_lo:ti_lo + OBS]
+        if gather:
+            # the whole fleet's trajectory and last trainee obs, in world
+            # order, on every rank
+            traj = all_gather_columns(traj, mesh)
+            obs_t = all_gather_columns(obs_t, mesh)
+            mark("all_gather")
 
-        next_value = agent_lib.evaluate(agent, obs[ti_lo:ti_lo + OBS].T)
+        next_value = agent_lib.evaluate(agent, obs_t.T)
         vrm = agent.value_rms
         vstats = torch.zeros((1, FG.VSTAT_COLS), dtype=F32, device=dev)
         vstats[0, 0] = vrm.mean[0]
@@ -228,8 +318,12 @@ def _collect_body(cfg: SimConfig, hp: PPOParams, device, rollout_tiled):
             traj, carry, next_value[None, :], vstats, gamma=hp.gamma,
             lam=hp.gae_lambda, r_value=FR.R_VALUE, r_rew=FR.R_REW,
             r_done=FR.R_DONE)
+        if dp_update:
+            # the ranks' blocks stacked in world order: the fleet's blocks
+            moments = all_gather(moments, mesh).flatten(0, 1)
+            ticks = all_gather(ticks, mesh).flatten(0, 1)
         mark("gae")
-        if rollout_tiled:
+        if rollout_tiled or gather:
             om = FG.obs_moments(traj, FR.ROLL_OBS)
             mark("obs_moments")
 
@@ -258,18 +352,26 @@ def _collect_body(cfg: SimConfig, hp: PPOParams, device, rollout_tiled):
         ustats[0, 1] = vr_post
         ustats[0, 2] = am_b
         ustats[0, 3] = ar
-        obs_rms = rms_update_padded_moments(agent.obs_rms, om[:, 0],
-                                            om[:, 1], om[0, 2])
+        if dp_update:
+            obs_rms = rms_update_padded_moments(
+                agent.obs_rms, *combine_shard_moments(all_gather(om, mesh)))
+        else:
+            obs_rms = rms_update_padded_moments(agent.obs_rms, om[:, 0],
+                                                om[:, 1], om[0, 2])
         adv_n = (side[:, FG.SIDE_ADV] - am_b) * ar
         values_n = torch.clamp(
             (side[:, FG.SIDE_VALUE] - value_rms.mean[0]) * vr_post,
             -5.0, 5.0)
+        means = torch.stack([adv_n.abs().mean(), values_n.mean()])
+        if dp_update:
+            # the fleet's means over equal shards
+            means = all_reduce_(means, mesh) * (1.0 / mesh.size)
         metrics = {
             "mean_reward": stats.mean_reward,
             "mean_episode_length": stats.mean_length,
             "reward_window": stats.reward_size,
-            "adv_abs_mean": adv_n.abs().mean(),
-            "value_mean": values_n.mean(),
+            "adv_abs_mean": means[0],
+            "value_mean": means[1],
         }
         mark("glue")
         new_agent = Agent(net=agent.net, obs_rms=obs_rms,
@@ -384,20 +486,70 @@ def update_block(hp: PPOParams) -> int:
     return wb
 
 
+@torch.no_grad()
+def dp_update_phase(hp_l: PPOParams, mesh: DataMesh, idx, count, traj, side,
+                    ustats, nrm, params, mu, nu, *, wb: int):
+    """The update phase of `dp_update` (JAX `_dp_body`,
+    train_fused.py:445-486) over this rank's blocks: hp_l is the rank's
+    PPOParams (num_envs W_l, so its minibatch is the rank's share), idx
+    this rank's (n * mb_l / wb,) block indices, whole minibatches in
+    order; traj (T, 128, W_l) and the raw side (T, 8, W_l) the rank's,
+    normalized here once from ustats.  Per minibatch: kernel G's gradient
+    over the rank's blocks, summed over the ranks and scaled by 1 / size
+    (the mean over the whole minibatch), then `clip_adam_step` at step
+    count + k + 1 (count an int, or a 0-d int32 tensor on the card).
+    Returns (params', mu', nu')."""
+    bpm = hp_l.minibatch_size // wb
+    side_n = FU.normalize_side(side, ustats)
+    if traj.device.type == "cuda":
+        from .. import _build
+        count = _build.device_int(count, traj.device)
+    for k in range(idx.numel() // bpm):
+        g = FU.fused_minibatch_grad_prefetch(
+            hp_l, idx[k * bpm:(k + 1) * bpm], traj, side_n, nrm, *params,
+            wb=wb)
+        flat = all_reduce_(torch.cat([x.reshape(-1) for x in g]), mesh)
+        flat.mul_(1.0 / mesh.size)
+        g = [x.view_as(p) for x, p in
+             zip(flat.split([p.numel() for p in params]), params)]
+        params, mu, nu = clip_adam_step(
+            params, mu, nu, g, count + (k + 1), lr=hp_l.learning_rate,
+            max_norm=hp_l.max_grad_norm)
+    return params, mu, nu
+
+
 def make_train_iteration(cfg: SimConfig, hp: PPOParams, device="cuda",
-                         rollout_tiled: bool = False):
+                         rollout_tiled: bool = False,
+                         mesh: Optional[DataMesh] = None,
+                         dp_update: bool = False):
     T = hp.num_rollout_steps
     if hp.num_minibatches * hp.minibatch_size != T * hp.num_envs:
         raise ValueError(
             f"num_minibatches={hp.num_minibatches} must divide the rollout "
             f"batch ({T}*{hp.num_envs}={T * hp.num_envs} samples) exactly "
             f"for the update phase")
-    wb = update_block(hp)
-    n_blocks = T * (hp.num_envs // wb)
+    W_l = shard_worlds(hp, mesh, rollout_tiled, dp_update)
     n_updates = hp.update_epochs * hp.num_minibatches
     dev = torch.device(device)
-    run_collect, pulse_gen = _collect_body(cfg, hp, device, rollout_tiled)
+    run_collect, pulse_gen = _collect_body(cfg, hp, device, rollout_tiled,
+                                           mesh, dp_update)
     perm_gen = torch.Generator(device=dev)
+    if dp_update:
+        hp_l = dataclasses.replace(hp, num_envs=W_l)
+        if hp.num_minibatches * hp_l.minibatch_size != T * W_l:
+            raise ValueError(f"dp_update: num_minibatches="
+                             f"{hp.num_minibatches} must divide a rank's "
+                             f"{T * W_l} samples")
+        wb = hp.update_block or FU.pick_update_block(W_l,
+                                                     hp_l.minibatch_size)
+        if W_l % wb or hp_l.minibatch_size % wb:
+            raise ValueError(f"dp_update: update_block={wb} must divide "
+                             f"both worlds/shard={W_l} and the local "
+                             f"minibatch={hp_l.minibatch_size}")
+        perm_shape = (mesh.size, hp.update_epochs, T * (W_l // wb))
+    else:
+        wb = update_block(hp)
+        perm_shape = (hp.update_epochs, T * (hp.num_envs // wb))
 
     def reseed(seed: int, counter: int):
         """Seed both generators for iteration `counter`."""
@@ -410,20 +562,29 @@ def make_train_iteration(cfg: SimConfig, hp: PPOParams, device="cuda",
         not injected from the generators as they stand."""
         mark_ = mark or (lambda name: None)
         if perms is None:
-            perms = torch.stack([torch.randperm(n_blocks, generator=perm_gen,
-                                                device=dev)
-                                 for _ in range(hp.update_epochs)])
-        if tuple(perms.shape) != (hp.update_epochs, n_blocks):
-            raise ValueError(f"perms must be ({hp.update_epochs}, "
-                             f"{n_blocks})")
+            perms = torch.stack([
+                torch.randperm(perm_shape[-1], generator=perm_gen,
+                               device=dev)
+                for _ in range(math.prod(perm_shape[:-1]))
+            ]).reshape(perm_shape)
+        if tuple(perms.shape) != perm_shape:
+            raise ValueError(f"perms must be {perm_shape}")
         state, out = run_collect(state, noise, mark, tick_base)
         agent = state.agent
         with torch.no_grad():
-            params, mu, nu = FU.fused_update_phase(
-                hp, perms.to(device=dev, dtype=I32).reshape(-1), count,
-                out["traj"], out["side"], FU.pack_norm(agent.obs_rms),
-                out["ustats"], FU.pack_weights(agent.net), state.opt.mu,
-                state.opt.nu, wb=wb)
+            if dp_update:
+                params, mu, nu = dp_update_phase(
+                    hp_l, mesh, perms[mesh.rank].to(device=dev, dtype=I32)
+                    .reshape(-1), count, out["traj"], out["side"],
+                    out["ustats"], FU.pack_norm(agent.obs_rms),
+                    FU.pack_weights(agent.net), state.opt.mu, state.opt.nu,
+                    wb=wb)
+            else:
+                params, mu, nu = FU.fused_update_phase(
+                    hp, perms.to(device=dev, dtype=I32).reshape(-1), count,
+                    out["traj"], out["side"], FU.pack_norm(agent.obs_rms),
+                    out["ustats"], FU.pack_weights(agent.net), state.opt.mu,
+                    state.opt.nu, wb=wb)
             FU.unpack_weights(agent.net, *params)
         mark_("update")
         opt = AdamState(count=state.opt.count + n_updates, mu=mu, nu=nu)
@@ -436,9 +597,11 @@ def make_train_iteration(cfg: SimConfig, hp: PPOParams, device="cuda",
                         perms: Optional[torch.Tensor] = None,
                         mark: Optional[Callable[[str], None]] = None):
         """One iteration.  perms (E, T * W / wb) injects the epochs' block
-        permutations; `mark(name)` is called after each phase (the
-        collect's, then "update").  Returns (state', out), `out` as
-        `collect` gives it, the metrics at out["metrics"]."""
+        permutations (under dp_update (size, E, T * W_l / wb), every
+        rank's); noise the whole fleet's draws (CollectNoise); `mark(name)`
+        is called after each phase (the collect's, then "update").
+        Returns (state', out), `out` as `collect` gives it, the metrics at
+        out["metrics"]."""
         reseed(state.seed, state.counter)
         return run(state, noise, perms, mark, state.counter * T,
                    state.opt.count)
@@ -449,6 +612,7 @@ def make_train_iteration(cfg: SimConfig, hp: PPOParams, device="cuda",
                                T, n_updates)
 
     train_iteration.static = static
+    train_iteration.mesh = mesh
     return train_iteration
 
 

@@ -20,10 +20,11 @@ def test_kernel_signatures_parse_from_sources():
     sp = _build.SimParams
     want = {
         "fused_step": [sp] + [P] * 6 + [I, P],
-        "fused_rollout": [sp] + [P] * 8 + [I] * 4 + [U, U, P, P],
+        # ... key, tick_base, world_base, stream
+        "fused_rollout": [sp] + [P] * 8 + [I] * 4 + [U, U, P, I, P],
         "fused_gae": [P] * 8 + [I] * 7 + [F, F, P],
         "meter_scan": [P] * 3 + [I] * 2 + [P],
-        "fused_rollout_tiled": [sp] + [P] * 7 + [I] * 4 + [U, U, P, P],
+        "fused_rollout_tiled": [sp] + [P] * 7 + [I] * 4 + [U, U, P, I, P],
         "obs_moments": [P] * 3 + [I] * 5 + [P],
     }
     # a source's entries besides its kernel's: the resident CTAs per SM

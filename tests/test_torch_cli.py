@@ -6,7 +6,9 @@ weights and normalizers exactly; a checkpoint written by the JAX package
 (`torch_state_dict_from_agent_params` + `torch.save`) loads into the port
 exactly; `--rollout-tiled` trains (kernels I and E's plain versions on
 the CPU) and refuses a world count that is not a multiple of 1024; flags
-of paths the port does not have exit."""
+of paths the port does not have exit; `--dp-update` without
+`--data-parallel`, or with `--rollout-tiled`, refuses with the JAX
+package's messages."""
 
 import jax
 import numpy as np
@@ -102,11 +104,21 @@ def test_foreign_obs_tail_is_zeroed_with_a_warning(tmp_path):
     ["--backend", "xla-rows"], ["--no-rollout-kernel"], ["--no-fused-grads"],
     ["--no-fused-gae"], ["--bf16-traj"],
     ["--bf16-policy"], ["--rollout-block", "2048"], ["--shuffle-block", "1"],
-    ["--data-parallel"],
-    ["--dp-update"], ["--distributed"], ["--interactive"], ["--viewer"],
-    ["--tensorboard"], ["--backend", "structured"]])
+    ["--interactive"], ["--viewer"], ["--backend", "structured"]])
 def test_unported_flags_exit_naming_the_roadmap_item(flags):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
+        cli.main(SMALL + ["--num-iterations", "1"] + flags)
+
+
+@pytest.mark.parametrize("flags, message", [
+    (["--dp-update"], "--dp-update requires --data-parallel and the "
+                      "fused-GAE flagship path"),
+    (["--data-parallel", "--dp-update", "--rollout-tiled"],
+     r"dp_update shards the update phase over the data mesh "
+     r"\(per-minibatch gradient psum\); it requires a mesh and the "
+     r"\(untiled\) fused-GAE flagship path")])
+def test_dp_update_refuses_with_the_jax_messages(flags, message):
+    with pytest.raises(SystemExit, match=message):
         cli.main(SMALL + ["--num-iterations", "1"] + flags)
 
 
