@@ -92,7 +92,22 @@ iterations from seed 321 in chunks of 50 inside the learning band
 under torchrun's variables at world size 1, each at its auto chunk of
 50, writing a loadable checkpoint (`cli_dp`); and the weak-scaling
 sweep's one-GPU row (`python -m madrona_basketball_tpu_torch.
-bench_scaling`, re-emitted as `bench_scaling`).  Each kernel's own device
+bench_scaling`, re-emitted as `bench_scaling`).  The JAX trainer's alternate
+paths follow at the flagship width (`alt_paths`): --no-rollout-kernel
+(kernel A 33 launches an iteration, the policy in torch, the autodiff
+update), --no-fused-gae and its tiled twin (kernel D with ustats None),
+--no-fused-grads at shuffle_block 8 and 1, and the structured backend,
+each with its launches counted from 0 around 3 eager iterations, a chunk
+of 3 equal to 3 eager iterations bit for bit, eager and chunked ms,
+device busy and idle share, peak memory, and 600 learning iterations
+from seed 321 (100 on the structured path, whose chunks would take over
+30 s); then the per-tick collect against kernel B's on the same draws,
+--no-fused-gae against the flagship from one state (the first
+trajectory bit for bit, the drift of 3 iterations printed),
+the autodiff update's gradient and first Adam step against kernel H's
+plain gradient, the structured tick against kernel A after
+`layout.pack`, and the CLI with each new flag (`cli_alt`, --viewer's
+episode npz in the reference schema).  Each kernel's own device
 time comes from torch.profiler, beside the CUDA-event time of
 back-to-back wrapper calls and of its plain version; kernel D's is also
 split into its gradient and reduce launches, and the redesigned kernels'
@@ -167,9 +182,13 @@ FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, non-tensor FP32
 CARD = {}  # the card's name and power limit, beside every phase's numbers
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
     if "phase" in obj and CARD:
-        obj = {**obj, **CARD}
+        obj = {**obj, **CARD,
+               "elapsed_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -440,6 +459,23 @@ def check_npz(path, worlds) -> int:
     return T
 
 
+def run_clis(jobs: dict, cwd, env, timeout=600) -> dict:
+    """The CLI subprocesses `jobs` {name: (argv, extra env)} started
+    together (they share the card), each waited for: {name: (exit code,
+    stdout, stderr, seconds from the start to its exit)}."""
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, "-m", *argv], cwd=cwd,
+                                    env={**env, **extra},
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, (argv, extra) in jobs.items()}
+    out = {}
+    for name, proc in procs.items():
+        so, se = proc.communicate(timeout=timeout)
+        out[name] = (proc.returncode, so, se, time.perf_counter() - t0)
+    return out
+
+
 def bound(nbytes, nops):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = nops / FP32_FLOP_PER_S * 1e3
@@ -519,6 +555,525 @@ def _two_rank_worker(rank: int, out_dir: str):
                            f"{out_dir}/two_rank_{int(dp)}.pt")
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------
+# The alternate trainer paths (ROADMAP item 16)
+# ---------------------------------------------------------------------
+
+KERNELS = ("fused_step", "fused_rollout", "fused_rollout_tiled", "fused_gae",
+           "meter_scan", "obs_moments", "fused_update_phase",
+           "fused_minibatch_grad_prefetch", "fused_minibatch_grad")
+# phase, make_train_iteration's path flags (None: the structured
+# trainer), PPOParams changes, the kernels the path must launch
+ALT_PATHS = (
+    ("per_tick_path", {"rollout_kernel": False}, {}, ("fused_step",)),
+    ("nofgae_path", {"fused_gae": False}, {},
+     ("fused_step", "fused_rollout", "fused_update_phase")),
+    ("nofgae_tiled_path", {"fused_gae": False, "rollout_tiled": True}, {},
+     ("fused_step", "fused_rollout_tiled", "fused_update_phase")),
+    ("nofgrads_path", {"fused_grads": False}, {},
+     ("fused_step", "fused_rollout")),
+    ("nofgrads_g1_path", {"fused_grads": False}, {"shuffle_block": 1},
+     ("fused_step", "fused_rollout")),
+    ("structured_path", None, {}, ()),
+)
+LEARN_BUDGET_S = 30.0  # a path whose chunks run 600 iterations in less
+#                        runs them (seed 321); the others run
+LEARN_SHORT = 100      # this many, their curve printed
+LEARNED_FLOOR = -200.0  # the 600-iteration mean reward every alternate
+# path must pass: a random policy sits at -569, every run of every path
+# measured so far (PERF.md §6, PR 10: 4 seeds x 5 paths) at -124.9 ..
+# -163.6.  Whether it lands in the flagship's -150..-105 band is printed:
+# at one seed the band misses correct runs (flagship seed 1 tiled -156.20,
+# PR 7; -152.36 here on --no-fused-gae at seed 321)
+ALT_CLI_ARGS = []      # extra flags of cli_alt's runs (a CPU rehearsal
+#                        gives --device cpu and a small width)
+
+
+def _events_ms(fn, n):
+    """n calls of fn, each timed alone with CUDA events (ms)."""
+    import torch
+    out = []
+    for _ in range(n):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return out
+
+
+def alt_paths(cfg, hp, dev, gen, n_mb, reset_counts, counts, profiled,
+              chunk_parity):
+    """Each alternate path at the flagship width (8192 x 32, 4 x 4): a
+    warm-up iteration, then 3 eager iterations with every kernel's
+    launches counted from 0 (the path's kernels launched, no other:
+    kernel A 33 times an iteration on the per-tick path, once elsewhere;
+    kernel D with ustats None on --no-fused-gae), the eager ms; one
+    profiled eager iteration (device busy and idle share; not on the
+    structured path); 3 eager iterations against a chunk of 3 bit for bit
+    (`chunk_parity`); the chunked ms (make_train_chunk: 50 iterations a
+    chunk, 10 on the structured path), the device busy time of one
+    profiled graph replay against it (the idle share) and peak memory;
+    then learning from seed 321 in chunks of 50: 600 iterations where
+    the chunks run them in under LEARN_BUDGET_S (above LEARNED_FLOOR,
+    whether in the band printed), else 100 with the curve printed.
+    Returns the
+    launches of each path's 3 eager iterations and its numbers."""
+    import torch
+    from madrona_basketball_tpu_torch.ops import fused_update as FU
+    from madrona_basketball_tpu_torch.ppo import train as TT
+    from madrona_basketball_tpu_torch.ppo import train_fused as TF
+    res = {"launches": {}}
+    for phase, kw, hp_kw, on in ALT_PATHS:
+        hp_p = dataclasses.replace(hp, **hp_kw)
+        if kw is None:
+            def init(seed, hp_p=hp_p):
+                return TT.init_train_state(cfg, hp_p, seed, dev)
+
+            def make(hp_p=hp_p):
+                return TT.make_train_iteration(cfg, hp_p, dev)
+        else:
+            def init(seed, hp_p=hp_p):
+                return TF.init_train_state(cfg, hp_p, seed, dev)
+
+            def make(hp_p=hp_p, kw=kw):
+                return TF.make_train_iteration(cfg, hp_p, dev, **kw)
+        it = make()
+        state = init(1)
+        t0 = time.perf_counter()
+        state, _ = it(state)          # warm-up: first uses, constants
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        start_bytes = torch.cuda.memory_allocated(dev)
+        p0 = FU.pack_weights(state.agent.net)
+        reset_counts()
+        box = {"state": state}
+
+        def step():
+            box["state"], box["out"] = it(box["state"])
+        eager_ms = _events_ms(step, 3)
+        state, out = box["state"], box["out"]
+        launches = counts()
+        d_dev = FU.device_launches
+        eager_peak = torch.cuda.max_memory_allocated(dev)
+        missing = [k for k in on if launches[k] < 1]
+        stray = [k for k in KERNELS if k not in on and launches[k]]
+        if missing or stray:
+            raise Fail(f"{phase}: kernels {missing} not launched, {stray} "
+                       f"launched: {launches}")
+        want_a = 3 * (T + 1) if kw is not None and \
+            not kw.get("rollout_kernel", True) else (3 if on else 0)
+        if launches["fused_step"] != want_a:
+            raise Fail(f"{phase}: kernel A launched {launches['fused_step']}"
+                       f" times in 3 iterations, not {want_a}")
+        if "fused_update_phase" in on and (
+                launches["fused_update_phase"] != 3 or
+                d_dev != 3 * 2 * n_mb):
+            raise Fail(f"{phase}: kernel D {launches['fused_update_phase']}"
+                       f" calls, {d_dev} device launches in 3 iterations")
+        for k in ("fused_rollout", "fused_rollout_tiled"):
+            if k in on and launches[k] != 3:
+                raise Fail(f"{phase}: {k} launched {launches[k]} times")
+        m = {k: float(out["metrics"][k]) for k in TF.METRICS}
+        if not all(map(lambda v: v == v and abs(v) < 1e30, m.values())):
+            raise Fail(f"{phase}: metrics {m}")
+        p1 = FU.pack_weights(state.agent.net)
+        if not all(bool(torch.isfinite(p).all()) for p in p1) or \
+                all(torch.equal(a, b) for a, b in zip(p0, p1)):
+            raise Fail(f"{phase}: params non-finite or unchanged")
+        if state.opt.count != 4 * n_mb:
+            raise Fail(f"{phase}: Adam count {state.opt.count}")
+        busy = wall = top = None
+        if kw is not None:
+            # (the structured iteration's ~150 000 eager ops are not
+            # profiled: its busy time comes from one graph replay below)
+            (state, _), busy, wall, top = profiled(lambda: it(state))
+        chunk_parity(f"{phase}_chunk_parity", False, state, it)
+
+        n = 10 if kw is None else 50
+        chunk = TT.make_train_chunk(it, n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        state, stacked = chunk(state)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        cap = counts()
+        box["state"] = state
+
+        def run_chunk():
+            box["state"], box["stacked"] = chunk(box["state"])
+        chunk_ms = _events_ms(run_chunk, 2)
+        peak = torch.cuda.max_memory_allocated(dev)
+        if counts() != cap:
+            raise Fail(f"{phase}: replays counted launches")
+        state = box["state"]
+        # one replay of the captured iteration profiled (a whole chunk
+        # holds n x 10^4..10^5 kernels, too many to profile)
+        static, graph = chunk.captured["static"], chunk.captured["graph"]
+
+        def one_replay():
+            static.reseed(state.seed, state.counter)
+            graph.replay()
+        _, c_busy_it, c_wall, c_top = profiled(one_replay)
+        it_ms = statistics.median(chunk_ms) / n
+        e_ms = statistics.median(eager_ms)
+        line = {"phase": phase, "worlds": W, "ticks": T,
+                "epochs": hp_p.update_epochs,
+                "minibatches": hp_p.num_minibatches,
+                "shuffle_block": hp_p.shuffle_block,
+                "flags": "structured" if kw is None else kw,
+                "warmup_s": warm_s, "launches_3_iterations": launches,
+                "fused_update_phase_device_launches": d_dev,
+                "eager_ms": eager_ms, "eager_iteration_ms": e_ms,
+                "eager_train_env_steps_per_s": W * T / (e_ms / 1e3),
+                "eager_device_busy_ms": busy,
+                "eager_device_idle_share": (1.0 - busy / wall) if busy
+                else None, "eager_profiled_wall_ms": wall,
+                "top_device_ms_eager": top,
+                "eager_peak_memory_bytes": eager_peak,
+                "iters_per_dispatch": n, "chunk_ms": chunk_ms,
+                "chunked_iteration_ms": it_ms,
+                "chunked_train_env_steps_per_s": W * T / (it_ms / 1e3),
+                "first_chunk_s": first_s, "launches_at_capture": cap,
+                "device_busy_ms_per_iteration": c_busy_it,
+                "device_idle_share": (1.0 - c_busy_it / it_ms) if c_busy_it
+                else None, "profiled_replay_wall_ms": c_wall,
+                "top_device_ms_chunk": c_top, "peak_memory_bytes": peak,
+                "peak_over_start_bytes": peak - start_bytes,
+                "eager_peak_over_start_bytes": eager_peak - start_bytes,
+                "metrics": m}
+        emit(line)
+        del chunk, box, state, out, it
+        torch.cuda.empty_cache()
+
+        # learning, in chunks of 50
+        n_learn = 600 if it_ms * 600 / 1e3 < LEARN_BUDGET_S else LEARN_SHORT
+        l_state = init(321)
+        l_chunk = TT.make_train_chunk(make(), 50)
+        curve = []
+        t0 = time.perf_counter()
+        for k in range(n_learn // 50):
+            l_state, st = l_chunk(l_state)
+            curve.append([50 * (k + 1), float(st["mean_reward"][-1]),
+                          float(st["mean_episode_length"][-1])])
+        l_secs = time.perf_counter() - t0
+        if not all(bool(torch.isfinite(p).all())
+                   for p in l_state.agent.net.parameters()):
+            raise Fail(f"{phase} learning: non-finite params")
+        final = curve[-1][1]
+        emit({"phase": f"learning_{phase}", "iterations": n_learn,
+              "seed": 321, "iters_per_dispatch": 50, "seconds": l_secs,
+              "curve": curve, "final_mean_reward": final,
+              "band": [-150.0, -105.0] if n_learn == 600 else None,
+              "in_band": -150.0 <= final <= -105.0 if n_learn == 600
+              else None,
+              "learned_floor": LEARNED_FLOOR if n_learn == 600 else None,
+              "note": None if n_learn == 600 else
+              f"chunked {it_ms:.3f} ms an iteration: 600 iterations take "
+              f"more than {LEARN_BUDGET_S} s, so {LEARN_SHORT} and the "
+              "curve"})
+        if n_learn == 600 and not final >= LEARNED_FLOOR:
+            raise Fail(f"{phase}: mean reward {final} after 600 iterations "
+                       f"is below {LEARNED_FLOOR}: the path did not learn")
+        del l_chunk, l_state
+        torch.cuda.empty_cache()
+        res["launches"][phase] = launches
+        res[phase] = {"eager_ms": e_ms, "chunked_ms": it_ms,
+                      "learning_iterations": n_learn, "final": final}
+    return res
+
+
+def alt_per_tick_vs_b(cfg, hp, dev, gen):
+    """The per-tick collect (kernel A a tick, the policy in torch) against
+    kernel B's collect on the same draws (the pulse, and B's external
+    noise matrix, which the per-tick path reads tick by tick), from one
+    state: B's Philox tier (at most 0.1 % of worlds differ in integer
+    state or actions, every float of the other worlds' trajectory rows
+    and final rows within 1e-4 absolute)."""
+    import torch
+    from madrona_basketball_tpu_torch.engine_fused import draw_noise_rows
+    from madrona_basketball_tpu_torch.ops import fused_rollout as FR
+    from madrona_basketball_tpu_torch.ppo import train_fused as TF
+    state = TF.init_train_state(cfg, hp, 5, dev)
+    pt = TF.make_train_iteration(cfg, hp, dev, rollout_kernel=False)
+    state, _ = pt(state)                  # a state past its first pulse
+    CH = FR.EXT_NOISE_CHUNK
+    u = torch.rand((T * CH, W), generator=gen, device=dev)
+    row = torch.arange(T * CH, device=dev)[:, None] % CH
+    noise = TF.CollectNoise(pulse=draw_noise_rows(W, gen, dev),
+                            rollout=torch.where(row < 8, 2 * u - 1, u))
+    s1, o1 = pt(copy.deepcopy(state), noise)
+    s2, o2 = TF.make_collect(cfg, hp, dev)(copy.deepcopy(state), noise)
+    torch.cuda.synchronize()
+    buf, traj = o1["buf"], o2["traj"]
+    acts = traj[:, FR.R_ACT:FR.R_ACT + 6].transpose(1, 2).int()
+    bad = (buf["actions"] != acts).any(dim=2).any(dim=0)
+    bad |= ((1.0 - buf["not_dones"]) != traj[:, FR.R_DONE]).any(dim=0)
+    bad |= (s1.si != s2.si).any(dim=0)
+    n_bad = int(bad.sum())
+    if n_bad > 1e-3 * W:
+        raise Fail(f"per-tick vs kernel B: {n_bad} of {W} worlds differ")
+    ok = ~bad
+    errs = {
+        "obs": buf["obs"][:, :, :FR.ROLL_OBS].transpose(1, 2) -
+        traj[:, :FR.ROLL_OBS],
+        "value": buf["values"] - traj[:, FR.R_VALUE],
+        "log_prob": buf["log_probs"] - traj[:, FR.R_LOGP],
+        "reward": buf["rewards"] - traj[:, FR.R_REW],
+        "sf": s1.sf - s2.sf, "obs_rows": s1.obs - s2.obs}
+    e = {k: float(v[..., ok].abs().max()) for k, v in errs.items()}
+    if max(e.values()) > 1e-4:
+        raise Fail(f"per-tick vs kernel B: float errors {e}")
+    emit({"phase": "parity_per_tick_vs_rollout_kernel", "worlds": W,
+          "ticks": T, "worlds_differing": n_bad, "max_abs_err": e,
+          "tier": "B's Philox tier: <= 0.1 % of worlds, floats 1e-4"})
+
+
+def alt_nofgae_vs_flagship(cfg, hp, dev):
+    """--no-fused-gae against the flagship from one state on the same
+    draws (the pulse and permutation generators, kernel B's Philox):
+    the first iteration's trajectory bit for bit and its side rows (the
+    flagship's raw rows normalized by its ustats) within 1e-4 of max(1,
+    |x|); then how far 3 chained iterations of each drift apart
+    (printed: the two differ only in rounding, which is what their
+    learning curves amplify)."""
+    import torch
+    from madrona_basketball_tpu_torch.ops import fused_update as FU
+    from madrona_basketball_tpu_torch.ppo import train_fused as TF
+    state = TF.init_train_state(cfg, hp, 9, dev)
+    fl = TF.make_train_iteration(cfg, hp, dev)
+    ng = TF.make_train_iteration(cfg, hp, dev, fused_gae=False)
+    state, _ = fl(state)
+    a, b = copy.deepcopy(state), copy.deepcopy(state)
+    drift = []
+    for it in range(3):
+        a, oa = fl(a)
+        b, ob = ng(b)
+        if it == 0:
+            if not torch.equal(oa["traj"], ob["traj"]):
+                raise Fail("nofgae vs flagship: the trajectories differ")
+            compare("nofgae vs flagship side",
+                    [ob["side"][:, :3]],
+                    [FU.normalize_side(oa["side"], oa["ustats"])[:, :3]],
+                    atol=1e-4, rel=True)
+        drift.append({
+            "params": max(float((x - y).abs().max()) for x, y in zip(
+                FU.pack_weights(a.agent.net), FU.pack_weights(b.agent.net))),
+            "obs_rms_var": float((a.agent.obs_rms.var -
+                                  b.agent.obs_rms.var).abs().max()),
+            "worlds_differing": int((a.si != b.si).any(dim=0).sum())})
+    emit({"phase": "parity_nofgae_vs_flagship", "worlds": W, "ticks": T,
+          "first_trajectory_bit_identical": True,
+          "drift_per_iteration": drift})
+
+
+def alt_update_step(hp, feat, nrm, obs_rms, agent, h_plain):
+    """The autodiff update (make_update_fns, the per-tick, structured and
+    --no-fused-grads paths) on the 65536 samples of parity G, H's
+    minibatch (the feat layout of kernel H): autograd of `loss_fn`
+    against kernel H's plain gradient (H's tier: 1e-4 of the leaf's
+    largest entry + 1e-7), and the update's first Adam step against the
+    plain step of that gradient: Adam's moments (mu = 0.1 u, nu = 0.001
+    u^2 of the clipped gradient u) at the gradient's tier, the params
+    within 1e-4 / 16, or 2 x lr where the plain gradient is within its
+    tier of zero (Adam's first step has the gradient's sign)."""
+    import torch
+    from madrona_basketball_tpu_torch.models.agent import Agent
+    from madrona_basketball_tpu_torch.ops import fused_update as FU
+    from madrona_basketball_tpu_torch.ppo import train as TT
+    net = copy.deepcopy(agent.net)
+    D = FU.D
+    params = list(net.parameters())
+    with torch.enable_grad():
+        loss = TT.loss_fn(hp, net, obs_rms, feat[:, :D],
+                          feat[:, D:D + 6].long(), *(feat[:, D + 6 + i]
+                                                     for i in range(4)))
+        g = dict(zip(map(id, params), torch.autograd.grad(loss, params)))
+    ga = FU.pack_weights(net, of=lambda p: g[id(p)])
+    tiers = [1e-4 * float(w.abs().max()) + 1e-7 for w in h_plain]
+    g_err = [float((a - b).abs().max()) for a, b in zip(ga, h_plain)]
+    if any(e > t for e, t in zip(g_err, tiers)):
+        raise Fail(f"autodiff gradient vs kernel H's plain: {g_err} above "
+                   f"{tiers}")
+    mb = feat.shape[0]
+    hp1 = dataclasses.replace(hp, num_rollout_steps=mb // hp.num_envs,
+                              num_minibatches=1, update_epochs=1,
+                              shuffle_block=1)
+    _, up = TT.make_update_fns(hp1)
+    p0 = FU.pack_weights(net)
+    opt = TT.init_adam(p0)
+    a1, o1 = up.with_feat(Agent(net=net, obs_rms=obs_rms,
+                                value_rms=agent.value_rms), opt,
+                          feat.contiguous(), D, 6,
+                          torch.arange(mb, device=feat.device)[None])
+    pa = FU.pack_weights(a1.net)
+    ph, mh, vh = TT.clip_adam_step(p0, opt.mu, opt.nu, h_plain, 1,
+                                   lr=hp.learning_rate,
+                                   max_norm=hp.max_grad_norm)
+    # Adam's moments after its first step hold the clipped gradient the
+    # update used: mu = 0.1 u, nu = 0.001 u^2
+    m_err = [float((a - b).abs().max()) for a, b in zip(o1.mu, mh)]
+    v_err = [float((a - b).abs().max()) for a, b in zip(o1.nu, vh)]
+    for i, t in enumerate(tiers):
+        gmax = float(h_plain[i].abs().max())
+        if m_err[i] > 0.1 * t or v_err[i] > 1e-3 * t * (2 * gmax + t):
+            raise Fail(f"autodiff first Adam step, leaf {i}: moments off "
+                       f"by {m_err[i]}, {v_err[i]}")
+    s_err, signs = [], 0
+    for a, b, gh, t in zip(pa, ph, h_plain, tiers):
+        near0 = gh.abs() <= t
+        lim = torch.where(near0, 2 * hp.learning_rate, 1e-4 / 16)
+        d = (a - b).abs()
+        if bool((d > lim).any()):
+            raise Fail(f"autodiff first Adam step: error {float(d.max())}")
+        s_err.append(float(d[~near0].max()) if bool((~near0).any()) else 0.)
+        signs += int(near0.sum())
+    emit({"phase": "parity_autodiff_update", "samples": mb,
+          "loss": float(loss.detach()), "grad_max_abs_err": g_err,
+          "grad_tier": tiers, "first_step_mu_max_abs_err": m_err,
+          "first_step_nu_max_abs_err": v_err,
+          "first_step_params_max_abs_err": s_err,
+          "entries_with_a_gradient_within_its_tier_of_zero": signs})
+
+
+def alt_structured_tick(cfg, dev, gen):
+    """The structured tick (engine.step_core over systems.py, torch on
+    the card) against kernel A after layout.pack, one tick from the same
+    rows at 8 points of a kernel-A trajectory with random actions, 8192
+    worlds: integers exact but for at most 0.1 % of worlds (shots at the
+    going-in threshold: torch's CUDA sin / cos / atan2 are not the
+    kernel's), floats of the other worlds within 1e-4; and the time of
+    one structured tick beside kernel A's."""
+    import torch
+    from madrona_basketball_tpu_torch import engine as E
+    from madrona_basketball_tpu_torch import systems as S
+    from madrona_basketball_tpu_torch.engine import init_rows
+    from madrona_basketball_tpu_torch.engine_fused import draw_noise_rows
+    from madrona_basketball_tpu_torch.ops import fused_step as FS
+    from madrona_basketball_tpu_torch.ops import layout as L
+    sf, si = init_rows(cfg, W, gen, dev)
+    obs = torch.zeros((L.N_OBS_ROWS, W), device=dev)
+    n_bad, e_f = 0, 0.0
+    for tick in range(8):
+        for i in range(2):
+            for r, n in zip(L.ACTION_ROWS[i], (2, 8, 3, 2, 2, 2)):
+                si[r] = torch.randint(0, n, (W,), generator=gen, device=dev,
+                                      dtype=torch.int32)
+        noise = draw_noise_rows(W, gen, dev)
+        st = E.step_core(cfg, L.unpack(cfg, sf, si, obs),
+                         S.StepNoise.from_rows(noise))
+        sf, si, obs = FS.fused_step(cfg, sf, si, noise)
+        gsf, gsi = L.pack(st)
+        gobs = st.agents.obs.permute(1, 2, 0).reshape(L.N_OBS_ROWS, W)
+        bad = (gsi != si).any(dim=0)
+        n_bad += int(bad.sum())
+        ok = ~bad
+        e_f = max(e_f, float((gsf - sf)[:, ok].abs().max()),
+                  float((gobs - obs)[:, ok].abs().max()))
+    if n_bad > 1e-3 * W * 8 or e_f > 1e-4:
+        raise Fail(f"structured tick vs kernel A: {n_bad} world-ticks "
+                   f"differ in integers, float error {e_f}")
+    state = L.unpack(cfg, sf, si, obs)
+    noise = S.StepNoise.from_rows(draw_noise_rows(W, gen, dev))
+    s_ms = statistics.median(_events_ms(
+        lambda: E.step_core(cfg, state, noise), 5))
+    a_ms = statistics.median(_events_ms(
+        lambda: FS.fused_step(cfg, sf, si, noise.rows()), 5))
+    emit({"phase": "parity_structured_tick", "worlds": W, "ticks": 8,
+          "world_ticks_differing": n_bad, "max_abs_err": e_f,
+          "structured_tick_ms": s_ms, "kernel_a_tick_ms": a_ms,
+          "tier": "integers exact but <= 0.1 % of world-ticks, floats 1e-4"})
+
+
+def check_recorded_npz(path) -> int:
+    """Raise unless the npz at `path` is a world-0 episode drop in the
+    reference schema (NPZ_SCHEMA at one world, hoop_pos (1, 2, 3)) with
+    finite floats; returns its tick count."""
+    import numpy as np
+    raw = dict(np.load(path))
+    if set(raw) != set(NPZ_SCHEMA) | {"hoop_pos"}:
+        raise Fail(f"{path}: keys {sorted(raw)}")
+    n = raw["done"].shape[0]
+    for k, (shp, dt) in NPZ_SCHEMA.items():
+        if raw[k].shape != (n, 1) + shp or raw[k].dtype.name != dt:
+            raise Fail(f"{path}: {k} {raw[k].shape} {raw[k].dtype}")
+        if dt == "float32" and not np.isfinite(raw[k]).all():
+            raise Fail(f"{path}: {k} holds non-finite values")
+    if raw["hoop_pos"].shape != (1, 2, 3) or n < 1:
+        raise Fail(f"{path}: hoop_pos {raw['hoop_pos'].shape}, {n} ticks")
+    return n
+
+
+def alt_cli(dev):
+    """The training CLI once with each flag of the alternate paths, as
+    subprocesses started together on this card (8192 worlds): each
+    trains a few iterations (at its auto chunk) and writes a checkpoint
+    that loads back equal and finite; --viewer (the per-tick rollout,
+    world 0 recorded) trains 60 eager iterations and must drop at least
+    one episode npz in the reference schema."""
+    import torch
+    from madrona_basketball_tpu_torch import _build
+    from madrona_basketball_tpu_torch.ops import fused_update as FU
+    from madrona_basketball_tpu_torch.utils import checkpoint as CK
+    root = Path(FU.__file__).resolve().parents[2]
+    tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(root), os.environ.get("PYTHONPATH")])))
+    short = ["--num-iterations", "4", "--log-every-n-iterations", "2",
+             "--save-model-every-n-iterations", "4"]
+    runs = {"xla_rows": (short + ["--backend", "xla-rows"], 4),
+            "no_rollout_kernel": (short + ["--no-rollout-kernel"], 4),
+            "no_fused_gae": (short + ["--no-fused-gae"], 4),
+            "no_fused_grads": (short + ["--no-fused-grads"], 4),
+            "shuffle_block_1": (short + ["--no-fused-grads",
+                                         "--shuffle-block", "1"], 4),
+            "structured": (short + ["--backend", "structured"], 4),
+            "viewer": (["--viewer", "--num-iterations", "60",
+                        "--log-every-n-iterations", "1",
+                        "--save-model-every-n-iterations", "60"], 60)}
+    try:
+        t0 = time.perf_counter()
+        done = run_clis({name: (["madrona_basketball_tpu_torch.cli",
+                                 "--model-name", name, *flags,
+                                 *ALT_CLI_ARGS], {})
+                         for name, (flags, _) in runs.items()}, tmp, env)
+        result = {}
+        for name, (rc, out_, err_, secs) in done.items():
+            flags, last = runs[name]
+            if rc != 0:
+                raise Fail(f"cli {flags} exited {rc}: {err_[-3000:]}")
+            path = Path(tmp) / CK.checkpoint_path(name, last)
+            saved = torch.load(path, weights_only=True)
+            back = CK.state_dict(CK.load_agent(str(path), dev))
+            if sorted(back) != sorted(saved) or not all(
+                    torch.equal(back[k], saved[k]) for k in saved) or \
+                    not all(bool(torch.isfinite(v).all())
+                            for v in saved.values()):
+                raise Fail(f"cli {flags}: the checkpoint does not load back "
+                           "equal and finite")
+            result[name] = {"flags": flags, "seconds_since_start": secs,
+                            "checkpoint": CK.checkpoint_path(name, last),
+                            "log": [ln for ln in out_.splitlines()
+                                    if ln.startswith(("Mean reward",
+                                                      "Iterations per"))]}
+        drops = sorted((Path(tmp) / "logs" / "viewer").glob(
+            "iter_*_episode.npz"))
+        if not drops:
+            raise Fail("cli --viewer dropped no episode npz")
+        result["viewer"]["npz"] = {p.name: check_recorded_npz(p)
+                                   for p in drops}
+        emit({"phase": "cli_alt", "runs": result,
+              "seconds": time.perf_counter() - t0,
+              "note": "subprocesses started together on one card"})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main():
@@ -825,79 +1380,93 @@ def main():
     # phase's samples may sit at a kink.  The phase against the plain
     # phase from the same inputs is printed as `drift`, unchecked.
     mom = TT.init_adam(u_params)
-    d_in = (u_params, mom.mu, mom.nu)
-    count, d_err, n_off, bitwise, composed = 0, {}, 0, True, True
-    kinks, drift = [], []
 
     def same(x, y):
         return all(torch.equal(a, b) for u, v in zip(x, y)
                    for a, b in zip(u, v))
-    for phase in range(2):
-        args = (hp, u_idx, count, u_traj, u_side, u_nrm, u_ustats)
-        dk = FU.fused_update_phase(*args, *d_in, wb=wb)
-        dk2 = FU.fused_update_phase(*args, *d_in, wb=wb)
-        bitwise &= same(dk, dk2)
-        st, n_kink, near = d_in, 0, dict.fromkeys(FU.BRANCHES, 0)
-        allow_max = dict.fromkeys(("params", "mu", "nu"), 0.0)
-        for k in range(n_mb):
-            s_args = (hp, u_idx[k * bpm:(k + 1) * bpm], count + k, u_traj,
-                      u_side, u_nrm, u_ustats)
-            sk = FU.fused_update_phase(*s_args, *st, wb=wb)
-            *sp, rep = FU.update_phase_kinks(*s_args, *st, wb=wb)
-            n_kink += rep["samples"]
-            for b in FU.BRANCHES:
-                near[b] += rep["near"][b]
-            for name, ks, ps, als in zip(("params", "mu", "nu"), sk, sp,
-                                         rep["allow"]):
-                for i, (k_, p_, a_) in enumerate(zip(ks, ps, als)):
-                    if not bool(torch.isfinite(k_).all()):
-                        raise Fail(f"kernel D phase {phase} step {k} "
-                                   f"{name}[{i}]: non-finite")
-                    d = (k_ - p_).abs()
-                    e = float(d.max())
-                    lim = (1e-4 if name == "params" else
-                           1e-4 * float(p_.abs().max())) / n_mb
-                    if bool((d > lim + a_).any()):
-                        raise Fail(f"kernel D phase {phase} step {k} "
-                                   f"{name}[{i}]: error {e} above {lim} + "
-                                   "the kink allowance (max "
-                                   f"{float(a_.max())})")
-                    d_err[name] = max(d_err.get(name, 0.0), e)
-                    allow_max[name] = max(allow_max[name], float(a_.max()))
-                    if name == "params":
-                        n_off += int((d > 1e-5).sum())
-            st = sk
-        composed &= same(st, dk)
-        kinks.append({"samples_at_a_kink": n_kink,
-                      "of_samples": n_mb * hp.minibatch_size,
-                      "by_branch": near, "max_allowance": allow_max})
-        if n_kink > 1e-3 * n_mb * hp.minibatch_size:
-            raise Fail(f"kernel D phase {phase}: {n_kink} of "
-                       f"{n_mb * hp.minibatch_size} samples at a kink of "
-                       "the loss (more than 0.1 %)")
-        dp = FU.update_phase_plain(*args, *d_in, wb=wb)
-        drift.append({name: max(float((a - b).abs().max())
-                                for a, b in zip(ks, ps))
-                      for name, ks, ps in zip(("params", "mu", "nu"), dk,
-                                              dp)})
-        d_in = dk
-        count += n_mb
-    torch.cuda.synchronize()
-    if not bitwise:
-        raise Fail("two launches of kernel D on identical inputs differ")
-    if not composed:
-        raise Fail("kernel D's phase launch differs from its one-minibatch "
-                   "launches chained")
-    errs["fused_update_phase"] = d_err["params"]
-    emit({"phase": "parity_fused_update_phase", "epochs": hp.update_epochs,
-          "minibatches": hp.num_minibatches, "wb": wb, "phases": 2,
-          "adam_count_after": count, "max_abs_err_per_step": d_err,
-          "params_off_by_more_than_1e-5": n_off,
-          "of_params": 2 * n_mb * FU.N_PARAMS,
-          "bit_identical_relaunch": bitwise,
-          "phase_equals_its_steps_chained": composed,
-          "drift_from_the_plain_phase": drift,
-          "kink_delta": FU.KINK_DELTA, "kinks": kinks})
+
+    def d_parity(phase_name, side, ustats, n_phases):
+        """Kernel D held per Adam step over `n_phases` chained phases on
+        the side rows `side` (raw with `ustats`, or normalized with
+        ustats None: the --no-fused-gae path's branch)."""
+        d_in = (u_params, mom.mu, mom.nu)
+        count, d_err, n_off, bitwise, composed = 0, {}, 0, True, True
+        kinks, drift = [], []
+        for phase in range(n_phases):
+            args = (hp, u_idx, count, u_traj, side, u_nrm, ustats)
+            dk = FU.fused_update_phase(*args, *d_in, wb=wb)
+            dk2 = FU.fused_update_phase(*args, *d_in, wb=wb)
+            bitwise &= same(dk, dk2)
+            st, n_kink, near = d_in, 0, dict.fromkeys(FU.BRANCHES, 0)
+            allow_max = dict.fromkeys(("params", "mu", "nu"), 0.0)
+            for k in range(n_mb):
+                s_args = (hp, u_idx[k * bpm:(k + 1) * bpm], count + k,
+                          u_traj, side, u_nrm, ustats)
+                sk = FU.fused_update_phase(*s_args, *st, wb=wb)
+                *sp, rep = FU.update_phase_kinks(*s_args, *st, wb=wb)
+                n_kink += rep["samples"]
+                for b in FU.BRANCHES:
+                    near[b] += rep["near"][b]
+                for name, ks, ps, als in zip(("params", "mu", "nu"), sk, sp,
+                                             rep["allow"]):
+                    for i, (k_, p_, a_) in enumerate(zip(ks, ps, als)):
+                        if not bool(torch.isfinite(k_).all()):
+                            raise Fail(f"kernel D phase {phase} step {k} "
+                                       f"{name}[{i}]: non-finite")
+                        d = (k_ - p_).abs()
+                        e = float(d.max())
+                        lim = (1e-4 if name == "params" else
+                               1e-4 * float(p_.abs().max())) / n_mb
+                        if bool((d > lim + a_).any()):
+                            raise Fail(f"kernel D phase {phase} step {k} "
+                                       f"{name}[{i}]: error {e} above {lim}"
+                                       " + the kink allowance (max "
+                                       f"{float(a_.max())})")
+                        d_err[name] = max(d_err.get(name, 0.0), e)
+                        allow_max[name] = max(allow_max[name],
+                                              float(a_.max()))
+                        if name == "params":
+                            n_off += int((d > 1e-5).sum())
+                st = sk
+            composed &= same(st, dk)
+            kinks.append({"samples_at_a_kink": n_kink,
+                          "of_samples": n_mb * hp.minibatch_size,
+                          "by_branch": near, "max_allowance": allow_max})
+            if n_kink > 1e-3 * n_mb * hp.minibatch_size:
+                raise Fail(f"kernel D phase {phase}: {n_kink} of "
+                           f"{n_mb * hp.minibatch_size} samples at a kink "
+                           "of the loss (more than 0.1 %)")
+            dp = FU.update_phase_plain(*args, *d_in, wb=wb)
+            drift.append({name: max(float((a - b).abs().max())
+                                    for a, b in zip(ks, ps))
+                          for name, ks, ps in zip(("params", "mu", "nu"),
+                                                  dk, dp)})
+            d_in = dk
+            count += n_mb
+        torch.cuda.synchronize()
+        if not bitwise:
+            raise Fail("two launches of kernel D on identical inputs differ")
+        if not composed:
+            raise Fail("kernel D's phase launch differs from its "
+                       "one-minibatch launches chained")
+        emit({"phase": phase_name, "epochs": hp.update_epochs,
+              "minibatches": hp.num_minibatches, "wb": wb,
+              "phases": n_phases, "ustats": None if ustats is None else
+              "raw side rows",
+              "adam_count_after": count, "max_abs_err_per_step": d_err,
+              "params_off_by_more_than_1e-5": n_off,
+              "of_params": n_phases * n_mb * FU.N_PARAMS,
+              "bit_identical_relaunch": bitwise,
+              "phase_equals_its_steps_chained": composed,
+              "drift_from_the_plain_phase": drift,
+              "kink_delta": FU.KINK_DELTA, "kinks": kinks})
+        return d_err["params"]
+
+    errs["fused_update_phase"] = d_parity("parity_fused_update_phase",
+                                          u_side, u_ustats, 2)
+    # the --no-fused-gae branch: ustats None, the side rows normalized
+    errs["fused_update_phase_normalized_side"] = d_parity(
+        "parity_fused_update_phase_normalized_side", side_n, None, 1)
 
     # ---------------------------------------------------------- parity F
     # from parity A's state with random actions for both agents, after the
@@ -1574,21 +2143,30 @@ def main():
     try:
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             filter(None, [str(root), os.environ.get("PYTHONPATH")])))
+        # the two training runs and cli_chunk's two, started together
+        cli = "madrona_basketball_tpu_torch.cli"
+        jobs = {model: ([cli, "--num-iterations", "4",
+                         "--log-every-n-iterations", "2",
+                         "--save-model-every-n-iterations", "4",
+                         "--model-name", model, *flags], {})
+                for model, flags in (("chip_smoke", []),
+                                     ("chip_smoke_tiled",
+                                      ["--rollout-tiled"]))}
+        # the default --iters-per-dispatch 0 (auto: 4 at these cadences,
+        # so two CUDA-graph chunks) against 1 (eager): equal checkpoints
+        jobs.update({f"ipd{ipd}": ([cli, "--num-iterations", "8",
+                                    "--log-every-n-iterations", "4",
+                                    "--save-model-every-n-iterations", "4",
+                                    "--iters-per-dispatch", ipd,
+                                    "--model-name", f"ipd{ipd}"], {})
+                     for ipd in ("0", "1")})
+        done = run_clis(jobs, tmp, env)
         for model, flags in (("chip_smoke", []),
                              ("chip_smoke_tiled", ["--rollout-tiled"])):
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", "madrona_basketball_tpu_torch.cli",
-                 "--num-iterations", "4", "--log-every-n-iterations", "2",
-                 "--save-model-every-n-iterations", "4",
-                 "--model-name", model, *flags],
-                cwd=tmp, env=env, capture_output=True, text=True,
-                timeout=600)
-            cli_secs = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise Fail(f"cli {flags} exited {proc.returncode}: "
-                           f"{proc.stderr[-3000:]}")
-            logs = [ln for ln in proc.stdout.splitlines()
+            rc, so, se, cli_secs = done[model]
+            if rc != 0:
+                raise Fail(f"cli {flags} exited {rc}: {se[-3000:]}")
+            logs = [ln for ln in so.splitlines()
                     if ln.startswith(("Update:", "Mean reward", "Model "))]
             path = Path(tmp) / CK.checkpoint_path(model, 4)
             saved = torch.load(path, weights_only=True)
@@ -1599,30 +2177,20 @@ def main():
             if not all(bool(torch.isfinite(v).all())
                        for v in saved.values()):
                 raise Fail(f"cli {flags} checkpoint holds non-finite values")
-            emit({"phase": "cli", "flags": flags,
-                  "exit_code": proc.returncode, "seconds": cli_secs,
-                  "checkpoint": CK.checkpoint_path(model, 4),
-                  "checkpoint_tensors": len(saved), "log": logs})
-        # the default --iters-per-dispatch 0 (auto: 4 at these cadences,
-        # so two CUDA-graph chunks) against 1 (eager): equal checkpoints
+            emit({"phase": "cli", "flags": flags, "exit_code": rc,
+                  "seconds": cli_secs, "checkpoint": CK.checkpoint_path(
+                      model, 4), "checkpoint_tensors": len(saved),
+                  "log": logs, "note": "4 CLI runs started together"})
         ck, secs = {}, {}
         for ipd in ("0", "1"):
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", "madrona_basketball_tpu_torch.cli",
-                 "--num-iterations", "8", "--log-every-n-iterations", "4",
-                 "--save-model-every-n-iterations", "4",
-                 "--iters-per-dispatch", ipd, "--model-name", f"ipd{ipd}"],
-                cwd=tmp, env=env, capture_output=True, text=True,
-                timeout=600)
-            secs[ipd] = time.perf_counter() - t0
-            if proc.returncode != 0:
+            rc, so, se, secs[ipd] = done[f"ipd{ipd}"]
+            if rc != 0:
                 raise Fail(f"cli --iters-per-dispatch {ipd} exited "
-                           f"{proc.returncode}: {proc.stderr[-3000:]}")
+                           f"{rc}: {se[-3000:]}")
             want_n = "4" if ipd == "0" else "1"
-            if f"Iterations per dispatch: {want_n}" not in proc.stdout:
+            if f"Iterations per dispatch: {want_n}" not in so:
                 raise Fail(f"cli --iters-per-dispatch {ipd}: not {want_n} "
-                           f"iterations a dispatch: {proc.stdout[-2000:]}")
+                           f"iterations a dispatch: {so[-2000:]}")
             ck[ipd] = {it: torch.load(Path(tmp) / CK.checkpoint_path(
                 f"ipd{ipd}", it), weights_only=True) for it in (4, 8)}
         same = {it: sorted(ck["0"][it]) == sorted(ck["1"][it]) and all(
@@ -1638,28 +2206,26 @@ def main():
         # episodes, the eval chunk), on the `cli` phase's checkpoint, then
         # with --model-name over that run's checkpoints
         icli = {}
-        for what, flags, log in (
-                ("single", ["--trainee-checkpoint",
-                            CK.checkpoint_path("chip_smoke", 4)],
-                 "logs/inference_trajectories.npz"),
-                ("model_name", ["--model-name", "chip_smoke"],
-                 "logs/mgi/chip_smoke_/chip_smoke_4.npz")):
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", "madrona_basketball_tpu_torch.infer",
-                 *flags], cwd=tmp, env=env, capture_output=True, text=True,
-                timeout=600)
-            secs_i = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise Fail(f"infer cli {flags} exited {proc.returncode}: "
-                           f"{proc.stderr[-3000:]}")
+        runs_i = (("single", ["--trainee-checkpoint",
+                              CK.checkpoint_path("chip_smoke", 4)],
+                   "logs/inference_trajectories.npz"),
+                  ("model_name", ["--model-name", "chip_smoke"],
+                   "logs/mgi/chip_smoke_/chip_smoke_4.npz"))
+        done = run_clis({what: (["madrona_basketball_tpu_torch.infer",
+                                 *flags], {})
+                         for what, flags, _ in runs_i}, tmp, env)
+        for what, flags, log in runs_i:
+            rc, so, se, secs_i = done[what]
+            if rc != 0:
+                raise Fail(f"infer cli {flags} exited {rc}: {se[-3000:]}")
             ticks_i = check_npz(Path(tmp) / log, 10)
             icli[what] = {"flags": flags, "seconds": secs_i, "npz": log,
                           "ticks": ticks_i, "log": [
-                              ln for ln in proc.stdout.splitlines()
+                              ln for ln in so.splitlines()
                               if ln.startswith(("All ", "Found "))]}
         emit({"phase": "infer_cli", "runs": icli,
-              "npz_schema": "keys, shapes and dtypes as NPZ_SCHEMA"})
+              "npz_schema": "keys, shapes and dtypes as NPZ_SCHEMA",
+              "note": "the 2 runs started together"})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2440,25 +3006,23 @@ def main():
             port = sock.getsockname()[1]
         torchrun = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port),
                         RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
-        for model, flags, extra_env, want in (
-                ("dp", ["--data-parallel"], {}, "Data-parallel over 1"),
+        runs = (("dp", ["--data-parallel"], {}, "Data-parallel over 1"),
                 ("dpu", ["--data-parallel", "--dp-update"], {},
                  "sharded update"),
                 ("dist", ["--distributed", "--data-parallel"], torchrun,
-                 "torch.distributed: 1 process(es), 1 global GPU(s), nccl")):
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", "madrona_basketball_tpu_torch.cli",
-                 "--num-iterations", "100", "--model-name", model, *flags],
-                cwd=cli_tmp, env={**base_env, **extra_env},
-                capture_output=True, text=True, timeout=600)
-            secs = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise Fail(f"cli {flags} exited {proc.returncode}: "
-                           f"{proc.stderr[-3000:]}")
-            if want not in proc.stdout or \
-                    "Iterations per dispatch: 50" not in proc.stdout:
-                raise Fail(f"cli {flags}: {proc.stdout[-2000:]}")
+                 "torch.distributed: 1 process(es), 1 global GPU(s), nccl"))
+        # the three started together (each its own world-size-1 group)
+        done = run_clis({model: (["madrona_basketball_tpu_torch.cli",
+                                  "--num-iterations", "100", "--model-name",
+                                  model, *flags], extra_env)
+                         for model, flags, extra_env, _ in runs},
+                        cli_tmp, base_env)
+        for model, flags, extra_env, want in runs:
+            rc, so, se, secs = done[model]
+            if rc != 0:
+                raise Fail(f"cli {flags} exited {rc}: {se[-3000:]}")
+            if want not in so or "Iterations per dispatch: 50" not in so:
+                raise Fail(f"cli {flags}: {so[-2000:]}")
             path = Path(cli_tmp) / CK.checkpoint_path(model, 100)
             saved = torch.load(path, weights_only=True)
             back = CK.state_dict(CK.load_agent(str(path), dev))
@@ -2471,7 +3035,8 @@ def main():
             emit({"phase": "cli_dp", "flags": flags,
                   "env": sorted(extra_env), "seconds": secs,
                   "checkpoint": CK.checkpoint_path(model, 100),
-                  "log": [ln for ln in proc.stdout.splitlines()
+                  "note": "3 CLI runs started together",
+                  "log": [ln for ln in so.splitlines()
                           if ln.startswith(("Update:", "Mean reward",
                                             "Model ", "Data-parallel",
                                             "torch.distributed"))]})
@@ -2493,6 +3058,26 @@ def main():
     finally:
         shutil.rmtree(cli_tmp, ignore_errors=True)
 
+    # ---------------------------------------------------------- alt paths
+    # the JAX trainer's alternate paths (ROADMAP item 16) at the flagship
+    # width: --no-rollout-kernel (per tick: kernel A a tick, the policy
+    # in torch, the autodiff update), --no-fused-gae (kernel B or I, torch
+    # GAE, kernel D on normalized side rows) and its tiled twin,
+    # --no-fused-grads (kernel B, the autodiff update) at shuffle_block 8
+    # and 1, and --backend structured (systems.py in torch)
+    alt = alt_paths(cfg, hp, dev, gen, n_mb, reset_counts, counts, profiled,
+                    chunk_parity)
+    alt_launches = alt["launches"]
+    alt_per_tick_vs_b(cfg, hp, dev, gen)
+    alt_nofgae_vs_flagship(cfg, hp, dev)
+    # the first Adam step of the autodiff update against kernel H's plain
+    # gradient on the same 65536 samples (parity G, H's minibatch)
+    alt_update_step(hp, feat, u_nrm, u_out["obs_rms"], u_state.agent, hpl)
+    # the structured tick against kernel A after layout.pack
+    alt_structured_tick(cfg, dev, gen)
+    # the CLI with each new flag, as subprocesses side by side
+    alt_cli(dev)
+
     # ---------------------------------------------------------- kernel times
     pulse_si = state.si.clone()
     for r in RESET_ROWS:
@@ -2508,6 +3093,9 @@ def main():
     m_args = (ticks, meters0)
     d_args = (hp, u_idx, 0, u_traj, u_side, u_nrm, u_ustats, u_params,
               mom.mu, mom.nu)
+    # kernel D's --no-fused-gae branch: normalized side rows, ustats None
+    dn_args = (hp, u_idx, 0, u_traj, side_n, u_nrm, None, u_params,
+               mom.mu, mom.nu)
     grad_k = {"update_grad_kernel<0>": 1, "update_reduce_kernel": 1}
     # kernel F at bench.py's K, one seed per call; the plain version at
     # K = 8 on 8 ticks of external noise (~35 ms a tick on the card)
@@ -2544,6 +3132,10 @@ def main():
         "fused_update_phase": (
             lambda: FU.fused_update_phase(*d_args, wb=wb),
             lambda: FU.update_phase_plain(*d_args, wb=wb), 3, 1,
+            {k: n_mb for k in grad_k}),
+        "fused_update_phase_normalized_side": (
+            lambda: FU.fused_update_phase(*dn_args, wb=wb),
+            lambda: FU.update_phase_plain(*dn_args, wb=wb), 3, 1,
             {k: n_mb for k in grad_k}),
         "fused_minibatch_grad_prefetch": (
             lambda: FU.fused_minibatch_grad_prefetch(*g_args, wb=wb),
@@ -2732,6 +3324,11 @@ def main():
             ("fused_update_phase", upd,
              "madrona_basketball_tpu/ops/fused_update.py:457", bytes_d,
              ops_d),
+            # kernel D's branch for normalized side rows (ustats None):
+            # launches from nofgae_path
+            ("fused_update_phase_normalized_side", upd,
+             "madrona_basketball_tpu/ops/fused_update.py:457", bytes_d,
+             ops_d),
             ("fused_minibatch_grad_prefetch", upd,
              "madrona_basketball_tpu/ops/fused_update.py:326", bytes_g,
              ops_g_per * hp.minibatch_size),
@@ -2752,9 +3349,14 @@ def main():
             pl = {**pl, "bound_share_of_median": bms / pl["launch_ms_median"]}
         n_launch = t_launches[name] if name in ("fused_rollout_tiled",
                                                  "obs_moments") \
-            else launches[name]
+            else launches.get(name)
         path_of = {}
-        if name == "fused_minibatch_grad_prefetch":
+        if name == "fused_update_phase_normalized_side":
+            n_launch = alt_launches["nofgae_path"]["fused_update_phase"]
+            path_of = {"launches_path": "nofgae_path (3 iterations)",
+                       "nofgae_tiled_launches": alt_launches[
+                           "nofgae_tiled_path"]["fused_update_phase"]}
+        elif name == "fused_minibatch_grad_prefetch":
             # kernel G's path is --dp-update: dp_path's 3 iterations
             n_launch = dp_launch["dp_update"][name]
             path_of = {"launches_path": "dp_path (dp_update, 3 iterations)",
@@ -2762,6 +3364,13 @@ def main():
         elif name in dp_launch["plain"]:
             path_of = {"dp_plain_launches": dp_launch["plain"][name],
                        "dp_update_launches": dp_launch["dp_update"][name]}
+        alt_of = {ph: la[name] for ph, la in alt_launches.items()
+                  if la.get(name)}
+        if name == "fused_update_phase":
+            alt_of = {ph: n for ph, n in alt_of.items()
+                      if not ph.startswith("nofgae")}
+        if alt_of:
+            path_of["alt_path_launches_3_iterations"] = alt_of
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": n_launch, **path_of,
                      "max_abs_err": errs[name], "ms": ms[name][0],
@@ -2800,7 +3409,11 @@ def main():
           "rollout, this GAE pass, the meter recursion, the PPO loss's "
           "hand-derived gradient with clip + Adam, or K sim ticks; "
           "fused_rollout_tiled and obs_moments count their launches on "
-          "tiled_path, fused_minibatch_grad_prefetch (kernel G) on dp_path's "
+          "tiled_path, fused_update_phase_normalized_side (kernel D with "
+          "ustats None, the --no-fused-gae branch) on nofgae_path, "
+          "alt_path_launches_3_iterations those of the alternate paths' "
+          "3 eager iterations (kernel A: 33 an iteration per tick), "
+          "fused_minibatch_grad_prefetch (kernel G) on dp_path's "
           "--dp-update iterations, the other rows on main_path "
           "(dp_plain_launches / dp_update_launches: dp_path's 3 iterations "
           "of each data-parallel mode); fused_update_phase "

@@ -35,8 +35,20 @@ a minibatch on each rank, the gradient summed over the ranks.
 init_distributed`: torchrun's variables, or a warning and one process).
 Only rank 0 prints, saves checkpoints and writes TensorBoard.
 
-Flags of trainer paths the port does not have yet exit with the ROADMAP
-item that ports them, instead of being ignored.
+The alternate trainer paths (cli.py:337-403 of the JAX CLI) take the JAX
+flags, defaults and refusals (`resolve_paths`, with
+ppo/train_fused.py::check_paths): `--no-rollout-kernel` and `--backend
+xla-rows` run the per-tick rollout (T launches of kernel A, the policy in
+torch, then the autodiff update); `--no-fused-gae` runs GAE in torch and
+kernel D on the normalized side rows; `--no-fused-grads` the autodiff
+update over the feat matrix, shuffled in `--shuffle-block` super-rows;
+`--backend structured` the structured-state trainer (ppo/train.py over
+systems.py); `--viewer` records world 0 on the per-tick rollout and drops
+episode npz files under logs/{model} (`EpisodeRecorder`, the JAX CLI's),
+which the JAX viewer plays; the live viewer it would spawn is ROADMAP
+item 13's.  `--rollout-block` (a TPU kernel's VMEM tile) is refused for
+good, the bf16 flags and `--interactive` until their ROADMAP items
+(`UNPORTED`).
 """
 
 from __future__ import annotations
@@ -47,6 +59,7 @@ import socket
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -56,7 +69,10 @@ from .ppo.hparams import PPOParams
 from .parallel.distributed import init_distributed, init_single_process
 from .parallel.mesh import make_mesh, shard_train_state
 from .ppo.train import auto_chunk, make_train_chunk, unstack_metrics
-from .ppo.train_fused import (DP_UPDATE_NEEDS, init_train_state,
+from .ops.fused_step import _hoop_geometry
+from .ppo.train import init_train_state as init_structured
+from .ppo.train import make_train_iteration as make_structured
+from .ppo.train_fused import (check_paths, init_train_state,
                               make_train_iteration)
 from .utils.checkpoint import checkpoint_path, load_agent, save_agent
 from .utils.timers import PPOTimer
@@ -88,24 +104,46 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--full-game", action="store_true", default=False)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the kernels) or cpu (their plain versions)")
-    # flags of paths not ported yet: accepted so that JAX command lines
-    # parse, refused below unless left at their defaults
     p.add_argument("--shuffle-block", type=int,
                    default=PPOParams.shuffle_block,
-                   help="the unfused update's shuffle granularity")
-    p.add_argument("--viewer", action="store_true", default=False)
+                   help="the autodiff update's epoch shuffle permutes "
+                        "blocks of N consecutive samples; 1 = the "
+                        "reference's exact sample-granularity shuffle")
+    p.add_argument("--viewer", action="store_true", default=False,
+                   help="record world-0 episode npz logs for the viewer "
+                        "(logs/{model-name}; the per-tick rollout)")
     p.add_argument("--tensorboard", action="store_true", default=False,
                    help="log every metric of each log iteration to "
                         "runs/{model-name} (tensorboardX; rank 0)")
     p.add_argument("--backend", choices=("fused", "structured", "xla-rows"),
-                   default="fused")
+                   default="fused",
+                   help="fused = the rows trainer over the CUDA kernels; "
+                        "structured = the structured-state engine "
+                        "(systems.py) in torch; xla-rows = the rows "
+                        "trainer without the rollout kernel: the per-tick "
+                        "rollout, whose tick is kernel A (the rows tick's "
+                        "only card implementation; in JAX xla-rows differs "
+                        "from fused only in how the tick is computed)")
     p.add_argument("--interactive", action="store_true", default=False)
     p.add_argument("--rollout-kernel", action=argparse.BooleanOptionalAction,
-                   default=None)
+                   default=None,
+                   help="run the T-tick rollout as one launch of kernel B "
+                        "(default: on for the fused backend unless "
+                        "--viewer); --no-rollout-kernel runs T launches of "
+                        "kernel A with the policy in torch")
     p.add_argument("--fused-grads", action=argparse.BooleanOptionalAction,
-                   default=True)
+                   default=True,
+                   help="rollout-kernel trainer only: the update phase as "
+                        "kernel D; --no-fused-grads runs the autodiff "
+                        "update over the feat matrix (--shuffle-block)")
     p.add_argument("--fused-gae", action=argparse.BooleanOptionalAction,
-                   default=None)
+                   default=None,
+                   help="rollout-kernel trainer only: GAE and the side "
+                        "array as kernel C, normalized inside kernel D; "
+                        "requires --fused-grads.  Default: on whenever the "
+                        "rollout kernel and fused gradients are; "
+                        "--no-fused-gae runs GAE in torch and kernel D on "
+                        "the normalized side rows")
     p.add_argument("--data-parallel", action="store_true", default=False,
                    help="split the worlds over every visible GPU, one "
                         "process each (spawned, or torchrun's); the "
@@ -131,31 +169,127 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_ALT = "ROADMAP.md queue 1, item 16 (alternate trainer paths)"
-# flag, test of a non-default value, the ROADMAP item that ports its path
+_NOT_YET = "this trainer path is not ported to the PyTorch package yet"
+_BF16 = (f"{_NOT_YET} (ROADMAP.md queue 1, item 16c: bf16 variants of "
+         "kernels B, C, D and E)")
+# flag, test of a non-default value, the reason it is refused
 UNPORTED = (
-    ("--backend structured / xla-rows", lambda a: a.backend != "fused",
-     _ALT),
-    ("--no-rollout-kernel", lambda a: a.rollout_kernel is False, _ALT),
-    ("--no-fused-grads", lambda a: not a.fused_grads, _ALT),
-    ("--no-fused-gae", lambda a: a.fused_gae is False, _ALT),
-    ("--rollout-block", lambda a: a.rollout_block != 0, _ALT),
-    ("--shuffle-block", lambda a: a.shuffle_block != PPOParams.shuffle_block,
-     _ALT),
-    ("--bf16-traj", lambda a: a.bf16_traj, _ALT),
-    ("--bf16-policy", lambda a: a.bf16_policy, _ALT),
+    ("--rollout-block", lambda a: a.rollout_block != 0,
+     "refused for good: it sets the TPU rollout kernel's VMEM block "
+     "(cli.py:138-143 of the JAX package), and kernel B's CTA geometry on "
+     "the card is fixed by its design (ROADMAP.md queue 1, item 16)"),
+    ("--bf16-traj", lambda a: a.bf16_traj, _BF16),
+    ("--bf16-policy", lambda a: a.bf16_policy, _BF16),
     ("--interactive", lambda a: a.interactive,
-     "ROADMAP.md queue 1, item 13 (interactive trainer, viewer)"),
-    ("--viewer", lambda a: a.viewer,
-     "ROADMAP.md queue 1, item 13 (interactive trainer, viewer)"),
+     f"{_NOT_YET} (ROADMAP.md queue 1, item 13: interactive trainer, "
+     "viewer)"),
 )
 
 
 def check_ported(args):
-    for flag, given, item in UNPORTED:
+    for flag, given, reason in UNPORTED:
         if given(args):
-            raise SystemExit(f"{flag}: this trainer path is not ported to "
-                             f"the PyTorch package yet ({item})")
+            raise SystemExit(f"{flag}: {reason}")
+
+
+def resolve_paths(args) -> dict:
+    """The rows trainer's path flags as the JAX CLI resolves them
+    (cli.py:679-735), checked with its messages: {} for the structured
+    backend, else make_train_iteration's backend / rollout_kernel /
+    fused_grads / fused_gae."""
+    if args.backend == "structured":
+        return {}
+    rollout_kernel = args.rollout_kernel
+    if rollout_kernel is None:
+        rollout_kernel = args.backend == "fused" and not args.viewer
+    fused_gae = args.fused_gae
+    if fused_gae is None:
+        fused_gae = rollout_kernel and args.fused_grads
+    if fused_gae and not (rollout_kernel and args.fused_grads):
+        raise SystemExit(
+            "--fused-gae requires the rollout kernel and fused gradients "
+            "(drop --no-rollout-kernel/--no-fused-grads/--viewer, or drop "
+            "--fused-gae)")
+    if args.dp_update and not (args.data_parallel and fused_gae):
+        raise SystemExit("--dp-update requires --data-parallel and the "
+                         "fused-GAE flagship path")
+    paths = dict(backend="pallas" if args.backend == "fused" else "xla",
+                 rollout_kernel=rollout_kernel, fused_grads=args.fused_grads,
+                 fused_gae=fused_gae)
+    try:
+        check_paths(PPOParams(record_world0=args.viewer),
+                    rollout_tiled=args.rollout_tiled,
+                    mesh=True if args.data_parallel else None,
+                    dp_update=args.dp_update, **paths)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    return paths
+
+
+class EpisodeRecorder:
+    """Host-side assembly of world-0 per-tick rows into episode npz files,
+    the file drops the viewer plays (the JAX CLI's recorder,
+    cli.py:152-199; scripts/ppo.py:93-122): armed every `every_n`
+    iterations, it waits for world 0's episode to end, records the next
+    episode tick by tick and saves it when that one ends."""
+
+    def __init__(self, log_folder: str, hoop_pos: np.ndarray,
+                 every_n: int = 100):
+        self.log_folder = log_folder
+        self.hoop_pos = hoop_pos
+        self.every_n = every_n
+        self.waiting = False
+        self.recording = False
+        self.steps: list[dict] = []
+        self.saved: list[str] = []
+        os.makedirs(log_folder, exist_ok=True)
+
+    def maybe_arm(self, iteration: int):
+        if iteration % self.every_n == 0:
+            self.waiting = True
+
+    def feed(self, w0: dict, iteration: int):
+        """w0: dict of (T, 1, ...) numpy arrays for one rollout."""
+        if not (self.waiting or self.recording):
+            return
+        for t in range(w0["done"].shape[0]):
+            done = float(w0["done"][t, 0]) > 0.5
+            if self.recording:
+                self.steps.append({k: np.asarray(v[t])
+                                   for k, v in w0.items()})
+                if done:
+                    self._save(iteration)
+                    self.recording = False
+                    return
+            elif self.waiting and done:
+                self.waiting = False
+                self.recording = True
+                self.steps = []
+
+    def _save(self, iteration: int):
+        if not self.steps:
+            return
+        out = {k: np.stack([s[k] for s in self.steps])
+               for k in self.steps[0]}
+        out["hoop_pos"] = self.hoop_pos
+        path = os.path.join(self.log_folder,
+                            f"iter_{iteration}_episode.npz")
+        np.savez_compressed(path, **out)
+        self.saved.append(path)
+        print(f"Episode trajectory saved to {path}")
+        self.steps = []
+
+
+def _recorder(cfg: SimConfig, model_name: str, every_n: int):
+    """The world-0 recorder of `--viewer` (cli.py:745-760).  The live
+    viewer the JAX CLI spawns beside it is ROADMAP item 13's: this prints
+    so and trains on, as the JAX CLI does on a headless host."""
+    (h0x, h0y), (h1x, h1y) = _hoop_geometry(cfg)
+    hoop_pos = np.array([[[h0x, h0y, 0.0], [h1x, h1y, 0.0]]], np.float32)
+    folder = f"logs/{model_name}"
+    print("The live viewer is not ported yet (ROADMAP.md queue 1, item 13): "
+          f"not spawning it; npz drops still land in {folder}")
+    return EpisodeRecorder(folder, hoop_pos, every_n=every_n)
 
 
 def _free_port() -> int:
@@ -198,12 +332,9 @@ def _join_group(args, argv) -> tuple:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     check_ported(args)
-    if args.dp_update and not args.data_parallel:
-        raise SystemExit("--dp-update requires --data-parallel and the "
-                         "fused-GAE flagship path")
-    if args.dp_update and args.rollout_tiled:
-        raise SystemExit(DP_UPDATE_NEEDS)
-    if args.rollout_tiled and not args.data_parallel:
+    paths = resolve_paths(args)
+    if args.rollout_tiled and args.backend != "structured" and \
+            not args.data_parallel:
         try:
             check_tiled_worlds(args.num_envs)
         except ValueError as e:
@@ -212,13 +343,13 @@ def main(argv=None):
     if spawned:
         return None
     try:
-        return _train(args)
+        return _train(args, paths)
     finally:
         if owns:
             dist.destroy_process_group()
 
 
-def _train(args):
+def _train(args, paths: dict):
     is_main = not dist.is_initialized() or dist.get_rank() == 0
     mesh = None
     dev = args.device
@@ -228,7 +359,7 @@ def _train(args):
         if args.num_envs % mesh.size:
             raise SystemExit(f"--num-envs {args.num_envs} must divide evenly "
                              f"over {mesh.size} devices")
-        if args.rollout_tiled:
+        if args.rollout_tiled and args.backend != "structured":
             try:
                 check_tiled_worlds(args.num_envs // mesh.size)
             except ValueError as e:
@@ -249,7 +380,8 @@ def _train(args):
         clip_coef=args.clip_coef, ent_coef=args.ent_coef,
         vf_coef=args.vf_coef, max_grad_norm=args.max_grad_norm,
         trainee_idx=args.trainee_idx,
-        use_frozen=args.frozen_checkpoint is not None)
+        use_frozen=args.frozen_checkpoint is not None,
+        record_world0=args.viewer, shuffle_block=args.shuffle_block)
     dev = args.device
     agent = load_agent(args.trainee_checkpoint, dev) \
         if args.trainee_checkpoint else None
@@ -283,14 +415,22 @@ def _train(args):
     if is_main:
         print(f"   Iterations per dispatch: {chunk_n}")
 
-    state = init_train_state(cfg, hp, args.seed, dev, agent=agent,
-                             frozen=frozen)
-    if mesh is not None:
-        state = shard_train_state(state, mesh, args.dp_update)
-    train_iteration = make_train_iteration(cfg, hp, dev,
-                                           rollout_tiled=args.rollout_tiled,
-                                           mesh=mesh,
-                                           dp_update=args.dp_update)
+    if args.backend == "structured":
+        state = init_structured(cfg, hp, args.seed, dev, agent=agent,
+                                frozen=frozen)
+        if mesh is not None:
+            state = shard_train_state(state, mesh)
+        train_iteration = make_structured(cfg, hp, dev, mesh=mesh)
+    else:
+        state = init_train_state(cfg, hp, args.seed, dev, agent=agent,
+                                 frozen=frozen)
+        if mesh is not None:
+            state = shard_train_state(state, mesh, args.dp_update)
+        train_iteration = make_train_iteration(
+            cfg, hp, dev, rollout_tiled=args.rollout_tiled, mesh=mesh,
+            dp_update=args.dp_update, **paths)
+    recorder = _recorder(cfg, model_name, log_every) \
+        if args.viewer and is_main else None
     # a missing tensorboardX raises ImportError here, as in the JAX CLI
     logger = WandbLogger("madrona_basketball", model_name,
                          tensorboard_dir=f"runs/{model_name}",
@@ -315,6 +455,11 @@ def _train(args):
         timer.add_steps(hp.num_envs * hp.num_rollout_steps * n)
         for metrics in metric_list:
             iteration += 1
+            w0 = metrics.pop("world0", None)
+            if recorder is not None:
+                recorder.maybe_arm(iteration)
+                recorder.feed({k: v.cpu().numpy() for k, v in w0.items()},
+                              iteration)
             if iteration % log_every == 0:
                 timer.end("iter")
                 m = {k: float(v) for k, v in metrics.items()}
@@ -334,6 +479,8 @@ def _train(args):
                 print(f"Model {model_name} saved at iteration {iteration}")
     if logger is not None:
         logger.close()
+    if recorder is not None:
+        state.recorded = recorder.saved
     return state
 
 

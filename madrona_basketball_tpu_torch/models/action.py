@@ -55,6 +55,18 @@ def best(logits: torch.Tensor, buckets: Sequence[int] = C.ACTION_BUCKETS):
                         for off, n in _slices(buckets)], dim=1).to(I32)
 
 
+def action_stats(logits: torch.Tensor, actions: torch.Tensor,
+                 buckets: Sequence[int] = C.ACTION_BUCKETS):
+    """(log_probs (B, K), entropies (B, K)) of `actions` (action.py:70-81,
+    scripts/action.py:35-42); differentiable in the logits."""
+    lps, ents = [], []
+    for i, (off, n) in enumerate(_slices(buckets)):
+        logp = torch.log_softmax(logits[:, off:off + n], dim=-1)
+        lps.append(_select(logp, actions[:, i]))
+        ents.append(-(logp.exp() * logp).sum(dim=-1))
+    return torch.stack(lps, dim=1), torch.stack(ents, dim=1)
+
+
 def log_probs(logits: torch.Tensor, actions: torch.Tensor,
               buckets: Sequence[int] = C.ACTION_BUCKETS):
     lps = []

@@ -20,6 +20,7 @@ from torch import nn
 
 from .. import constants as C
 from . import action as action_dist
+from .normalize import EPS as RMS_EPS
 from .normalize import RMSState, rms_init, rms_normalize, rms_unnormalize
 
 F32 = torch.float32
@@ -123,6 +124,37 @@ def evaluate(ap: Agent, obs):
     """Critic-only forward (scripts/agent.py:168-170)."""
     x = rms_normalize(ap.obs_rms, obs, clamp=5.0)
     return ap.net(x)[1]
+
+
+def _layer_norm_fast(z, scale, bias):
+    """flax LayerNorm over the last axis with its fast variance
+    max(E[z^2] - E[z]^2, 0)."""
+    mu = z.mean(dim=-1, keepdim=True)
+    var = torch.clamp((z * z).mean(dim=-1, keepdim=True) - mu * mu,
+                      min=0.0)
+    return (z - mu) * torch.rsqrt(var + LN_EPS) * scale + bias
+
+
+def get_stats(net: ActorCritic, obs_rms: RMSState, o, a,
+              buckets: Sequence[int] = C.ACTION_BUCKETS):
+    """(summed log-prob, summed entropy, value) of actions `a` (B, K) for
+    the PPO update (agent.py:100-108, scripts/agent.py:172-178),
+    differentiable in the module's weights.  `o` (B, d) may also be
+    PACKED observations, d < the net's input: the features >= d are
+    structural zeros, so normalizing the first d slots and applying the
+    first layer's first d columns equals the full-width forward
+    (ppo/train.py:256-280 of the JAX package)."""
+    d = o.shape[-1]
+    x = torch.clamp((o - obs_rms.mean[:d]) *
+                    torch.rsqrt(obs_rms.var[:d] + RMS_EPS), -5.0, 5.0)
+    lin, ln = layers(net)
+    h = x
+    for k, (li, nm) in enumerate(zip(lin, ln)):
+        w = li.weight[:, :d] if k == 0 else li.weight
+        h = torch.relu(_layer_norm_fast(h @ w.T + li.bias, nm.weight,
+                                        nm.bias))
+    lps, ents = action_dist.action_stats(net.actor(h), a, buckets)
+    return lps.sum(dim=-1), ents.sum(dim=-1), net.critic(h)[..., 0]
 
 
 def unnorm_value(ap: Agent, values):

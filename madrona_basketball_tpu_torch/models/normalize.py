@@ -64,13 +64,54 @@ def _pad_tail(st: RMSState, used: int, n):
     return new_pad_mean, m / count_
 
 
+def _count(n: int, device):
+    """A batch count as a 0-d float32 tensor, made by a fill (no host
+    copy, so a CUDA graph can capture it)."""
+    return torch.full((), float(n), dtype=F32, device=device)
+
+
 def rms_update(st: RMSState, x) -> RMSState:
     """Merge a batch (N, dim) with its unbiased variance."""
     x = x.reshape(-1, x.shape[-1]).to(F32)
-    count = torch.tensor(float(x.shape[0]), dtype=F32, device=x.device)
+    count = _count(x.shape[0], x.device)
     mean = x.mean(dim=0)
     var = ((x - mean) ** 2).sum(dim=0) / torch.clamp(count - 1.0, min=1.0)
     return _rms_merge(st, mean, var, count)
+
+
+def _with_tail(st: RMSState, sub: RMSState, used: int, n) -> RMSState:
+    """`sub` (the first `used` features merged) joined to the closed-form
+    merge of the structural-zero tail."""
+    new_pad_mean, new_pad_var = _pad_tail(st, used, n)
+    return RMSState(mean=torch.cat([sub.mean, new_pad_mean]),
+                    var=torch.cat([sub.var, new_pad_var]),
+                    count=sub.count)
+
+
+def _head(st: RMSState, used: int) -> RMSState:
+    return RMSState(mean=st.mean[:used], var=st.var[:used], count=st.count)
+
+
+def rms_update_padded(st: RMSState, x) -> RMSState:
+    """`rms_update` where the batch's features >= x.shape[-1] are all zero
+    and not materialized (the obs tail, constants.OBS_USED)
+    (normalize.py:76-91)."""
+    used = x.shape[-1]
+    sub = rms_update(_head(st, used), x)
+    return _with_tail(st, sub, used, _count(x.reshape(-1, used).shape[0],
+                                            x.device))
+
+
+def rms_update_padded_tdw(st: RMSState, x) -> RMSState:
+    """`rms_update_padded` of a feature-major (T, used, W) batch, the
+    rollout kernel's trajectory layout, reduced over (T, W) without the
+    (T * W, used) relayout (normalize.py:94-110)."""
+    used = x.shape[1]
+    n = _count(x.shape[0] * x.shape[2], x.device)
+    mean = x.mean(dim=(0, 2))
+    var = ((x - mean[None, :, None]) ** 2).sum(dim=(0, 2)) / \
+        torch.clamp(n - 1.0, min=1.0)
+    return _with_tail(st, _rms_merge(_head(st, used), mean, var, n), used, n)
 
 
 def rms_update_padded_moments(st: RMSState, mean, m2, n) -> RMSState:
@@ -80,9 +121,4 @@ def rms_update_padded_moments(st: RMSState, mean, m2, n) -> RMSState:
     used = mean.shape[0]
     n = torch.as_tensor(n, dtype=F32, device=mean.device)
     var = m2 / torch.clamp(n - 1.0, min=1.0)
-    sub = _rms_merge(RMSState(mean=st.mean[:used], var=st.var[:used],
-                              count=st.count), mean, var, n)
-    new_pad_mean, new_pad_var = _pad_tail(st, used, n)
-    return RMSState(mean=torch.cat([sub.mean, new_pad_mean]),
-                    var=torch.cat([sub.var, new_pad_var]),
-                    count=sub.count)
+    return _with_tail(st, _rms_merge(_head(st, used), mean, var, n), used, n)

@@ -93,19 +93,21 @@ POLICY_FLOATS = sum(r * c for r, c in POLICY_SHAPES)  # 6272
 
 
 @torch.no_grad()
-def pack_net(net) -> tuple:
+def pack_net(net, of=None) -> tuple:
     """ActorCritic -> (w1t (32,128), w2t (32,32), wht (20,32) actor rows +
     value row, bias (32,8) cols b1, ln1 scale, ln1 bias, b2, ln2 scale,
-    ln2 bias, head bias (zero-padded), 0)."""
+    ln2 bias, head bias (zero-padded), 0).  `of(p)`, when given, maps
+    each parameter to the tensor packed in its place (its gradient)."""
     lin, ln = layers(net)
-    wht = torch.cat([net.actor.weight, net.critic.weight], dim=0)
-    head_b = torch.cat([net.actor.bias, net.critic.bias])
+    of = of or (lambda p: p)
+    wht = torch.cat([of(net.actor.weight), of(net.critic.weight)], dim=0)
+    head_b = torch.cat([of(net.actor.bias), of(net.critic.bias)])
     head_b = torch.nn.functional.pad(head_b, (0, H - head_b.shape[0]))
-    bias = torch.stack([lin[0].bias, ln[0].weight, ln[0].bias, lin[1].bias,
-                        ln[1].weight, ln[1].bias, head_b,
-                        torch.zeros_like(head_b)], dim=1)
+    bias = torch.stack([of(lin[0].bias), of(ln[0].weight), of(ln[0].bias),
+                        of(lin[1].bias), of(ln[1].weight), of(ln[1].bias),
+                        head_b, torch.zeros_like(head_b)], dim=1)
     return tuple(x.detach().to(F32).contiguous() for x in
-                 (lin[0].weight, lin[1].weight, wht, bias))
+                 (of(lin[0].weight), of(lin[1].weight), wht, bias))
 
 
 @torch.no_grad()

@@ -103,12 +103,13 @@ def pack_norm(obs_rms, d: int = D):
                         torch.rsqrt(obs_rms.var[:d] + RMS_EPS)]).to(F32)
 
 
-def pack_weights(net, d: int = D):
+def pack_weights(net, d: int = D, of=None):
     """ActorCritic (or a moment set of its shapes) -> (w1t (H, d),
     w2t (H, H), wht (N_OUT, H), bias (H, N_BCOL)): the rollout's packing
-    (`fused_rollout.pack_net`) with the first layer cut to its first d
-    columns (`nn.Linear.weight` is already (out, in)); fresh tensors."""
-    w1t, w2t, wht, bias = pack_net(net)
+    (`fused_rollout.pack_net`, `of` as it takes it) with the first layer
+    cut to its first d columns (`nn.Linear.weight` is already (out, in));
+    fresh tensors."""
+    w1t, w2t, wht, bias = pack_net(net, of)
     return tuple(x.clone(memory_format=torch.contiguous_format)
                  for x in (w1t[:, :d], w2t, wht, bias))
 

@@ -73,75 +73,141 @@ ACTION_ROWS = [[I_IDX[f"a{i}.{n}"] for n in ACTION_NAMES] for i in range(A)]
 RESET_ROWS = [I_IDX[f"a{i}.reset"] for i in range(A)]
 
 
-def unpack(cfg, sf, si, obs=None):
-    """(SF, SI[, OBS]) -> the structured `state.State` view, (W, ...)
-    tensors: the fields of the JAX layout.unpack (ops/layout.py:195-307)
-    that the export reads.  Hoop positions come from the config (constant
-    after init)."""
+def _xyz(prefix):
+    return (f"{prefix}_x", f"{prefix}_y", f"{prefix}_z")
+
+
+QUAT = ("quat_w", "quat_x", "quat_y", "quat_z")
+MASK_NAMES = ("m_move", "m_grab", "m_pass", "m_shoot")
+COLOR = ("color_r", "color_g", "color_b")
+# (field of state.Agents, row names per agent or one name, table)
+_AGENT_FIELDS = (
+    ("pos", _xyz("pos"), "f"), ("vel", _xyz("vel"), "f"),
+    ("orient", QUAT, "f"), ("action", ACTION_NAMES, "i"),
+    ("action_mask", MASK_NAMES, "i"), ("reset", "reset", "i"),
+    ("reward", "reward", "f"), ("done", "done", "f"),
+    ("cur_step", "cur_step", "i"), ("has_ball", "has_ball", "i"),
+    ("held_ball_id", "held_ball", "i"),
+    ("points_worth", "points_worth", "i"),
+    ("im_inbounding", "im_inb", "i"),
+    ("allowed_to_move", "allowed_move", "i"), ("team", "team", "i"),
+    ("team_color", COLOR, "f"), ("defending_hoop", "defend_hoop", "i"),
+    ("grab_cooldown", "cooldown", "f"), ("stat_points", "stat_points", "f"),
+    ("stat_fouls", "stat_fouls", "f"), ("max_speed", "max_speed", "f"),
+    ("quickness", "quickness", "f"), ("shooting", "shooting", "f"),
+    ("ft_pct", "ft_pct", "f"), ("reaction_speed", "reaction", "f"),
+    ("target_pos", _xyz("target"), "f"), ("shot_pct", "shot_pct", "f"))
+_BALL_FIELDS = (
+    ("pos", ("bpos_x", "bpos_y", "bpos_z"), "f"),
+    ("vel", ("bvel_x", "bvel_y", "bvel_z"), "f"), ("done", "bdone", "f"),
+    ("grabbed", "bgrabbed", "i"), ("holder", "bholder", "i"),
+    ("in_flight", "binflight", "i"), ("last_touched_agent", "blt_agent", "i"),
+    ("last_touched_team", "blt_team", "i"),
+    ("shot_by_agent", "bsb_agent", "i"), ("shot_by_team", "bsb_team", "i"),
+    ("shot_point_value", "bspv", "i"), ("shot_going_in", "bsgi", "i"),
+    ("reset", "breset", "i"), ("cur_step", "bcur_step", "i"))
+_GAME_FIELDS = (
+    ("period", "period", "f"), ("team_in_possession", "tip", "f"),
+    ("team0_score", "t0score", "f"), ("team1_score", "t1score", "f"),
+    ("game_clock", "gclock", "f"), ("shot_clock", "sclock", "f"),
+    ("scored_baskets", "sbaskets", "f"), ("oob_count", "oob", "f"),
+    ("inbound_clock", "iclock", "f"),
+    ("inbounding_in_progress", "ginb", "i"), ("live_ball", "glive", "i"),
+    ("team0_hoop", "t0hoop", "i"), ("team1_hoop", "t1hoop", "i"),
+    ("is_one_on_one", "is1v1", "i"))
+_HOOP_FIELDS = (("done", ("hdone0", "hdone1"), "f"),
+                ("cur_step", ("hcur0", "hcur1"), "i"),
+                ("reset", ("hreset0", "hreset1"), "i"))
+
+
+def pack(state):
+    """A structured `state.State` (W, ...) -> (SF (72, W) f32, SI (59, W)
+    i32), the rows every kernel steps (ops/layout.py:90-191 of the JAX
+    package).  The hoop geometry is not stored: it follows the config."""
     import torch
 
-    from ..state import Agents, Ball, GameState, Hoops, State
+    sf = [None] * N_F32_ROWS
+    si = [None] * N_I32_ROWS
+
+    def put(name, v, kind):
+        if kind == "f":
+            sf[F_IDX[name]] = v.to(torch.float32)
+        else:
+            si[I_IDX[name]] = v.to(torch.int32)
+
+    a = state.agents
+    for i in range(A):
+        for field, names, kind in _AGENT_FIELDS:
+            x = getattr(a, field)[:, i]
+            if isinstance(names, str):
+                put(f"a{i}.{names}", x, kind)
+            else:
+                for j, n in enumerate(names):
+                    put(f"a{i}.{n}", x[:, j], kind)
+    for obj, fields in ((state.ball, _BALL_FIELDS),
+                        (state.game, _GAME_FIELDS),
+                        (state.hoops, _HOOP_FIELDS)):
+        for field, names, kind in fields:
+            x = getattr(obj, field)
+            if isinstance(names, str):
+                put(names, x, kind)
+            else:
+                for j, n in enumerate(names):
+                    put(n, x[:, j], kind)
+    put("reset_now", state.reset_now, "i")
+    assert all(v is not None for v in sf) and all(v is not None for v in si)
+    return torch.stack(sf), torch.stack(si)
+
+
+def unpack(cfg, sf, si, obs=None):
+    """(SF, SI[, OBS]) -> the structured `state.State`, (W, ...) tensors
+    (the JAX layout.unpack, ops/layout.py:195-307): the inverse of `pack`,
+    the hoop geometry from the config (constant after init) and
+    agents.obs None unless the obs rows are given.  Single fields are row
+    views, grouped ones stacked copies; this is also the view the export
+    (export.py) reads."""
+    import torch
+
+    from .. import state as S
 
     W = sf.shape[1]
 
-    def gf(k):
-        return sf[F_IDX[k]]
+    def get(name, kind):
+        return sf[F_IDX[name]] if kind == "f" else si[I_IDX[name]]
 
-    def gi(k):
-        return si[I_IDX[k]]
+    def field(names, kind, prefix=""):
+        if isinstance(names, str):
+            return get(prefix + names, kind)
+        return torch.stack([get(prefix + n, kind) for n in names], dim=-1)
 
-    def per_agent(name, table=gf):
-        return torch.stack([table(f"a{i}.{name}") for i in range(A)], dim=1)
-
-    def per_agent_vec(names, table=gf):
-        return torch.stack([torch.stack([table(f"a{i}.{n}") for n in names],
-                                        dim=-1) for i in range(A)], dim=1)
-
-    def xyz(prefix):
-        return (f"{prefix}_x", f"{prefix}_y", f"{prefix}_z")
-
-    agents = Agents(
-        pos=per_agent_vec(xyz("pos")),
-        orient=per_agent_vec(("quat_w", "quat_x", "quat_y", "quat_z")),
-        action=per_agent_vec(ACTION_NAMES, gi),
-        action_mask=per_agent_vec(("m_move", "m_grab", "m_pass", "m_shoot"),
-                                  gi),
-        reset=per_agent("reset", gi),
-        reward=per_agent("reward"),
-        done=per_agent("done"),
-        has_ball=per_agent("has_ball", gi),
-        held_ball_id=per_agent("held_ball", gi),
-        points_worth=per_agent("points_worth", gi),
-        team=per_agent("team", gi),
-        team_color=per_agent_vec(("color_r", "color_g", "color_b")),
-        defending_hoop=per_agent("defend_hoop", gi),
-        stat_points=per_agent("stat_points"),
-        stat_fouls=per_agent("stat_fouls"),
+    agents = S.Agents(
+        **{f: torch.stack([field(n, k, f"a{i}.") for i in range(A)], dim=1)
+           for f, n, k in _AGENT_FIELDS},
         obs=None if obs is None else
-        obs.reshape(A, C.OBS_SIZE, W).permute(2, 0, 1),
-    )
-    ball = Ball(
-        pos=torch.stack([gf(n) for n in ("bpos_x", "bpos_y", "bpos_z")], -1),
-        vel=torch.stack([gf(n) for n in ("bvel_x", "bvel_y", "bvel_z")], -1),
-        grabbed=gi("bgrabbed"), holder=gi("bholder"),
-        in_flight=gi("binflight"), last_touched_agent=gi("blt_agent"),
-        last_touched_team=gi("blt_team"), shot_by_agent=gi("bsb_agent"),
-        shot_by_team=gi("bsb_team"), shot_point_value=gi("bspv"),
-        shot_going_in=gi("bsgi"))
-    game = GameState(
-        inbounding_in_progress=gi("ginb"), live_ball=gi("glive"),
-        period=gf("period"), team_in_possession=gf("tip"),
-        team0_hoop=gi("t0hoop"), team0_score=gf("t0score"),
-        team1_hoop=gi("t1hoop"), team1_score=gf("t1score"),
-        game_clock=gf("gclock"), shot_clock=gf("sclock"),
-        scored_baskets=gf("sbaskets"), oob_count=gf("oob"),
-        inbound_clock=gf("iclock"), is_one_on_one=gi("is1v1"))
+        obs.reshape(A, C.OBS_SIZE, W).permute(2, 0, 1))
+    ball = S.Ball(**{f: field(n, k) for f, n, k in _BALL_FIELDS})
+    game = S.GameState(**{f: field(n, k) for f, n, k in _GAME_FIELDS})
     # hoop geometry is fixed by the config (src/gen.cpp:96-156)
+    hoop_pos = hoop_positions(cfg, sf.device).expand(W, 2, 3)
+    hoops = S.Hoops(
+        pos=hoop_pos, zone_center=hoop_pos,
+        zone_radius=torch.full((W, 2), C.HOOP_SCORE_ZONE_SIZE,
+                               dtype=torch.float32, device=sf.device),
+        zone_height=torch.full((W, 2), 0.1, dtype=torch.float32,
+                               device=sf.device),
+        **{f: field(n, k) for f, n, k in _HOOP_FIELDS})
+    return S.State(agents=agents, ball=ball, hoops=hoops, game=game,
+                   reset_now=si[I_IDX["reset_now"]])
+
+
+def hoop_positions(cfg, device="cpu"):
+    """(2, 3) float32: the hoops at baseline +- HOOP_FROM_BASELINE on the
+    grid's centre line (src/gen.cpp:96-156)."""
+    import torch
+
     court_start_x = (cfg.grid_width - C.COURT_LENGTH_M) / 2.0
     cy = cfg.grid_height / 2.0
-    hoop_pos = torch.tensor(
+    return torch.tensor(
         [[court_start_x + C.HOOP_FROM_BASELINE_M, cy, 0.0],
          [court_start_x + C.COURT_LENGTH_M - C.HOOP_FROM_BASELINE_M, cy,
-          0.0]], dtype=torch.float32, device=sf.device).expand(W, 2, 3)
-    return State(agents=agents, ball=ball, hoops=Hoops(pos=hoop_pos),
-                 game=game)
+          0.0]], dtype=torch.float32, device=device)

@@ -98,7 +98,15 @@ def shard_train_state(state, mesh: DataMesh, dp_update: bool = False):
     """The rank's share of a whole RolloutState / TrainState: its columns
     of sf, si and obs (and of the stats carry curr_rewards /
     episode_lengths under dp_update), as fresh contiguous tensors; the
-    agents, normalizers, meters and Adam state as they are."""
+    agents, normalizers, meters and Adam state as they are.  For the
+    structured trainer's TrainState (ppo/train.py) the rank's worlds of
+    every tensor of its env State (the JAX shard_train_state,
+    parallel/mesh.py:49-75: the env sharded, the learner replicated)."""
+    if not hasattr(state, "sf"):
+        from ..state import tree_map
+        cols = mesh.columns(state.env.reset_now.shape[0])
+        return dataclasses.replace(state, env=tree_map(
+            lambda t: t[cols].contiguous().clone(), state.env))
     cols = mesh.columns(state.sf.shape[1])
     stats = dataclasses.replace(state.stats, **{
         f: getattr(state.stats, f)[cols].clone()

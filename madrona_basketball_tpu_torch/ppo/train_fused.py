@@ -77,6 +77,19 @@ run draws exactly the one-rank run's noise.  Then:
     (size, E, T * W_l / wb_l) permutations and takes row `rank`, so one
     rank draws the flagship's own permutations.
 
+The JAX trainer's alternate paths (train_fused.py:132-160,217-257,
+563-576,679-776; `make_train_iteration`'s rollout_kernel / fused_grads /
+fused_gae / backend flags, checked by `check_paths` with its messages):
+`--no-fused-gae` keeps kernel B (or I) and runs `_unfused_tail`'s torch
+GAE, then kernel D with ustats None on the normalized side rows;
+`--no-fused-grads` builds the feat matrix from the trajectory and runs the
+autodiff update (ppo/train.py::make_update_fns); the per-tick rollout
+(`--no-rollout-kernel`, `--backend xla-rows`) is `_per_tick_body`: kernel
+A a tick with the policy in torch, then `compute_advantages` and the
+autodiff update; ppo/train.py's structured trainer runs the same body
+over the structured engine.  With hp.record_world0 the per-tick paths
+return world 0's rows (`world0_rows`) in out["metrics"]["world0"].
+
 `train_iteration.static(state)` is the iteration's static-buffer form,
 `StaticIteration`: the state copied into tensors that keep their
 addresses, and `step()`, one iteration from those tensors back into
@@ -102,18 +115,21 @@ from ..engine_fused import draw_noise_rows
 from ..models import agent as agent_lib
 from ..models.agent import Agent
 from ..models.normalize import EPS as RMS_EPS
-from ..models.normalize import (RMSState, _rms_merge,
-                                rms_update_padded_moments)
+from ..models.normalize import (RMSState, _rms_merge, rms_update_padded,
+                                rms_update_padded_moments,
+                                rms_update_padded_tdw)
 from ..ops import fused_gae as FG
 from ..ops import fused_rollout as FR
 from ..ops import fused_update as FU
 from ..ops.fused_step import fused_step
-from ..ops.layout import ACTION_ROWS, N_OBS_ROWS, RESET_ROWS
+from ..ops.layout import (ACTION_NAMES, ACTION_ROWS, F_IDX, I_IDX,
+                          N_NOISE_ROWS, N_OBS_ROWS, RESET_ROWS)
 from ..parallel.mesh import DataMesh, all_gather, all_gather_columns, \
     all_reduce_
 from .hparams import PPOParams
-from .train import (AdamState, EpisodeStats, clip_adam_step, init_adam,
-                    init_stats, meter_scan)
+from .train import (AdamState, EpisodeStats, _stats_step, clip_adam_step,
+                    init_adam, init_stats, make_update_fns, meter_scan,
+                    normalize_advantages)
 
 F32 = torch.float32
 I32 = torch.int32
@@ -180,18 +196,19 @@ DP_UPDATE_NEEDS = ("dp_update shards the update phase over the data mesh "
 
 
 def shard_worlds(hp: PPOParams, mesh: Optional[DataMesh],
-                 rollout_tiled: bool = False, dp_update: bool = False) -> int:
+                 rollout_tiled: bool = False, dp_update: bool = False,
+                 rollout_kernel: bool = True) -> int:
     """W_l, the worlds of one rank (W without a mesh), after checking
     that they meet the kernels' geometry: kernel I's 1024-world tiles,
-    kernel B's 32-world warps, and under dp_update kernel C's world
-    block (the shards' blocks must be the fleet's for the stacked block
-    moments and meter partials to be exact)."""
+    kernel B's 32-world warps (rollout_kernel), and under dp_update
+    kernel C's world block (the shards' blocks must be the fleet's for
+    the stacked block moments and meter partials to be exact)."""
     if dp_update and (mesh is None or rollout_tiled):
         raise ValueError(DP_UPDATE_NEEDS)
     W_l = hp.num_envs if mesh is None else mesh.worlds(hp.num_envs)
     if rollout_tiled:
         FR.check_tiled_worlds(W_l)
-    if mesh is None:
+    if mesh is None or not rollout_kernel:
         return W_l
     if W_l % FR.MOM_GROUP:
         raise ValueError(f"{W_l} worlds a rank: the rollout kernel takes "
@@ -231,13 +248,100 @@ def make_collect(cfg: SimConfig, hp: PPOParams, device="cuda",
     return collect
 
 
+class RowsWorlds:
+    """The fleet of a rows TrainState as `_reset_pulse` and
+    `_per_tick_body` handle it: env = (sf, si, obs), one tick = kernel A.
+    ppo/train.py::StructuredWorlds is the structured engine's twin."""
+
+    @staticmethod
+    def get(state):
+        return state.sf, state.si, state.obs
+
+    @staticmethod
+    def fields(env) -> dict:
+        sf, si, obs = env
+        return dict(sf=sf, si=si, obs=obs)
+
+    @staticmethod
+    def owned(env):
+        """env with its int rows copied, so `set_*` may write them."""
+        sf, si, obs = env
+        return sf, si.clone(), obs
+
+    @staticmethod
+    def obs(env, i):
+        """Agent i's observations (W, 128)."""
+        return env[2][i * OBS:(i + 1) * OBS].T
+
+    @staticmethod
+    def set_reset(env, value: int):
+        for r in RESET_ROWS:
+            env[1][r] = value
+        return env
+
+    @staticmethod
+    def set_actions(env, i, actions):
+        for j, r in enumerate(ACTION_ROWS[i]):
+            env[1][r] = actions[:, j]
+        return env
+
+    @staticmethod
+    def step(cfg, env, noise):
+        """One tick (kernel A) with the (9, W) noise rows; the new env's
+        rows are the kernel's own tensors, which `set_*` may write."""
+        return fused_step(cfg, env[0], env[1], noise)
+
+    @staticmethod
+    def reward_done(env, i):
+        return (env[0][F_IDX[f"a{i}.reward"]],
+                env[0][F_IDX[f"a{i}.done"]])
+
+    @staticmethod
+    def world0(env, done):
+        return world0_rows(env[0], env[1], done)
+
+
+def _reset_pulse(cfg: SimConfig, hp: PPOParams, dev, gen, local,
+                 worlds=RowsWorlds):
+    """`reset_pulse(state, noise) -> env` (train_fused.py:212-223, and
+    train.py:369-378 on the structured engine): the Reset flags set, the
+    trainee's actions zeroed (the frozen opponent's from its policy), one
+    tick, the flags cleared.  Draws from `gen` unless `noise` is given;
+    `local` takes the rank's columns of a whole-fleet draw."""
+    ti, fi = hp.trainee_idx, 1 - hp.trainee_idx
+
+    def reset_pulse(state, noise: Optional[CollectNoise]):
+        env = worlds.set_reset(worlds.owned(worlds.get(state)), 1)
+        env = worlds.set_actions(
+            env, ti, torch.zeros((worlds.obs(env, ti).shape[0], 6),
+                                 dtype=I32, device=dev))
+        if noise is not None:
+            pulse = local(noise.pulse)
+            f_u = local(noise.pulse_frozen_u)
+        else:
+            pulse = local(draw_noise_rows(hp.num_envs, gen, dev))
+            f_u = local(torch.rand((FR.N_LOGITS, hp.num_envs), generator=gen,
+                                   device=dev) if hp.use_frozen else None)
+        if hp.use_frozen:
+            fa, _, _ = agent_lib.forward(
+                state.frozen, worlds.obs(env, fi),
+                FR.gumbel_from_uniform(f_u).T)
+            env = worlds.set_actions(env, fi, fa)
+        return worlds.set_reset(worlds.step(cfg, env, pulse), 0)
+
+    return reset_pulse
+
+
 def _collect_body(cfg: SimConfig, hp: PPOParams, device, rollout_tiled,
-                  mesh: Optional[DataMesh] = None, dp_update: bool = False):
+                  mesh: Optional[DataMesh] = None, dp_update: bool = False,
+                  fused_gae: bool = True, fused_grads: bool = True):
     """(run, gen): `run(state, noise, mark, tick_base)` is the collect
     with the pulse drawn from the generator `gen` as it stands (unless
     `noise` is given) and kernel B's Philox ticks from tick_base (an int
     or a 0-d int32 tensor on the card).  Under a mesh the state holds the
-    rank's columns and `noise` the whole fleet's draws."""
+    rank's columns and `noise` the whole fleet's draws.  fused_gae=False
+    is the JAX trainer's `--no-fused-gae` tail (`_unfused_tail`), which
+    also serves `--no-fused-grads`."""
     ti = hp.trainee_idx
     fi = 1 - ti
     T = hp.num_rollout_steps
@@ -253,29 +357,8 @@ def _collect_body(cfg: SimConfig, hp: PPOParams, device, rollout_tiled,
         """The rank's columns of a whole-fleet draw."""
         return x if cols is None or x is None else x[:, cols].contiguous()
 
-    def reset_pulse(state: RolloutState, noise: Optional[CollectNoise]):
-        si = state.si.clone()
-        for r in RESET_ROWS:
-            si[r] = 1
-        for r in ACTION_ROWS[ti]:
-            si[r] = 0
-        if noise is not None:
-            pulse = local(noise.pulse)
-            f_u = local(noise.pulse_frozen_u)
-        else:
-            pulse = local(draw_noise_rows(hp.num_envs, gen, dev))
-            f_u = local(torch.rand((FR.N_LOGITS, hp.num_envs), generator=gen,
-                                   device=dev) if hp.use_frozen else None)
-        if hp.use_frozen:
-            fa, _, _ = agent_lib.forward(
-                state.frozen, state.obs[fi_lo:fi_lo + OBS].T,
-                FR.gumbel_from_uniform(f_u).T)
-            for j, r in enumerate(ACTION_ROWS[fi]):
-                si[r] = fa[:, j]
-        sf, si, obs = fused_step(cfg, state.sf, si, pulse)
-        for r in RESET_ROWS:
-            si[r] = 0
-        return sf, si, obs
+    reset_pulse = _reset_pulse(cfg, hp, dev, gen, local)
+    unfused = _unfused_tail(hp, dev, fused_grads)
 
     @torch.no_grad()
     def run(state: RolloutState, noise: Optional[CollectNoise], mark,
@@ -308,6 +391,8 @@ def _collect_body(cfg: SimConfig, hp: PPOParams, device, rollout_tiled,
             mark("all_gather")
 
         next_value = agent_lib.evaluate(agent, obs_t.T)
+        if not fused_gae:
+            return unfused(state, sf, si, obs, traj, next_value, mark)
         vrm = agent.value_rms
         vstats = torch.zeros((1, FG.VSTAT_COLS), dtype=F32, device=dev)
         vstats[0, 0] = vrm.mean[0]
@@ -384,6 +469,234 @@ def _collect_body(cfg: SimConfig, hp: PPOParams, device, rollout_tiled,
         return state, out
 
     return run, gen
+
+
+def stats_scan(stats: EpisodeStats, rewards, dones) -> EpisodeStats:
+    """T steps of `_stats_step` over (T, N) rewards and dones
+    (train_fused.py:568-570)."""
+    for t in range(rewards.shape[0]):
+        stats = _stats_step(stats, rewards[t], dones[t])
+    return stats
+
+
+def _metrics(stats: EpisodeStats, adv_n, values_n) -> dict:
+    return {"mean_reward": stats.mean_reward,
+            "mean_episode_length": stats.mean_length,
+            "reward_window": stats.reward_size,
+            "adv_abs_mean": adv_n.abs().mean(),
+            "value_mean": values_n.mean()}
+
+
+def _unfused_tail(hp: PPOParams, dev, fused_grads: bool):
+    """`tail(state, sf, si, obs, traj, next_value, mark) -> (state', out)`:
+    what the JAX trainer runs after the rollout kernel without fused GAE
+    (train_fused.py:563-570,679-733).  The per-tick episode stats scan,
+    `normalize_advantages` (GAE, the value normalizer, the standardized
+    advantages), then
+
+      * fused_grads: the normalized side array (T, 8, W) [value_n, adv_n,
+        ret_n, 0...] and the obs normalizer's merge of the trajectory's
+        obs rows (`rms_update_padded_tdw`); out["ustats"] is None, so
+        kernel D takes the side rows as they are;
+      * not fused_grads: value_n, adv_n and ret_n written into the
+        trajectory's spare rows R_LOGP + 1..3 (the last over the raw
+        value, dead once GAE has run), the (T * W, 128) feat matrix, and
+        `rms_update_padded` of its obs columns; out["feat"] feeds the
+        autodiff update.
+
+    Kernel B's obs-moment fold still runs on these paths (its partials are
+    not read), as the JAX trainer leaves them out only by building B
+    without them."""
+    T = hp.num_rollout_steps
+
+    def tail(state, sf, si, obs, traj, next_value, mark):
+        agent = state.agent
+        done = traj[:, FR.R_DONE]
+        rewards = traj[:, FR.R_REW]
+        stats = stats_scan(state.stats, rewards, done)
+        value_rms, adv_n, values_n, returns_n = normalize_advantages(
+            hp, agent, traj[:, FR.R_VALUE], rewards, 1.0 - done, next_value)
+        mark("gae")
+        W = traj.shape[2]
+        out = dict(stats=stats, metrics=_metrics(stats, adv_n, values_n),
+                   ustats=None)
+        if fused_grads:
+            side = torch.zeros((T, FG.SIDE_ROWS, W), dtype=F32, device=dev)
+            side[:, FG.SIDE_VALUE] = values_n
+            side[:, FG.SIDE_ADV] = adv_n
+            side[:, FG.SIDE_RET] = returns_n
+            obs_rms = rms_update_padded_tdw(agent.obs_rms,
+                                            traj[:, :FR.ROLL_OBS])
+            out.update(traj=traj, side=side)
+        else:
+            traj[:, FR.R_LOGP + 1] = values_n
+            traj[:, FR.R_LOGP + 2] = adv_n
+            traj[:, FR.R_LOGP + 3] = returns_n
+            feat = traj.transpose(1, 2).reshape(T * W, FR.ROLL_ROWS)
+            obs_rms = rms_update_padded(agent.obs_rms, feat[:, :FR.ROLL_OBS])
+            out.update(traj=traj, feat=feat)
+        mark("glue")
+        out.update(obs_rms=obs_rms, value_rms=value_rms)
+        new_agent = Agent(net=agent.net, obs_rms=obs_rms,
+                          value_rms=value_rms)
+        return dataclasses.replace(state, agent=new_agent, sf=sf, si=si,
+                                   obs=obs, stats=stats,
+                                   counter=state.counter + 1), out
+
+    return tail
+
+
+def _per_tick_body(cfg: SimConfig, hp: PPOParams, device,
+                   mesh: Optional[DataMesh] = None, worlds=RowsWorlds):
+    """(run, gen) of the per-tick rollout, the JAX trainer's
+    `--no-rollout-kernel` / `--backend xla-rows` collect
+    (train_fused.py:190-257,752-776), and with
+    worlds=ppo/train.py::StructuredWorlds the structured trainer's
+    (train.py:343-440): the reset pulse, then T ticks of
+
+      the trainee's policy in torch on its obs (Gumbel-max from uniforms),
+      the frozen opponent's likewise (use_frozen), the actions written
+      into the worlds, one tick (kernel A on the rows, the systems of
+      systems.py on the structured state) with the tick's sim noise, one
+      trajectory row appended;
+
+    then `next_value`, the episode stats scan and `compute_advantages`
+    (make_update_fns).  `run(state, noise, mark, tick_base)` draws each
+    tick's uniforms from `gen` in the order trainee (19, W), frozen
+    (19, W), sim noise (9, W), unless `noise` is given: noise.rollout is
+    then kernel B's external-noise matrix (T * EXT_NOISE_CHUNK, W), so the
+    same draws drive this collect and kernel B's.  tick_base is unused.
+    Under a data mesh each rank steps its columns and the trajectory is
+    all-gathered before the stats, so the learner sees the whole fleet.
+    With hp.record_world0 out["metrics"]["world0"] holds world 0's
+    per-tick rows (each leaf (T, 1, ...))."""
+    ti, fi = hp.trainee_idx, 1 - hp.trainee_idx
+    T = hp.num_rollout_steps
+    dev = torch.device(device)
+    W_l = shard_worlds(hp, mesh, rollout_kernel=False)
+    cols = None if mesh is None else mesh.columns(hp.num_envs)
+    gen = torch.Generator(device=dev)
+    compute_advantages, _ = make_update_fns(hp)
+    CH = FR.EXT_NOISE_CHUNK
+
+    def local(x):
+        return x if cols is None or x is None else x[:, cols].contiguous()
+
+    reset_pulse = _reset_pulse(cfg, hp, dev, gen, local, worlds)
+
+    def draws(noise, t):
+        if noise is not None:
+            c = local(noise.rollout[t * CH:(t + 1) * CH])
+            tu = c[FR.EXT_TRAINEE_U:FR.EXT_TRAINEE_U + FR.N_LOGITS]
+            fu = c[FR.EXT_FROZEN_U:FR.EXT_FROZEN_U + FR.N_LOGITS]
+            return tu, fu, c[:N_NOISE_ROWS]
+        tu = torch.rand((FR.N_LOGITS, hp.num_envs), generator=gen,
+                        device=dev)
+        fu = torch.rand((FR.N_LOGITS, hp.num_envs), generator=gen,
+                        device=dev) if hp.use_frozen else None
+        sim = draw_noise_rows(hp.num_envs, gen, dev)
+        return local(tu), local(fu), local(sim)
+
+    @torch.no_grad()
+    def run(state, noise: Optional[CollectNoise], mark, tick_base):
+        mark = mark or (lambda name: None)
+        agent = state.agent
+        env = reset_pulse(state, noise)
+        mark("reset_pulse")
+        obs_b = torch.empty((T, OBS, W_l), dtype=F32, device=dev)
+        act_b = torch.empty((T, 6, W_l), dtype=I32, device=dev)
+        tick = torch.empty((T, 4, W_l), dtype=F32, device=dev)
+        w0 = []
+        for t in range(T):
+            tu, fu, sim = draws(noise, t)
+            obs_t = worlds.obs(env, ti)
+            obs_b[t] = obs_t.T
+            actions, logp, value = agent_lib.forward(
+                agent, obs_t, FR.gumbel_from_uniform(tu).T)
+            env = worlds.set_actions(env, ti, actions)
+            if hp.use_frozen:
+                fa = agent_lib.act(state.frozen, worlds.obs(env, fi),
+                                   FR.gumbel_from_uniform(fu).T)
+                env = worlds.set_actions(env, fi, fa)
+            env = worlds.step(cfg, env, sim)
+            rew, done = worlds.reward_done(env, ti)
+            act_b[t] = actions.T
+            tick[t, 0] = value
+            tick[t, 1] = logp
+            tick[t, 2] = rew
+            tick[t, 3] = done
+            if hp.record_world0:
+                w0.append(worlds.world0(env, done))
+        mark("rollout")
+        last = worlds.obs(env, ti).T
+        if cols is not None:
+            obs_b, act_b, tick, last = (all_gather_columns(x, mesh) for x in
+                                        (obs_b, act_b, tick, last))
+            mark("all_gather")
+        done = tick[:, 3]
+        stats = stats_scan(state.stats, tick[:, 2], done)
+        buf = dict(obs=obs_b.transpose(1, 2), actions=act_b.transpose(1, 2),
+                   values=tick[:, 0], log_probs=tick[:, 1],
+                   not_dones=1.0 - done, rewards=tick[:, 2],
+                   next_value=agent_lib.evaluate(agent, last.T))
+        new_agent, adv_n, values_n, returns_n = compute_advantages(agent, buf)
+        mark("gae")
+        metrics = _metrics(stats, adv_n, values_n)
+        if hp.record_world0:
+            metrics["world0"] = {k: torch.stack([w[k] for w in w0])
+                                 for k in w0[0]}
+        out = dict(buf=buf, advantages=adv_n, values_n=values_n,
+                   returns_n=returns_n, obs_rms=new_agent.obs_rms,
+                   value_rms=new_agent.value_rms, stats=stats,
+                   metrics=metrics)
+        state = dataclasses.replace(state, agent=new_agent, stats=stats,
+                                    counter=state.counter + 1,
+                                    **worlds.fields(env))
+        return state, out
+
+    return run, gen
+
+
+def world0_rows(sf, si, done) -> dict:
+    """World 0's npz telemetry of one tick from the rows, in the schema of
+    the reference's trajectory logs (train_fused.py:779-820): each leaf
+    carries a leading world axis of 1."""
+    def gf(k):
+        return sf[F_IDX[k], 0]
+
+    def gi(k):
+        return si[I_IDX[k], 0]
+
+    A = C.NUM_AGENTS
+
+    def per_agent(get, names):
+        return torch.stack([torch.stack([get(f"a{i}.{n}") for n in names])
+                            for i in range(A)])
+
+    game = torch.stack([
+        gi("ginb").to(F32), gi("glive").to(F32), gf("period"), gf("tip"),
+        gi("t0hoop").to(F32), gf("t0score"), gi("t1hoop").to(F32),
+        gf("t1score"), gf("gclock"), gf("sclock"), gf("sbaskets"), gf("oob"),
+        gf("iclock"), gi("is1v1").to(F32)])
+    return {
+        "agent_pos": per_agent(gf, ("pos_x", "pos_y", "pos_z"))[None],
+        "ball_pos": torch.stack([gf("bpos_x"), gf("bpos_y"),
+                                 gf("bpos_z")])[None, None],
+        "ball_vel": torch.stack([gf("bvel_x"), gf("bvel_y"),
+                                 gf("bvel_z")])[None, None],
+        "orientation": per_agent(gf, ("quat_w", "quat_x", "quat_y",
+                                      "quat_z"))[None],
+        "ball_physics": torch.stack([
+            gi("binflight"), gi("blt_agent"), gi("blt_team"),
+            gi("bsb_agent"), gi("bsb_team"), gi("bspv"),
+            gi("bsgi")])[None, None],
+        "agent_possession": per_agent(gi, ("has_ball", "held_ball",
+                                           "points_worth"))[None],
+        "game_state": game[None],
+        "rewards": torch.stack([gf(f"a{i}.reward") for i in range(A)])[None],
+        "actions": per_agent(gi, ACTION_NAMES)[None],
+        "done": done[0:1],
+    }
 
 
 # ---------------------------------------------------------------------
@@ -518,23 +831,101 @@ def dp_update_phase(hp_l: PPOParams, mesh: DataMesh, idx, count, traj, side,
     return params, mu, nu
 
 
+ROLLOUT_KERNEL_WORLD0 = ("rollout_kernel does not support record_world0; "
+                         "use the scan rollout (e.g. --viewer without "
+                         "--rollout-kernel)")
+ROLLOUT_KERNEL_BACKEND = ("rollout_kernel requires the pallas backend "
+                          "(TPU); pass rollout_interpret=True to dry-run on "
+                          "CPU")
+FUSED_GAE_NEEDS = ("fused_gae requires rollout_kernel=True and "
+                   "fused_grads=True (it consumes the trajectory buffer's "
+                   "raw-side contract)")
+TILED_NEEDS = ("rollout_tiled selects the 2-D-tiled variant of the rollout "
+               "kernel; pass rollout_kernel=True")
+
+
+def check_paths(hp: PPOParams, backend: str, rollout_kernel: bool,
+                fused_grads: bool, fused_gae: bool, rollout_tiled: bool,
+                mesh, dp_update: bool):
+    """The JAX trainer's checks of its path flags, with its messages
+    (train_fused.py:132-160; the bf16 flags are not ported)."""
+    if backend not in ("pallas", "xla"):
+        raise ValueError(f"backend must be 'pallas' or 'xla', not "
+                         f"{backend!r}")
+    if rollout_kernel and hp.record_world0:
+        raise ValueError(ROLLOUT_KERNEL_WORLD0)
+    if rollout_kernel and backend != "pallas":
+        raise ValueError(ROLLOUT_KERNEL_BACKEND)
+    if fused_gae and not (rollout_kernel and fused_grads):
+        raise ValueError(FUSED_GAE_NEEDS)
+    if rollout_tiled and not rollout_kernel:
+        raise ValueError(TILED_NEEDS)
+    if dp_update and not (mesh is not None and fused_gae and
+                          not rollout_tiled):
+        raise ValueError(DP_UPDATE_NEEDS)
+
+
 def make_train_iteration(cfg: SimConfig, hp: PPOParams, device="cuda",
                          rollout_tiled: bool = False,
                          mesh: Optional[DataMesh] = None,
-                         dp_update: bool = False):
+                         dp_update: bool = False, *,
+                         rollout_kernel: bool = True,
+                         fused_grads: bool = True,
+                         fused_gae: Optional[bool] = None,
+                         backend: str = "pallas", worlds=RowsWorlds):
+    """The iteration of the JAX `make_train_iteration_fused` for its path
+    flags (fused_gae None: on when rollout_kernel and fused_grads are, as
+    the JAX CLI defaults it), checked with its messages (`check_paths`):
+
+      * rollout kernel + fused GAE (the flagship, and `rollout_tiled`):
+        kernels B (or I), C, meter, E, D, as the module docstring says;
+      * rollout kernel, fused_gae=False (`--no-fused-gae`): B (or I),
+        then `_unfused_tail`'s torch GAE and kernel D with ustats=None on
+        the normalized side rows;
+      * rollout kernel, fused_grads=False (`--no-fused-grads`): B (or I),
+        `_unfused_tail`'s feat matrix, then the autodiff update
+        (ppo/train.py::make_update_fns) shuffled in hp.shuffle_block
+        super-rows;
+      * rollout_kernel=False (`--no-rollout-kernel`, and backend "xla",
+        the JAX CLI's `--backend xla-rows`): `_per_tick_body`'s T
+        launches of kernel A with the policy in torch, then the autodiff
+        update (with `worlds`=ppo/train.py::StructuredWorlds, the
+        structured trainer: its engine's tick in place of kernel A).
+        On the card kernel A is the rows tick's only implementation, so
+        "pallas" and "xla" run the same tick; the backend only decides,
+        as in JAX, whether the rollout kernel may be asked for.
+
+    perms (injected or drawn from the permutation generator): kernel D's
+    (E, T * W / wb) block permutations on the D paths, the autodiff
+    update's (E, T * W / shuffle_block) super-row permutations (argsort
+    of uint32-range draws, as the JAX package draws them) on the others;
+    under dp_update (size, E, T * W_l / wb)."""
+    if fused_gae is None:
+        fused_gae = rollout_kernel and fused_grads
+    check_paths(hp, backend, rollout_kernel, fused_grads, fused_gae,
+                rollout_tiled, mesh, dp_update)
     T = hp.num_rollout_steps
     if hp.num_minibatches * hp.minibatch_size != T * hp.num_envs:
         raise ValueError(
             f"num_minibatches={hp.num_minibatches} must divide the rollout "
             f"batch ({T}*{hp.num_envs}={T * hp.num_envs} samples) exactly "
             f"for the update phase")
-    W_l = shard_worlds(hp, mesh, rollout_tiled, dp_update)
+    W_l = shard_worlds(hp, mesh, rollout_tiled, dp_update, rollout_kernel)
     n_updates = hp.update_epochs * hp.num_minibatches
     dev = torch.device(device)
-    run_collect, pulse_gen = _collect_body(cfg, hp, device, rollout_tiled,
-                                           mesh, dp_update)
+    autodiff = not (rollout_kernel and fused_grads)
+    if rollout_kernel:
+        run_collect, pulse_gen = _collect_body(
+            cfg, hp, device, rollout_tiled, mesh, dp_update, fused_gae,
+            fused_grads)
+    else:
+        run_collect, pulse_gen = _per_tick_body(cfg, hp, device, mesh,
+                                                worlds)
     perm_gen = torch.Generator(device=dev)
-    if dp_update:
+    if autodiff:
+        _, update_policy = make_update_fns(hp)
+        perm_shape = update_policy.perm_shape
+    elif dp_update:
         hp_l = dataclasses.replace(hp, num_envs=W_l)
         if hp.num_minibatches * hp_l.minibatch_size != T * W_l:
             raise ValueError(f"dp_update: num_minibatches="
@@ -556,38 +947,52 @@ def make_train_iteration(cfg: SimConfig, hp: PPOParams, device="cuda",
         pulse_gen.manual_seed(pulse_seed(seed, counter))
         perm_gen.manual_seed(perm_seed(seed, counter))
 
+    def draw_perms():
+        if autodiff:
+            return update_policy.draw_perms(perm_gen, dev)
+        return torch.stack([
+            torch.randperm(perm_shape[-1], generator=perm_gen, device=dev)
+            for _ in range(math.prod(perm_shape[:-1]))
+        ]).reshape(perm_shape)
+
     def run(state: TrainState, noise, perms, mark, tick_base, count):
         """One iteration with kernel B's tick_base and the Adam count
         given (ints, or 0-d int32 tensors on the card), drawing what is
         not injected from the generators as they stand."""
         mark_ = mark or (lambda name: None)
         if perms is None:
-            perms = torch.stack([
-                torch.randperm(perm_shape[-1], generator=perm_gen,
-                               device=dev)
-                for _ in range(math.prod(perm_shape[:-1]))
-            ]).reshape(perm_shape)
+            perms = draw_perms()
         if tuple(perms.shape) != perm_shape:
             raise ValueError(f"perms must be {perm_shape}")
         state, out = run_collect(state, noise, mark, tick_base)
         agent = state.agent
-        with torch.no_grad():
-            if dp_update:
-                params, mu, nu = dp_update_phase(
-                    hp_l, mesh, perms[mesh.rank].to(device=dev, dtype=I32)
-                    .reshape(-1), count, out["traj"], out["side"],
-                    out["ustats"], FU.pack_norm(agent.obs_rms),
-                    FU.pack_weights(agent.net), state.opt.mu, state.opt.nu,
-                    wb=wb)
-            else:
-                params, mu, nu = FU.fused_update_phase(
-                    hp, perms.to(device=dev, dtype=I32).reshape(-1), count,
-                    out["traj"], out["side"], FU.pack_norm(agent.obs_rms),
-                    out["ustats"], FU.pack_weights(agent.net), state.opt.mu,
-                    state.opt.nu, wb=wb)
-            FU.unpack_weights(agent.net, *params)
+        if not rollout_kernel:
+            agent, opt = update_policy(
+                agent, state.opt, out["buf"], out["advantages"],
+                out["values_n"], out["returns_n"], perms.to(dev), count)
+        elif autodiff:
+            agent, opt = update_policy.with_feat(
+                agent, state.opt, out["feat"], FR.ROLL_OBS, 6, perms.to(dev),
+                count)
+        else:
+            with torch.no_grad():
+                if dp_update:
+                    params, mu, nu = dp_update_phase(
+                        hp_l, mesh, perms[mesh.rank].to(device=dev, dtype=I32)
+                        .reshape(-1), count, out["traj"], out["side"],
+                        out["ustats"], FU.pack_norm(agent.obs_rms),
+                        FU.pack_weights(agent.net), state.opt.mu,
+                        state.opt.nu, wb=wb)
+                else:
+                    params, mu, nu = FU.fused_update_phase(
+                        hp, perms.to(device=dev, dtype=I32).reshape(-1),
+                        count, out["traj"], out["side"],
+                        FU.pack_norm(agent.obs_rms), out["ustats"],
+                        FU.pack_weights(agent.net), state.opt.mu,
+                        state.opt.nu, wb=wb)
+                FU.unpack_weights(agent.net, *params)
+            opt = AdamState(count=state.opt.count + n_updates, mu=mu, nu=nu)
         mark_("update")
-        opt = AdamState(count=state.opt.count + n_updates, mu=mu, nu=nu)
         state = dataclasses.replace(state, opt=opt,
                                     iteration=state.iteration + 1)
         return state, out
@@ -596,12 +1001,11 @@ def make_train_iteration(cfg: SimConfig, hp: PPOParams, device="cuda",
                         noise: Optional[CollectNoise] = None,
                         perms: Optional[torch.Tensor] = None,
                         mark: Optional[Callable[[str], None]] = None):
-        """One iteration.  perms (E, T * W / wb) injects the epochs' block
-        permutations (under dp_update (size, E, T * W_l / wb), every
-        rank's); noise the whole fleet's draws (CollectNoise); `mark(name)`
-        is called after each phase (the collect's, then "update").
-        Returns (state', out), `out` as `collect` gives it, the metrics at
-        out["metrics"]."""
+        """One iteration.  perms (`make_train_iteration`'s shapes) injects
+        the epochs' permutations; noise the whole fleet's draws
+        (CollectNoise); `mark(name)` is called after each phase (the
+        collect's, then "update").  Returns (state', out), `out` as the
+        collect gives it, the metrics at out["metrics"]."""
         reseed(state.seed, state.counter)
         return run(state, noise, perms, mark, state.counter * T,
                    state.opt.count)
@@ -613,6 +1017,7 @@ def make_train_iteration(cfg: SimConfig, hp: PPOParams, device="cuda",
 
     train_iteration.static = static
     train_iteration.mesh = mesh
+    train_iteration.perm_shape = perm_shape
     return train_iteration
 
 
@@ -625,6 +1030,20 @@ METRICS = ("mean_reward", "mean_episode_length", "reward_window",
            "adv_abs_mean", "value_mean")
 
 
+def world_tensors(state) -> list:
+    """The fleet's tensors of a rows TrainState (sf, si, obs) or of the
+    structured trainer's (its env State's tensors, in field order)."""
+    if hasattr(state, "sf"):
+        return [state.sf, state.si, state.obs]
+    from ..state import tree_leaves
+    return tree_leaves(state.env)
+
+
+def state_device(state) -> torch.device:
+    return state.sf.device if hasattr(state, "sf") else \
+        state.env.reset_now.device
+
+
 def state_tensors(state: TrainState) -> list:
     """Every tensor of a TrainState, in a fixed order: both agents'
     weights and normalizers, the rows, the episode stats, Adam's
@@ -634,7 +1053,7 @@ def state_tensors(state: TrainState) -> list:
         out += list(a.net.parameters())
         out += [getattr(r, f) for r in (a.obs_rms, a.value_rms)
                 for f in ("mean", "var", "count")]
-    out += [state.sf, state.si, state.obs]
+    out += world_tensors(state)
     out += [getattr(state.stats, f.name)
             for f in dataclasses.fields(EpisodeStats)]
     return out + list(state.opt.mu) + list(state.opt.nu)
@@ -668,10 +1087,16 @@ class StaticIteration:
         self._run, self._T, self._n_updates = run, T, n_updates
         self.reseed, self.generators = reseed, generators
         self.state = copy.deepcopy(state)
-        dev = state.sf.device
+        if not hasattr(state, "sf"):
+            # own contiguous buffers (a view's deep copy keeps its strides)
+            from ..state import tree_map
+            self.state.env = tree_map(lambda t: t.contiguous().clone(),
+                                      self.state.env)
+        dev = state_device(state)
         self.counter = torch.zeros((), dtype=I32, device=dev)
         self.count = torch.zeros((), dtype=I32, device=dev)
         self.metrics = torch.zeros((len(METRICS),), dtype=F32, device=dev)
+        self.world0 = None
         self.load(state)
 
     @torch.no_grad()
@@ -694,6 +1119,9 @@ class StaticIteration:
                 dst.copy_(src)
         self.metrics.copy_(torch.stack([out["metrics"][k]
                                         for k in METRICS]))
+        # world 0's rows (record_world0): the step's own tensors, which a
+        # captured step rewrites in place at every replay
+        self.world0 = out["metrics"].get("world0")
         self.counter.add_(1)
         self.count.add_(self._n_updates)
 
@@ -711,7 +1139,11 @@ class StaticIteration:
         opt = AdamState(count=state.opt.count + n * self._n_updates,
                         mu=tuple(m.clone() for m in s.opt.mu),
                         nu=tuple(v.clone() for v in s.opt.nu))
+        if hasattr(s, "sf"):
+            fleet = dict(sf=s.sf.clone(), si=s.si.clone(), obs=s.obs.clone())
+        else:
+            from ..state import tree_map
+            fleet = dict(env=tree_map(torch.clone, s.env))
         return dataclasses.replace(
-            state, agent=agent, sf=s.sf.clone(), si=s.si.clone(),
-            obs=s.obs.clone(), stats=stats, counter=state.counter + n,
-            opt=opt, iteration=state.iteration + n)
+            state, agent=agent, stats=stats, counter=state.counter + n,
+            opt=opt, iteration=state.iteration + n, **fleet)

@@ -4,6 +4,8 @@ chunked 100 iterations a dispatch as the JAX script does.
 
     python -m madrona_basketball_tpu_torch.run_convergence [W] [iters]
         [seed] [update_block] [--tiled] [--frozen]
+        [--no-fused-gae] [--no-fused-grads] [--shuffle-block G]
+        [--no-rollout-kernel] [--structured]
         [--num-rollout-steps T] [--device cpu]
 
 Defaults: 8192 worlds, 1500 iterations (a multiple of the 100-iteration
@@ -11,12 +13,15 @@ chunk), seed 1, the default update block
 (0), the canonical learning task (trainee 1 against the in-sim defense,
 no frozen opponent; `--frozen` adds a frozen random policy as the JAX
 script's flag does).  `--tiled` runs the `--rollout-tiled` iteration
-(kernels I and E).  Prints the reward and episode length after every
-chunk (`utils/benching.py::run_chunked_train`), then one JSON line: the
-curve, whether the params are finite, the sustained train env-steps/s
-(the first chunk's capture included) and the card's name and power
-limit.  `--device cpu` runs the plain versions at a small size; its
-numbers are CPU times, not device metrics.
+(kernels I and E); `--no-fused-gae`, `--no-fused-grads` (with
+`--shuffle-block`), `--no-rollout-kernel` and `--structured` the
+training CLI's alternate paths of the same names.  Prints the reward
+and episode length after every chunk
+(`utils/benching.py::run_chunked_train`), then one JSON line: the curve,
+whether the params are finite, the sustained train env-steps/s (the
+first chunk's capture included) and the card's name and power limit.
+`--device cpu` runs the plain versions at a small size; its numbers are
+CPU times, not device metrics.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 
 from .bench import card_name_and_power_limit
 from .config import SimConfig
+from .ppo import train as TT
 from .ppo.hparams import PPOParams
 from .ppo.train import make_train_chunk
 from .ppo.train_fused import init_train_state, make_train_iteration
@@ -44,6 +50,12 @@ def main(argv=None) -> dict:
     ap.add_argument("update_block", nargs="?", type=int, default=0)
     ap.add_argument("--tiled", action="store_true")
     ap.add_argument("--frozen", action="store_true")
+    ap.add_argument("--no-fused-gae", action="store_true")
+    ap.add_argument("--no-fused-grads", action="store_true")
+    ap.add_argument("--no-rollout-kernel", action="store_true")
+    ap.add_argument("--structured", action="store_true")
+    ap.add_argument("--shuffle-block", type=int,
+                    default=PPOParams.shuffle_block)
     ap.add_argument("--num-rollout-steps", type=int,
                     default=PPOParams.num_rollout_steps)
     ap.add_argument("--device", default="cuda")
@@ -61,11 +73,23 @@ def main(argv=None) -> dict:
     W, T = args.worlds, args.num_rollout_steps
     cfg = SimConfig()
     hp = PPOParams(num_envs=W, num_rollout_steps=T, use_frozen=args.frozen,
-                   update_block=args.update_block)
-    it = make_train_iteration(cfg, hp, dev, rollout_tiled=args.tiled)
-    state = init_train_state(cfg, hp, seed=args.seed, device=dev)
+                   update_block=args.update_block,
+                   shuffle_block=args.shuffle_block)
+    paths = [f for f in ("tiled", "no_fused_gae", "no_fused_grads",
+                         "no_rollout_kernel", "structured")
+             if getattr(args, f)]
+    if args.structured:
+        it = TT.make_train_iteration(cfg, hp, dev)
+        state = TT.init_train_state(cfg, hp, args.seed, dev)
+    else:
+        it = make_train_iteration(
+            cfg, hp, dev, rollout_tiled=args.tiled,
+            rollout_kernel=not args.no_rollout_kernel,
+            fused_grads=not args.no_fused_grads,
+            fused_gae=False if args.no_fused_gae else None)
+        state = init_train_state(cfg, hp, seed=args.seed, device=dev)
     label = (f"conv seed={args.seed} ub={args.update_block or 'auto'}"
-             f"{' tiled' if args.tiled else ''}"
+             f"{''.join(' ' + f for f in paths)}"
              f"{' frozen' if args.frozen else ''}")
     state, summary = run_chunked_train(
         state, make_train_chunk(it, CHUNK), args.iters, label, W, T,
@@ -73,6 +97,7 @@ def main(argv=None) -> dict:
     line = {"metric": "convergence", "worlds": W, "ticks": T,
             "iterations": args.iters, "seed": args.seed,
             "update_block": args.update_block, "tiled": args.tiled,
+            "paths": paths, "shuffle_block": args.shuffle_block,
             "frozen": args.frozen, "iters_per_dispatch": CHUNK,
             **summary, "device": name, "power_limit": power}
     print(json.dumps(line), flush=True)

@@ -5,8 +5,10 @@ the JAX package's `utils.checkpoint.load_agent` reads back to the port's
 weights and normalizers exactly; a checkpoint written by the JAX package
 (`torch_state_dict_from_agent_params` + `torch.save`) loads into the port
 exactly; `--rollout-tiled` trains (kernels I and E's plain versions on
-the CPU) and refuses a world count that is not a multiple of 1024; flags
-of paths the port does not have exit; `--dp-update` without
+the CPU) and refuses a world count that is not a multiple of 1024; the
+flags of the alternate trainer paths train and save; their invalid
+combinations refuse with the JAX package's messages; flags of paths the
+port does not have exit; `--dp-update` without
 `--data-parallel`, or with `--rollout-tiled`, refuses with the JAX
 package's messages."""
 
@@ -101,12 +103,52 @@ def test_foreign_obs_tail_is_zeroed_with_a_warning(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--backend", "xla-rows"], ["--no-rollout-kernel"], ["--no-fused-grads"],
-    ["--no-fused-gae"], ["--bf16-traj"],
-    ["--bf16-policy"], ["--rollout-block", "2048"], ["--shuffle-block", "1"],
-    ["--interactive"], ["--viewer"], ["--backend", "structured"]])
+    ["--bf16-traj"], ["--bf16-policy"], ["--rollout-block", "2048"],
+    ["--interactive"]])
 def test_unported_flags_exit_naming_the_roadmap_item(flags):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
+        cli.main(SMALL + ["--num-iterations", "1"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--backend", "xla-rows"], ["--no-rollout-kernel"], ["--no-fused-grads"],
+    ["--no-fused-gae"], ["--shuffle-block", "1"], ["--viewer"],
+    ["--backend", "structured"]])
+def test_alternate_path_flags_train_and_save(flags, tmp_path, monkeypatch,
+                                             capsys):
+    """The flags of the alternate trainer paths (once refused, each with a
+    case of the test above) train one iteration and save a checkpoint
+    that loads back finite."""
+    monkeypatch.chdir(tmp_path)
+    state = cli.main(SMALL + ["--num-iterations", "1",
+                              "--save-model-every-n-iterations", "1",
+                              "--model-name", "alt"] + flags)
+    out = capsys.readouterr().out
+    assert "Update: 1 Took" in out and "Model alt saved at iteration 1" in out
+    assert state.iteration == 1 and state.opt.count == 16
+    path = tmp_path / ckpt.checkpoint_path("alt", 1)
+    back = ckpt.load_agent(str(path), "cpu")
+    for k, v in ckpt.state_dict(back).items():
+        assert bool(torch.isfinite(v).all()), k
+    if "--viewer" in flags:
+        assert "live viewer is not ported yet" in out
+        assert (tmp_path / "logs" / "alt").is_dir()
+
+
+@pytest.mark.parametrize("flags, message", [
+    (["--no-rollout-kernel", "--fused-gae"],
+     "--fused-gae requires the rollout kernel and fused gradients"),
+    (["--viewer", "--rollout-kernel"],
+     "rollout_kernel does not support record_world0"),
+    (["--backend", "xla-rows", "--rollout-kernel"],
+     r"rollout_kernel requires the pallas backend \(TPU\)"),
+    (["--no-rollout-kernel", "--rollout-tiled"],
+     "rollout_tiled selects the 2-D-tiled variant"),
+    (["--no-fused-gae", "--data-parallel", "--dp-update"],
+     "--dp-update requires --data-parallel and the fused-GAE flagship")])
+def test_invalid_path_combinations_refuse_with_the_jax_messages(flags,
+                                                                message):
+    with pytest.raises(SystemExit, match=message):
         cli.main(SMALL + ["--num-iterations", "1"] + flags)
 
 

@@ -34,7 +34,7 @@ def test_port_modules_import_without_jax():
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.strip().split("\n") + [""] * (
         2 - len(out.stdout.strip().split("\n")))
-    assert int(n_modules) >= 41
+    assert int(n_modules) >= 43
     assert bad == "", f"port pulled in: {bad}"
 
 

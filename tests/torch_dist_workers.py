@@ -139,7 +139,52 @@ def _cli_job(rank, argv, out_dir):
     cli.main(argv)
 
 
-JOBS = {"iterations": _iterations_job, "cli": _cli_job}
+def run_paths(mesh, spec: dict) -> dict:
+    """`spec["iters"]` iterations of the per-tick rows path
+    (spec["path"] "per_tick") or the structured trainer ("structured")
+    under `mesh` (or none), on injected noise and permutations; CPU copies
+    of the learner, the stats, the metrics and the fleet (the structured
+    state packed into rows)."""
+    from madrona_basketball_tpu_torch.ops import layout
+    from madrona_basketball_tpu_torch.ppo import train as TT
+    cfg, hp = SimConfig(), hparams(spec)
+    if spec["path"] == "structured":
+        init, make = TT.init_train_state, TT.make_train_iteration
+        kw = {}
+    else:
+        init, make = init_train_state, make_train_iteration
+        kw = {"rollout_kernel": False}
+    state = init(cfg, hp, spec.get("seed", 3), "cpu")
+    if mesh is not None:
+        state = shard_train_state(state, mesh)
+    it_fn = make(cfg, hp, "cpu", mesh=mesh, **kw)
+    metrics = []
+    for it in range(spec["iters"]):
+        state, o = it_fn(state, noise_of(spec, it),
+                         perms=perms_of(it_fn.perm_shape, it))
+        metrics.append({k: _cpu(v) for k, v in o["metrics"].items()})
+    fleet = layout.pack(state.env) if hasattr(state, "env") else \
+        (state.sf, state.si)
+    return dict(
+        params=[_cpu(p) for p in FU.pack_weights(state.agent.net)],
+        mu=[_cpu(m) for m in state.opt.mu],
+        nu=[_cpu(v) for v in state.opt.nu],
+        rms={f"{a}.{f}": _cpu(getattr(getattr(state.agent, a), f))
+             for a in ("obs_rms", "value_rms")
+             for f in ("mean", "var", "count")},
+        stats={f.name: _cpu(getattr(state.stats, f.name))
+               for f in dataclasses.fields(state.stats)},
+        rows=[_cpu(x) for x in fleet], metrics=metrics,
+        count=state.opt.count, counter=state.counter)
+
+
+def _paths_job(rank, spec, out_dir):
+    torch.save(run_paths(make_mesh("cpu"), spec),
+               os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+JOBS = {"iterations": _iterations_job, "cli": _cli_job,
+        "paths": _paths_job}
 
 
 def _entry(rank, world, rdv, job, arg, out_dir):
