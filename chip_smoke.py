@@ -7,7 +7,9 @@ Builds every kernel of madrona_basketball_tpu_torch/csrc - A (fused_step),
 B (fused_rollout), C (fused_gae), the meter scan (meter_scan), the
 update kernels D, G and H (fused_update), the K-tick kernel F
 (fused_multistep, both instances), the tiled rollout I
-(fused_rollout_tiled) and the obs moments E (obs_moments) - holds each
+(fused_rollout_tiled), the obs moments E (obs_moments) and kernel B's
+bf16 instances (fused_rollout_bf16; C, D, E and G keep their bf16
+instances in their own sources) - holds each
 against its plain torch version on the card at the flagship shapes
 (plus the shot's going-in test on worlds at its threshold, and the tiled
 collect), then drives the port's training paths: `init_train_state` and
@@ -107,8 +109,30 @@ trajectory bit for bit, the drift of 3 iterations printed),
 the autodiff update's gradient and first Adam step against kernel H's
 plain gradient, the structured tick against kernel A after
 `layout.pack`, and the CLI with each new flag (`cli_alt`, --viewer's
-episode npz in the reference schema).  Each kernel's own device
-time comes from torch.profiler, beside the CUDA-event time of
+episode npz in the reference schema).  The bf16 flags (ROADMAP item
+16c) follow: `bf16_kernels` holds each bf16 branch at the main path's
+shapes - kernel B's bf16 storage (its trajectory the float32 launch's
+rounded to bf16 and its state, obs, moments and fold partials the
+float32 launch's, bit for bit; against its plain version at B's Philox
+tier, plus one bf16 ulp), B's bf16 policy without and with the frozen
+policy (B's Philox tier, logp and value within POLICY_TOL = 2e-3: an
+FMA-contracted LayerNorm sum can round a Dense operand to the next bf16
+value; both flags at once are the bf16-policy launch rounded, bit for
+bit), and kernels C, E, D and G on a bf16 trajectory (each the float32
+instance on the upcast trajectory bit for bit, and its plain version at
+the float32 phase's tier, D per Adam step in
+`parity_fused_update_phase_bf16`); `bf16_paths` runs --bf16-traj,
+--bf16-policy, both, --data-parallel --bf16-traj and --dp-update
+--bf16-traj beside each other (launches counted from 0 around 3 eager
+iterations: each path's bf16 branches launched, nothing else; a chunk of
+3 equal to 3 eager iterations bit for bit; eager and chunked ms, device
+busy and idle share, peak memory); `learning_bf16_traj` and
+`learning_bf16_policy` run 2000 iterations from seed 321 in chunks of
+100 and hold the plateau (min..max of the mean reward from iteration
+1100 on) inside -150..-112 (the value at 600 printed, not gated); and
+`cli_bf16` runs the CLI with both flags (a loadable checkpoint) and with
+--rollout-tiled --bf16-traj (the JAX trainer's refusal).  Each kernel's
+own device time comes from torch.profiler, beside the CUDA-event time of
 back-to-back wrapper calls and of its plain version; kernel D's is also
 split into its gradient and reduce launches, and the redesigned kernels'
 rows carry ptxas's registers and spills and their warps per SM (what an
@@ -606,6 +630,94 @@ def _events_ms(fn, n):
     return out
 
 
+def eager_counted(it, state, reset_counts, counts, dev):
+    """A warm-up iteration (first uses, constants), then 3 eager
+    iterations, each timed alone with CUDA events, with every kernel's
+    launches counted from 0 around them: (state, out, numbers)."""
+    import torch
+    from madrona_basketball_tpu_torch.ops import fused_update as FU
+    t0 = time.perf_counter()
+    state, _ = it(state)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    start_bytes = torch.cuda.memory_allocated(dev)
+    reset_counts()
+    box = {"state": state}
+
+    def step():
+        box["state"], box["out"] = it(box["state"])
+    eager_ms = _events_ms(step, 3)
+    e_ms = statistics.median(eager_ms)
+    return box["state"], box["out"], {
+        "warmup_s": warm_s, "launches_3_iterations": counts(),
+        "fused_update_phase_device_launches": FU.device_launches,
+        "eager_ms": eager_ms, "eager_iteration_ms": e_ms,
+        "eager_train_env_steps_per_s": W * T / (e_ms / 1e3),
+        "eager_peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+        "start_bytes": start_bytes}
+
+
+def chunked_numbers(it, state, n, reps, reset_counts, counts, profiled,
+                    dev, phase):
+    """Chunks of n iterations (make_train_chunk): the first (its warm-up
+    step and capture) with launches counted from 0, then `reps` chunks
+    timed with CUDA events (the replays must count no launch), one graph
+    replay profiled for the device's busy time (a whole chunk holds n x
+    10^4..10^5 kernels, too many to profile), and the peak memory:
+    (state, numbers)."""
+    import torch
+    from madrona_basketball_tpu_torch.ppo import train as TT
+    chunk = TT.make_train_chunk(it, n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    state, _ = chunk(state)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    cap = counts()
+    box = {"state": state}
+
+    def run_chunk():
+        box["state"], box["stacked"] = chunk(box["state"])
+    chunk_ms = _events_ms(run_chunk, reps)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if counts() != cap:
+        raise Fail(f"{phase}: replays counted launches")
+    state = box["state"]
+    static, graph = chunk.captured["static"], chunk.captured["graph"]
+
+    def one_replay():
+        static.reseed(state.seed, state.counter)
+        graph.replay()
+    _, busy, wall, top = profiled(one_replay)
+    it_ms = statistics.median(chunk_ms) / n
+    return state, {
+        "iters_per_dispatch": n, "chunk_ms": chunk_ms,
+        "chunked_iteration_ms": it_ms,
+        "chunked_train_env_steps_per_s": W * T / (it_ms / 1e3),
+        "first_chunk_s": first_s, "launches_at_capture": cap,
+        "device_busy_ms_per_iteration": busy,
+        "device_idle_share": (1.0 - busy / it_ms) if busy else None,
+        "profiled_replay_wall_ms": wall, "top_device_ms_chunk": top,
+        "peak_memory_bytes": peak}
+
+
+def path_line(eager, busy, wall, top, chunked):
+    """The phase line of a path from `eager_counted`'s and
+    `chunked_numbers`' numbers and one profiled eager iteration's busy,
+    wall and top kernels (None where not profiled)."""
+    start = eager.pop("start_bytes")
+    return {**eager, "eager_device_busy_ms": busy,
+            "eager_device_idle_share": (1.0 - busy / wall) if busy else None,
+            "eager_profiled_wall_ms": wall, "top_device_ms_eager": top,
+            **chunked,
+            "peak_over_start_bytes": chunked["peak_memory_bytes"] - start,
+            "eager_peak_over_start_bytes":
+            eager["eager_peak_memory_bytes"] - start}
+
+
 def alt_paths(cfg, hp, dev, gen, n_mb, reset_counts, counts, profiled,
               chunk_parity):
     """Each alternate path at the flagship width (8192 x 32, 4 x 4): a
@@ -644,23 +756,11 @@ def alt_paths(cfg, hp, dev, gen, n_mb, reset_counts, counts, profiled,
                 return TF.make_train_iteration(cfg, hp_p, dev, **kw)
         it = make()
         state = init(1)
-        t0 = time.perf_counter()
-        state, _ = it(state)          # warm-up: first uses, constants
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        torch.cuda.reset_peak_memory_stats(dev)
-        start_bytes = torch.cuda.memory_allocated(dev)
         p0 = FU.pack_weights(state.agent.net)
-        reset_counts()
-        box = {"state": state}
-
-        def step():
-            box["state"], box["out"] = it(box["state"])
-        eager_ms = _events_ms(step, 3)
-        state, out = box["state"], box["out"]
-        launches = counts()
-        d_dev = FU.device_launches
-        eager_peak = torch.cuda.max_memory_allocated(dev)
+        state, out, eager = eager_counted(it, state, reset_counts, counts,
+                                          dev)
+        launches = eager["launches_3_iterations"]
+        d_dev = eager["fused_update_phase_device_launches"]
         missing = [k for k in on if launches[k] < 1]
         stray = [k for k in KERNELS if k not in on and launches[k]]
         if missing or stray:
@@ -696,61 +796,16 @@ def alt_paths(cfg, hp, dev, gen, n_mb, reset_counts, counts, profiled,
         chunk_parity(f"{phase}_chunk_parity", False, state, it)
 
         n = 10 if kw is None else 50
-        chunk = TT.make_train_chunk(it, n)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset_counts()
-        t0 = time.perf_counter()
-        state, stacked = chunk(state)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        cap = counts()
-        box["state"] = state
-
-        def run_chunk():
-            box["state"], box["stacked"] = chunk(box["state"])
-        chunk_ms = _events_ms(run_chunk, 2)
-        peak = torch.cuda.max_memory_allocated(dev)
-        if counts() != cap:
-            raise Fail(f"{phase}: replays counted launches")
-        state = box["state"]
-        # one replay of the captured iteration profiled (a whole chunk
-        # holds n x 10^4..10^5 kernels, too many to profile)
-        static, graph = chunk.captured["static"], chunk.captured["graph"]
-
-        def one_replay():
-            static.reseed(state.seed, state.counter)
-            graph.replay()
-        _, c_busy_it, c_wall, c_top = profiled(one_replay)
-        it_ms = statistics.median(chunk_ms) / n
-        e_ms = statistics.median(eager_ms)
-        line = {"phase": phase, "worlds": W, "ticks": T,
-                "epochs": hp_p.update_epochs,
-                "minibatches": hp_p.num_minibatches,
-                "shuffle_block": hp_p.shuffle_block,
-                "flags": "structured" if kw is None else kw,
-                "warmup_s": warm_s, "launches_3_iterations": launches,
-                "fused_update_phase_device_launches": d_dev,
-                "eager_ms": eager_ms, "eager_iteration_ms": e_ms,
-                "eager_train_env_steps_per_s": W * T / (e_ms / 1e3),
-                "eager_device_busy_ms": busy,
-                "eager_device_idle_share": (1.0 - busy / wall) if busy
-                else None, "eager_profiled_wall_ms": wall,
-                "top_device_ms_eager": top,
-                "eager_peak_memory_bytes": eager_peak,
-                "iters_per_dispatch": n, "chunk_ms": chunk_ms,
-                "chunked_iteration_ms": it_ms,
-                "chunked_train_env_steps_per_s": W * T / (it_ms / 1e3),
-                "first_chunk_s": first_s, "launches_at_capture": cap,
-                "device_busy_ms_per_iteration": c_busy_it,
-                "device_idle_share": (1.0 - c_busy_it / it_ms) if c_busy_it
-                else None, "profiled_replay_wall_ms": c_wall,
-                "top_device_ms_chunk": c_top, "peak_memory_bytes": peak,
-                "peak_over_start_bytes": peak - start_bytes,
-                "eager_peak_over_start_bytes": eager_peak - start_bytes,
-                "metrics": m}
-        emit(line)
-        del chunk, box, state, out, it
+        state, chunked = chunked_numbers(it, state, n, 2, reset_counts,
+                                         counts, profiled, dev, phase)
+        it_ms = chunked["chunked_iteration_ms"]
+        emit({"phase": phase, "worlds": W, "ticks": T,
+              "epochs": hp_p.update_epochs,
+              "minibatches": hp_p.num_minibatches,
+              "shuffle_block": hp_p.shuffle_block,
+              "flags": "structured" if kw is None else kw,
+              **path_line(eager, busy, wall, top, chunked), "metrics": m})
+        del state, out, it
         torch.cuda.empty_cache()
 
         # learning, in chunks of 50
@@ -785,8 +840,9 @@ def alt_paths(cfg, hp, dev, gen, n_mb, reset_counts, counts, profiled,
         del l_chunk, l_state
         torch.cuda.empty_cache()
         res["launches"][phase] = launches
-        res[phase] = {"eager_ms": e_ms, "chunked_ms": it_ms,
-                      "learning_iterations": n_learn, "final": final}
+        res[phase] = {"eager_ms": eager["eager_iteration_ms"],
+                      "chunked_ms": it_ms, "learning_iterations": n_learn,
+                      "final": final}
     return res
 
 
@@ -1076,6 +1132,234 @@ def alt_cli(dev):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------
+# The bf16 flags (ROADMAP item 16c)
+# ---------------------------------------------------------------------
+
+POLICY_TOL = 2e-3  # the bf16 policy's logp and value rows against the
+# plain version: the kernel contracts a LayerNorm's sums into FMAs, the
+# plain version does not, and that ulp can move a Dense operand across a
+# bf16 rounding boundary: a few bf16 ulps of a logit (the plain version
+# holds the JAX kernel at the same tolerance,
+# tests/test_torch_bf16_rollout.py)
+# phase, make_train_iteration's flags ("mesh": on the in-process group),
+# the kernels (float32 or bf16 instances) the path launches
+BF16_PATHS = (
+    ("bf16_traj_path", {"bf16_traj": True},
+     ("fused_step", "fused_rollout_bf16_traj", "fused_gae_bf16",
+      "meter_scan", "fused_update_phase_bf16")),
+    ("bf16_policy_path", {"bf16_policy": True},
+     ("fused_step", "fused_rollout_bf16_policy", "fused_gae", "meter_scan",
+      "fused_update_phase")),
+    ("bf16_both_path", {"bf16_traj": True, "bf16_policy": True},
+     ("fused_step", "fused_rollout_bf16_traj", "fused_rollout_bf16_policy",
+      "fused_gae_bf16", "meter_scan", "fused_update_phase_bf16")),
+    ("bf16_dp_traj_path", {"bf16_traj": True, "mesh": True},
+     ("fused_step", "fused_rollout_bf16_traj", "fused_gae_bf16",
+      "meter_scan", "obs_moments_bf16", "fused_update_phase_bf16")),
+    ("bf16_dp_update_traj_path", {"bf16_traj": True, "mesh": True,
+                                  "dp_update": True},
+     ("fused_step", "fused_rollout_bf16_traj", "fused_gae_bf16",
+      "meter_scan", "fused_minibatch_grad_prefetch_bf16")),
+)
+BF16_LEARN = 2000        # learning iterations of each flag, seed 321
+BF16_LEARN_CHUNK = 100   # iterations a dispatch (run_convergence's)
+BF16_PLATEAU_FROM = 1100  # the plateau: min..max of the chunks' mean
+# reward over the second half of the run (as the flagship's
+# 10 000-iteration runs take 5100..10 000, PERF.md §7)
+BF16_BAND = (-150.0, -112.0)  # the plateau's gate: the JAX record's
+# -122..-140 band of its 2000-iteration bf16 A/B (a TPU's: bf16 traj
+# -133.0, f32 -130.7; BENCHMARKS.md:31-35) widened by ~10, as the
+# flagship's
+
+
+def philox_tier(name, k, p, row_tol=None):
+    """Kernel B's tier over 32 ticks of in-kernel Philox noise against its
+    plain version (k, p: (sf, si, obs, traj, ...)): at most 0.1 % of
+    worlds diverge (integer state or sampled actions); in the others
+    every float of sf', obs' and the trajectory within 1e-4 absolute
+    (trajectory rows in row_tol {row: tol} at theirs), plus, for a bf16
+    trajectory, one bf16 ulp (2**-7 of the value: two values within the
+    tier may round apart).  Returns (diverged fraction, max abs error)."""
+    import torch
+    from madrona_basketball_tpu_torch.ops import fused_rollout as FR
+    kt, pt = k[3].float(), p[3].float()
+    acts = slice(FR.R_ACT, FR.R_ACT + 6)
+    div = (k[1] != p[1]).any(dim=0) | \
+        (kt[:, acts] != pt[:, acts]).any(dim=0).any(dim=0)
+    frac = float(div.float().mean())
+    if frac > 1e-3:
+        raise Fail(f"{name}: {frac:.4%} of worlds diverged")
+    ok = ~div
+    err = max(float((k[i][:, ok] - p[i][:, ok]).abs().max()) for i in (0, 2))
+    tol = torch.full((FR.ROLL_ROWS, 1), 1e-4, device=kt.device)
+    for r, t in (row_tol or {}).items():
+        tol[r] = t
+    d = (kt[..., ok] - pt[..., ok]).abs()
+    lim = tol[None] + (2.0 ** -7 * pt[..., ok].abs()
+                       if k[3].dtype == torch.bfloat16 else 0.0)
+    if err > 1e-4 or bool((d > lim).any()):
+        raise Fail(f"{name}: float error {max(err, float(d.max()))} above "
+                   "the tier in the worlds that agree")
+    return frac, max(err, float(d.max()))
+
+
+def bf16_paths(cfg, hp, dev, mesh, reset_counts, counts, profiled,
+               chunk_parity):
+    """Each path of BF16_PATHS at the flagship width (8192 x 32, 4 x 4),
+    the data-parallel ones on `mesh` (the in-process NCCL group of one
+    rank): a warm-up iteration, 3 eager iterations with every kernel's
+    launches counted from 0 (the path's kernels, each bf16 branch at
+    least once, and no other; the trajectory's dtype), the eager ms; one
+    profiled eager iteration (device busy and idle share); 3 eager
+    iterations against a chunk of 3 bit for bit (`chunk_parity`); chunks
+    of 50 (make_train_chunk), their ms by CUDA events (median of 3), one
+    profiled graph replay against it (the idle share) and peak memory.
+    Returns each path's launches and numbers."""
+    import torch
+    from madrona_basketball_tpu_torch.parallel import mesh as PM
+    from madrona_basketball_tpu_torch.ppo import train_fused as TF
+    every = {k for _, _, on in BF16_PATHS for k in on} | {
+        "fused_rollout", "fused_rollout_tiled", "fused_gae", "obs_moments",
+        "fused_update_phase", "fused_minibatch_grad_prefetch",
+        "fused_minibatch_grad"}
+    res = {"launches": {}}
+    for phase, flags, on in BF16_PATHS:
+        kw = dict(flags)
+        on_mesh = kw.pop("mesh", False)
+        dp = kw.get("dp_update", False)
+        it = TF.make_train_iteration(cfg, hp, dev,
+                                     mesh=mesh if on_mesh else None, **kw)
+        state = TF.init_train_state(cfg, hp, 1, dev)
+        if on_mesh:
+            state = PM.shard_train_state(state, mesh, dp)
+        state, out, eager = eager_counted(it, state, reset_counts, counts,
+                                          dev)
+        launches = eager["launches_3_iterations"]
+        missing = [k for k in on if launches[k] < 1]
+        stray = [k for k in every if k not in on and launches.get(k)]
+        if missing or stray:
+            raise Fail(f"{phase}: kernels {missing} not launched, {stray} "
+                       f"launched: {launches}")
+        want = torch.bfloat16 if kw.get("bf16_traj") else torch.float32
+        if out["traj"].dtype != want:
+            raise Fail(f"{phase}: trajectory {out['traj'].dtype}")
+        m = {k: float(out["metrics"][k]) for k in TF.METRICS}
+        if not all(v == v and abs(v) < 1e30 for v in m.values()) or \
+                not all(bool(torch.isfinite(p).all())
+                        for p in state.agent.net.parameters()):
+            raise Fail(f"{phase}: metrics {m} or params non-finite")
+        (state, _), busy, wall, top = profiled(lambda: it(state))
+        chunk_parity(f"{phase}_chunk_parity", False, state, it)
+        state, chunked = chunked_numbers(it, state, 50, 3, reset_counts,
+                                         counts, profiled, dev, phase)
+        emit({"phase": phase, "worlds": W, "ticks": T,
+              "epochs": hp.update_epochs, "minibatches": hp.num_minibatches,
+              "flags": flags, "traj_dtype": str(want),
+              **path_line(eager, busy, wall, top, chunked), "metrics": m})
+        res["launches"][phase] = launches
+        res[phase] = {"eager_ms": eager["eager_iteration_ms"],
+                      "chunked_ms": chunked["chunked_iteration_ms"]}
+        del state, out, it
+        torch.cuda.empty_cache()
+    return res
+
+
+def bf16_learning(cfg, hp, dev):
+    """BF16_LEARN iterations of each bf16 flag from seed 321 in chunks of
+    BF16_LEARN_CHUNK: the plateau (min..max of the chunks' mean reward
+    from BF16_PLATEAU_FROM on) must lie in BF16_BAND; the value at 600
+    iterations and whether it lies in the flagship's 600-iteration band
+    (-150..-105) are printed, not gated (a rounding-level change moves
+    the 600-iteration value chaotically: ROADMAP §3)."""
+    import torch
+    from madrona_basketball_tpu_torch.ppo import train as TT
+    from madrona_basketball_tpu_torch.ppo import train_fused as TF
+    for phase, kw in (("learning_bf16_traj", {"bf16_traj": True}),
+                      ("learning_bf16_policy", {"bf16_policy": True})):
+        l_state = TF.init_train_state(cfg, hp, 321, dev)
+        l_chunk = TT.make_train_chunk(TF.make_train_iteration(
+            cfg, hp, dev, **kw), BF16_LEARN_CHUNK)
+        curve = []
+        t0 = time.perf_counter()
+        for k in range(BF16_LEARN // BF16_LEARN_CHUNK):
+            l_state, st = l_chunk(l_state)
+            curve.append([BF16_LEARN_CHUNK * (k + 1),
+                          float(st["mean_reward"][-1]),
+                          float(st["mean_episode_length"][-1])])
+        secs = time.perf_counter() - t0
+        if not all(bool(torch.isfinite(p).all())
+                   for p in l_state.agent.net.parameters()):
+            raise Fail(f"{phase}: non-finite params")
+        tail = [r for i, r, _ in curve if i >= BF16_PLATEAU_FROM]
+        plateau = [min(tail), max(tail)]
+        at600 = next(r for i, r, _ in curve if i == 600)
+        emit({"phase": phase, "iterations": BF16_LEARN, "seed": 321,
+              "flags": kw, "iters_per_dispatch": BF16_LEARN_CHUNK,
+              "seconds": secs, "curve": curve,
+              "plateau_from": BF16_PLATEAU_FROM, "plateau": plateau,
+              "band": list(BF16_BAND),
+              "in_band": BF16_BAND[0] <= plateau[0] and
+              plateau[1] <= BF16_BAND[1],
+              "at_600": at600, "at_600_in_band": -150.0 <= at600 <= -105.0})
+        if not (BF16_BAND[0] <= plateau[0] and plateau[1] <= BF16_BAND[1]):
+            raise Fail(f"{phase}: plateau {plateau} over iterations "
+                       f"{BF16_PLATEAU_FROM}..{BF16_LEARN} outside "
+                       f"{BF16_BAND}")
+        del l_chunk, l_state
+        torch.cuda.empty_cache()
+
+
+def bf16_cli():
+    """The training CLI with --bf16-traj --bf16-policy (4 iterations,
+    logged every 2, at the auto chunk of 2: one iteration captured and
+    replayed) writes a checkpoint that loads back equal and finite; with
+    --rollout-tiled --bf16-traj it exits with the JAX trainer's message.
+    The two run side by side as subprocesses."""
+    import torch
+    from madrona_basketball_tpu_torch import _build
+    from madrona_basketball_tpu_torch.ppo import train_fused as TF
+    from madrona_basketball_tpu_torch.utils import checkpoint as CK
+    root = Path(__file__).resolve().parent
+    tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
+    try:
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            filter(None, [str(root), os.environ.get("PYTHONPATH")])))
+        base = ["madrona_basketball_tpu_torch.cli", *ALT_CLI_ARGS,
+                "--num-iterations", "4", "--log-every-n-iterations", "2",
+                "--save-model-every-n-iterations", "4"]
+        jobs = {"bf16": (base + ["--model-name", "bf16", "--bf16-traj",
+                                 "--bf16-policy"], {}),
+                "tiled": (base + ["--model-name", "bf16t", "--rollout-tiled",
+                                  "--bf16-traj"], {})}
+        done = run_clis(jobs, tmp, env)
+        rc, so, se, secs = done["bf16"]
+        if rc != 0 or "Iterations per dispatch: 2" not in so:
+            raise Fail(f"cli --bf16-traj --bf16-policy exited {rc}: "
+                       f"{se[-3000:]} {so[-1000:]}")
+        path = Path(tmp) / CK.checkpoint_path("bf16", 4)
+        saved = torch.load(path, weights_only=True)
+        back = CK.state_dict(CK.load_agent(str(path), "cpu"))
+        if sorted(back) != sorted(saved) or not all(
+                torch.equal(back[k], saved[k].cpu()) and
+                bool(torch.isfinite(saved[k]).all()) for k in saved):
+            raise Fail("cli bf16: the checkpoint does not load back equal "
+                       "and finite")
+        rc_t, so_t, se_t, secs_t = done["tiled"]
+        if rc_t == 0 or TF.BF16_TRAJ_NEEDS not in se_t:
+            raise Fail(f"cli --rollout-tiled --bf16-traj exited {rc_t}: "
+                       f"{se_t[-2000:]}")
+        emit({"phase": "cli_bf16", "seconds": [secs, secs_t],
+              "checkpoint": CK.checkpoint_path("bf16", 4),
+              "log": [ln for ln in so.splitlines()
+                      if ln.startswith(("Update:", "Mean reward", "Model "))],
+              "tiled_exit_code": rc_t,
+              "tiled_message": se_t.strip().splitlines()[-1],
+              "note": "2 CLI runs started together"})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1220,18 +1504,7 @@ def main():
     p32 = FR.rollout_plain(cfg, k_sf, k_si, obs0, mats, n_steps=T,
                            trainee_idx=1, noise=ph_noise)
     torch.cuda.synchronize()
-    acts = slice(FR.R_ACT, FR.R_ACT + 6)
-    div = (k32[1] != p32[1]).any(dim=0) | \
-        (k32[3][:, acts] != p32[3][:, acts]).any(dim=0).any(dim=0)
-    frac = float(div.float().mean())
-    ok = ~div
-    e32 = max(float((k32[i][..., ok] - p32[i][..., ok]).abs().max())
-              for i in (0, 2, 3))
-    if frac > 1e-3:
-        raise Fail(f"32-tick Philox rollout: {frac:.4%} of worlds diverged")
-    if not e32 <= 1e-4:
-        raise Fail(f"32-tick Philox rollout: float error {e32} above 1e-4 "
-                   "in the worlds that agree")
+    frac, e32 = philox_tier("32-tick Philox rollout", k32, p32)
     errs["fused_rollout"] = max(errs["fused_rollout"], e32)
     steps = (k_sf, k_si, obs0)
     trajs = []
@@ -1250,6 +1523,76 @@ def main():
           "noise": "philox", "diverged_world_fraction": frac,
           "max_abs_err_agreeing_worlds": e32, "composes": composes,
           "fold_partials": fold32})
+
+    # ---------------------------------------------------------- bf16: B
+    # kernel B's bf16 instances (csrc/fused_rollout_bf16.cu) on the same
+    # state and Philox seed: bf16 storage is the float32 launch's rows
+    # rounded, its state, obs, moments and fold partials the float32
+    # launch's, bit for bit; each branch against its plain version at B's
+    # Philox tier (the bf16 policy's logp and value at POLICY_TOL)
+    BF = torch.bfloat16
+    b16 = FR.fused_rollout(cfg, k_sf, k_si, obs0, mats, n_steps=T,
+                           trainee_idx=1, seed=seed, moment_partials=True,
+                           traj_dtype=BF)
+    p16 = FR.rollout_plain(cfg, k_sf, k_si, obs0, mats, n_steps=T,
+                           trainee_idx=1, noise=ph_noise, traj_dtype=BF)
+    torch.cuda.synchronize()
+    if not torch.equal(b16[3].view(torch.int16),
+                       k32[3].to(BF).view(torch.int16)) or \
+            not all(torch.equal(b16[i], k32[i]) for i in (0, 1, 2, 4, 5)):
+        raise Fail("kernel B bf16 storage: not the float32 launch rounded, "
+                   "or its state, obs or moments differ")
+    frac16, e16 = philox_tier("kernel B bf16 storage", b16, p16)
+    errs["fused_rollout_bf16_traj"] = e16
+    emit({"phase": "bf16_kernels", "kernel": "fused_rollout_bf16_traj",
+          "worlds": W, "ticks": T, "noise": "philox",
+          "traj_equals_f32_launch_rounded": True,
+          "state_obs_moments_partials_equal_f32_launch": True,
+          "vs_plain": {"diverged_world_fraction": frac16,
+                       "max_abs_err_agreeing_worlds": e16}})
+    pol16 = {}
+    for use_frozen in (False, True):
+        fm = fmats if use_frozen else None
+        kp = FR.fused_rollout(cfg, k_sf, k_si, obs0, mats, fm, n_steps=T,
+                              trainee_idx=1, seed=seed, policy_bf16=True,
+                              moment_partials=True)
+        pp = FR.rollout_plain(cfg, k_sf, k_si, obs0, mats, fm, n_steps=T,
+                              trainee_idx=1, noise=ph_noise,
+                              policy_bf16=True)
+        # both flags: the bf16 policy's rows stored in bf16
+        kb = FR.fused_rollout(cfg, k_sf, k_si, obs0, mats, fm, n_steps=T,
+                              trainee_idx=1, seed=seed, policy_bf16=True,
+                              moment_partials=True, traj_dtype=BF)
+        torch.cuda.synchronize()
+        fr_p, e_p = philox_tier(
+            f"kernel B bf16 policy frozen={use_frozen}", kp, pp,
+            {FR.R_LOGP: POLICY_TOL, FR.R_VALUE: POLICY_TOL})
+        mom_rel = float(((kp[4] - pp[4]).abs() /
+                         torch.clamp(pp[4].abs(), min=1.0)).max())
+        if mom_rel > 1e-5:
+            raise Fail(f"kernel B bf16 policy: obs moments {mom_rel}")
+        if not torch.equal(kb[3].view(torch.int16),
+                           kp[3].to(BF).view(torch.int16)) or \
+                not all(torch.equal(kb[i], kp[i]) for i in (0, 1, 2, 4, 5)):
+            raise Fail("kernel B with both bf16 flags: not the bf16-policy "
+                       "launch rounded")
+        logits_rows = [FR.R_LOGP, FR.R_VALUE]
+        ok = ~((kp[1] != pp[1]).any(dim=0) |
+               (kp[3][:, FR.R_ACT:FR.R_ACT + 6] !=
+                pp[3][:, FR.R_ACT:FR.R_ACT + 6]).any(dim=0).any(dim=0))
+        pol16[f"frozen={use_frozen}"] = {
+            "diverged_world_fraction": fr_p, "max_abs_err_agreeing_worlds":
+            e_p, "logp_value_max_abs_err": float(
+                (kp[3][:, logits_rows][..., ok] -
+                 pp[3][:, logits_rows][..., ok]).abs().max()),
+            "obs_moment_rel_err": mom_rel,
+            "both_flags_equal_policy_launch_rounded": True}
+        errs["fused_rollout_bf16_policy"] = max(
+            errs.get("fused_rollout_bf16_policy", 0.0), e_p)
+    del kp, pp, kb, p16
+    emit({"phase": "bf16_kernels", "kernel": "fused_rollout_bf16_policy",
+          "worlds": W, "ticks": T, "noise": "philox",
+          "logp_value_tol": POLICY_TOL, "vs_plain": pol16})
 
     # ---------------------------------------------------------- parity C
     carry = torch.stack([
@@ -1272,6 +1615,23 @@ def main():
     errs["fused_gae"] = max(by_out.values())
     emit({"phase": "parity_fused_gae", "T": T, "worlds": W,
           "max_abs_err": errs["fused_gae"], "by_output": by_out})
+    # kernel C's bf16 instance on kernel B's bf16 trajectory: the float32
+    # instance on the upcast bit for bit, the plain version at C's tier
+    c_args16 = (b16[3], carry, nv, vstats)
+    k16 = FG.fused_gae(*c_args16, **gae_kw)
+    k16u = FG.fused_gae(b16[3].float(), carry, nv, vstats, **gae_kw)
+    p16c = FG.gae_plain(*c_args16, **gae_kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b_) for a, b_ in zip(k16, k16u)):
+        raise Fail("kernel C bf16: differs from the float32 instance on "
+                   "the upcast trajectory")
+    by16 = {n: compare(f"fused_gae bf16 {n}", [k16[i]], [p16c[i]],
+                       atol=1e-4, rel=True)
+            for i, n in enumerate(("side", "moments", "carry", "ticks"))}
+    errs["fused_gae_bf16"] = max(by16.values())
+    emit({"phase": "bf16_kernels", "kernel": "fused_gae_bf16", "T": T,
+          "worlds": W, "equals_f32_instance_on_upcast": True,
+          "max_abs_err": errs["fused_gae_bf16"], "by_output": by16})
 
     # ---------------------------------------------------------- meter scan
     # kernel C's per-(block, tick) sums of the 32-tick Philox rollout, with
@@ -1385,10 +1745,11 @@ def main():
         return all(torch.equal(a, b) for u, v in zip(x, y)
                    for a, b in zip(u, v))
 
-    def d_parity(phase_name, side, ustats, n_phases):
+    def d_parity(phase_name, side, ustats, n_phases, u_traj=u_traj):
         """Kernel D held per Adam step over `n_phases` chained phases on
         the side rows `side` (raw with `ustats`, or normalized with
-        ustats None: the --no-fused-gae path's branch)."""
+        ustats None: the --no-fused-gae path's branch) and the trajectory
+        `u_traj` (float32, or bf16: D's bf16 instance)."""
         d_in = (u_params, mom.mu, mom.nu)
         count, d_err, n_off, bitwise, composed = 0, {}, 0, True, True
         kinks, drift = [], []
@@ -1467,6 +1828,44 @@ def main():
     # the --no-fused-gae branch: ustats None, the side rows normalized
     errs["fused_update_phase_normalized_side"] = d_parity(
         "parity_fused_update_phase_normalized_side", side_n, None, 1)
+
+    # kernels D and G's bf16 instances on a bf16 collect of the same state
+    # (the --bf16-traj iteration's trajectory, raw side rows and ustats):
+    # each the float32 instance on the upcast trajectory bit for bit, D
+    # held per Adam step as above, G at its leaf tier
+    _, u16 = make_train_iteration(cfg, hp, dev, bf16_traj=True)(
+        copy.deepcopy(u_state))
+    traj16, side16, us16 = u16["traj"], u16["side"], u16["ustats"]
+    d16_args = (hp, u_idx, 0, traj16, side16, u_nrm, us16, u_params,
+                mom.mu, mom.nu)
+    d16 = FU.fused_update_phase(*d16_args, wb=wb)
+    d16u = FU.fused_update_phase(hp, u_idx, 0, traj16.float(), *d16_args[4:],
+                                 wb=wb)
+    side16_n = FU.normalize_side(side16, us16)
+    g16_args = (hp, u_idx[:bpm], traj16, side16_n, u_nrm, *u_params)
+    gk16 = FU.fused_minibatch_grad_prefetch(*g16_args, wb=wb)
+    gk16u = FU.fused_minibatch_grad_prefetch(
+        hp, u_idx[:bpm], traj16.float(), side16_n, u_nrm, *u_params, wb=wb)
+    gp16 = FU.minibatch_grad_prefetch_plain(*g16_args, wb=wb)
+    torch.cuda.synchronize()
+    if traj16.dtype != BF or not same(d16, d16u) or \
+            not all(torch.equal(a, b_) for a, b_ in zip(gk16, gk16u)):
+        raise Fail("kernels D / G bf16: differ from the float32 instances "
+                   "on the upcast trajectory")
+    errs["fused_update_phase_bf16"] = d_parity(
+        "parity_fused_update_phase_bf16", side16, us16, 1, u_traj=traj16)
+    errs["fused_minibatch_grad_prefetch_bf16"] = grad_err("kernel G bf16",
+                                                          gk16, gp16)
+    emit({"phase": "bf16_kernels", "kernel": "fused_update_phase_bf16",
+          "equals_f32_instance_on_upcast": True,
+          "max_abs_err_per_step_params": errs["fused_update_phase_bf16"],
+          "per_step_tiers": "parity_fused_update_phase_bf16"})
+    emit({"phase": "bf16_kernels", "kernel":
+          "fused_minibatch_grad_prefetch_bf16",
+          "minibatch": hp.minibatch_size, "wb": wb,
+          "equals_f32_instance_on_upcast": True,
+          "max_abs_err": errs["fused_minibatch_grad_prefetch_bf16"]})
+    del d16, d16u
 
     # ---------------------------------------------------------- parity F
     # from parity A's state with random actions for both agents, after the
@@ -1654,15 +2053,6 @@ def main():
               "ticks": 4, "frozen": use_frozen, "noise": "external",
               "max_abs_err": e})
 
-    def diverged(a, b_):
-        """Worlds whose integer state or sampled actions differ, and the
-        largest float error of sf', obs' and traj in the others."""
-        div = (a[1] != b_[1]).any(dim=0) | \
-            (a[3][:, acts] != b_[3][:, acts]).any(dim=0).any(dim=0)
-        ok = ~div
-        e = max(float((a[i][..., ok] - b_[i][..., ok]).abs().max())
-                for i in (0, 2, 3))
-        return float(div.float().mean()), e
     ki32 = FR.fused_rollout_tiled(cfg, k_sf, k_si, obs0, mats, n_steps=T,
                                   trainee_idx=1, seed=seed)
     pi32 = FR.rollout_tiled_plain(cfg, k_sf, k_si, obs0, mats, n_steps=T,
@@ -1674,16 +2064,10 @@ def main():
         steps = o[:3]
         trajs.append(o[3])
     torch.cuda.synchronize()
-    frac_i, e_i = diverged(ki32, pi32)
-    frac_ib, e_ib = diverged(ki32, k32)
-    for what, frac_, e_ in (("plain", frac_i, e_i), ("kernel B", frac_ib,
-                                                      e_ib)):
-        if frac_ > 1e-3:
-            raise Fail(f"32-tick Philox tiled rollout vs {what}: "
-                       f"{frac_:.4%} of worlds diverged")
-        if not e_ <= 1e-4:
-            raise Fail(f"32-tick Philox tiled rollout vs {what}: float "
-                       f"error {e_} above 1e-4 in the worlds that agree")
+    frac_i, e_i = philox_tier("32-tick Philox tiled rollout vs plain",
+                              ki32, pi32)
+    frac_ib, e_ib = philox_tier("32-tick Philox tiled rollout vs kernel B",
+                                ki32, k32)
     composes = all(torch.equal(a, b_) for a, b_ in zip(ki32[:3], steps)) \
         and torch.equal(ki32[3], torch.cat(trajs))
     if not composes:
@@ -1780,6 +2164,34 @@ def main():
               "mean_max_abs_err": float((ke[:, 0] - lm).abs().max()),
               "var_max_rel_err": float(rel_err(ke[:, 1] / ke[:, 2],
                                                lv).max())}})
+    # kernel E's bf16 instance on kernel B's bf16 trajectory, E's tiers
+    # against the exact moments of the upcast rows and the plain fold
+    ke16 = FG.obs_moments(b16[3])
+    ke16u = FG.obs_moments(b16[3].float())
+    pe16 = FG.obs_moments_plain(b16[3])
+    x64 = b16[3][:, :FR.ROLL_OBS].double()
+    m64 = x64.mean(dim=(0, 2))
+    exact16 = torch.zeros_like(pe16, dtype=torch.float64)
+    exact16[:, 0] = m64
+    exact16[:, 1] = ((x64 - m64[None, :, None]) ** 2).sum(dim=(0, 2))
+    exact16[:, 2] = float(T * W)
+    del x64
+    torch.cuda.synchronize()
+    if not torch.equal(ke16, ke16u):
+        raise Fail("kernel E bf16: differs from the float32 instance on "
+                   "the upcast trajectory")
+    e16_exact = float(rel_err(ke16, exact16).max())
+    over16 = (ke16.double() - pe16.double()).abs() > \
+        1e-5 * torch.clamp(pe16.double().abs(), min=1.0) + \
+        (pe16.double() - exact16).abs()
+    if e16_exact > 1e-5 or bool(over16.any()):
+        raise Fail(f"kernel E bf16: error {e16_exact} of the exact moments, "
+                   f"{int(over16.sum())} entries beyond the fold's tier")
+    errs["obs_moments_bf16"] = float((ke16 - pe16).abs().max())
+    emit({"phase": "bf16_kernels", "kernel": "obs_moments_bf16", "T": T,
+          "worlds": W, "equals_f32_instance_on_upcast": True,
+          "max_abs_err": errs["obs_moments_bf16"],
+          "max_rel_err_vs_exact": e16_exact})
 
     # ---------------------------------------------------------- tiled slice
     # the tiled collect at 1024 worlds x 8 ticks on the card vs the plain
@@ -1807,13 +2219,21 @@ def main():
     def reset_counts():
         FS.launches = FR.launches = FR.tiled_launches = FG.launches = 0
         FG.moment_launches = TT.launches = FU.device_launches = 0
+        FG.bf16_launches = FG.bf16_moment_launches = 0
         FU.launches = dict.fromkeys(FU.launches, 0)
+        FU.bf16_launches = dict.fromkeys(FU.bf16_launches, 0)
+        FR.bf16_launches = dict.fromkeys(FR.bf16_launches, 0)
 
     def counts():
         return {"fused_step": FS.launches, "fused_rollout": FR.launches,
                 "fused_rollout_tiled": FR.tiled_launches,
                 "obs_moments": FG.moment_launches, "fused_gae": FG.launches,
-                "meter_scan": TT.launches, **FU.launches}
+                "meter_scan": TT.launches, **FU.launches,
+                "fused_rollout_bf16_traj": FR.bf16_launches["traj"],
+                "fused_rollout_bf16_policy": FR.bf16_launches["policy"],
+                "fused_gae_bf16": FG.bf16_launches,
+                "obs_moments_bf16": FG.bf16_moment_launches,
+                **{f"{k}_bf16": n for k, n in FU.bf16_launches.items()}}
 
     def check_path(phase, tiled, launches):
         """Every kernel of the path launched, none of the other path's."""
@@ -2990,6 +3410,15 @@ def main():
         if not -150.0 <= final <= -105.0:
             raise Fail(f"learning_dp_update: mean reward {final} after 600 "
                        "iterations is outside -150..-105")
+
+        # ------------------------------------------------------ bf16 paths
+        # the bf16 flags on their paths (ROADMAP item 16c), the two
+        # data-parallel ones on this group; then 2000 learning iterations
+        # of each flag and the CLI with both
+        bf16 = bf16_paths(cfg, hp, dev, mesh, reset_counts, counts,
+                          profiled, chunk_parity)
+        bf16_learning(cfg, hp, dev)
+        bf16_cli()
     finally:
         dist.destroy_process_group()
 
@@ -3096,7 +3525,15 @@ def main():
     # kernel D's --no-fused-gae branch: normalized side rows, ustats None
     dn_args = (hp, u_idx, 0, u_traj, side_n, u_nrm, None, u_params,
                mom.mu, mom.nu)
-    grad_k = {"update_grad_kernel<0>": 1, "update_reduce_kernel": 1}
+    grad_k = {"update_grad_kernel<0, float>": 1, "update_reduce_kernel": 1}
+    # the bf16 branches' inputs: the main path's, the trajectory rounded
+    grad_k16 = {"update_grad_kernel<0, unsigned short>": 1,
+                "update_reduce_kernel": 1}
+    c_args16 = (out["traj"].to(BF),) + c_args[1:]
+    t_traj16 = t_out["traj"].to(BF)
+    d16_args = (hp, u_idx, 0, u_traj.to(BF), u_side, u_nrm, u_ustats,
+                u_params, mom.mu, mom.nu)
+    g16_args = (hp, u_idx[:bpm], u_traj.to(BF), side_n, u_nrm, *u_params)
     # kernel F at bench.py's K, one seed per call; the plain version at
     # K = 8 on 8 ticks of external noise (~35 ms a tick on the card)
     KB = 5000
@@ -3144,7 +3581,7 @@ def main():
         "fused_minibatch_grad": (
             lambda: FU.fused_minibatch_grad(*h_args),
             lambda: FU.minibatch_grad_plain(*h_args), 10, 2,
-            {"update_grad_kernel<1>": 1, "update_reduce_kernel": 1}),
+            {"update_grad_kernel<1, float>": 1, "update_reduce_kernel": 1}),
         "fused_multistep_every_tick_obs": f_calls(True),
         "fused_multistep_held_obs": f_calls(False),
         "fused_rollout_tiled": (
@@ -3158,6 +3595,35 @@ def main():
             lambda: FG.obs_moments_plain(t_out["traj"]), 20, 2,
             {"obs_moment_partial_kernel": 1,
              "obs_moment_combine_kernel": 1}),
+        # the bf16 branches (ROADMAP item 16c)
+        "fused_rollout_bf16_traj": (
+            lambda: FR.fused_rollout(*r_args, n_steps=T, trainee_idx=1,
+                                     seed=seed, traj_dtype=BF),
+            lambda: FR.rollout_plain(*r_args, n_steps=T, trainee_idx=1,
+                                     noise=ph_noise, traj_dtype=BF), 5, 1,
+            {"fused_rollout_bf16_kernel": 1}),
+        "fused_rollout_bf16_policy": (
+            lambda: FR.fused_rollout(*r_args, n_steps=T, trainee_idx=1,
+                                     seed=seed, policy_bf16=True),
+            lambda: FR.rollout_plain(*r_args, n_steps=T, trainee_idx=1,
+                                     noise=ph_noise, policy_bf16=True), 5,
+            1, {"fused_rollout_bf16_kernel": 1}),
+        "fused_gae_bf16": (lambda: FG.fused_gae(*c_args16, **gae_kw),
+                           lambda: FG.gae_plain(*c_args16, **gae_kw), 20, 2,
+                           {"fused_gae_kernel": 1}),
+        "obs_moments_bf16": (
+            lambda: FG.obs_moments(t_traj16),
+            lambda: FG.obs_moments_plain(t_traj16), 20, 2,
+            {"obs_moment_partial_kernel": 1,
+             "obs_moment_combine_kernel": 1}),
+        "fused_update_phase_bf16": (
+            lambda: FU.fused_update_phase(*d16_args, wb=wb),
+            lambda: FU.update_phase_plain(*d16_args, wb=wb), 3, 1,
+            {k: n_mb for k in grad_k16}),
+        "fused_minibatch_grad_prefetch_bf16": (
+            lambda: FU.fused_minibatch_grad_prefetch(*g16_args, wb=wb),
+            lambda: FU.minibatch_grad_prefetch_plain(*g16_args, wb=wb), 10,
+            2, grad_k16),
     }
     # ms: the kernels' own device time per call; wrapper_ms: CUDA events
     # around back-to-back wrapper calls (median of 5 windows), which also
@@ -3184,7 +3650,8 @@ def main():
                                                  "fused_rollout",
                                                  "fused_rollout_tiled",
                                                  "fused_multistep",
-                                                 "fused_gae")}
+                                                 "fused_gae",
+                                                 "fused_rollout_bf16")}
     # kernel F's SASS: system 18's shared-memory stores inside the tick
     # loop of the every-tick instance, no global stores there
     sass = _build.sass_loop_counts("fused_multistep")
@@ -3201,10 +3668,10 @@ def main():
         return next((v for k, v in ptx[lib].items() if key in k), None)
     design = {
         "fused_update_phase": {
-            "grad_launches_ms": d_split["update_grad_kernel<0>"],
+            "grad_launches_ms": d_split["update_grad_kernel<0, float>"],
             "reduce_launches_ms": d_split["update_reduce_kernel"],
             "ptxas": {"grad": ptx_of("fused_update",
-                                     "update_grad_kernelILi0E"),
+                                     "update_grad_kernelILi0EfE"),
                       "reduce": ptx_of("fused_update",
                                        "update_reduce_kernel")},
             "occupancy": FU.occupancy(dev)},
@@ -3216,8 +3683,18 @@ def main():
                             "fused_rollout_tiled_kernelILi1ELb0E")},
         "fused_multistep_every_tick_obs": f_design(True),
         "fused_multistep_held_obs": f_design(False),
-        "fused_gae": {"ptxas": ptx_of("fused_gae", "fused_gae_kernel"),
-                      "occupancy": FG.gae_occupancy(dev, T, W)}}
+        "fused_gae": {"ptxas": ptx_of("fused_gae", "fused_gae_kernelIfE"),
+                      "occupancy": FG.gae_occupancy(dev, T, W)},
+        # the bf16 instances (trainee 1, no frozen policy, as the main
+        # path's); B's bf16 instances take B's shared memory and threads
+        "fused_rollout_bf16_traj": {"ptxas": ptx_of(
+            "fused_rollout_bf16", "fused_rollout_bf16_kernelILi1ELb0EtLb0E")},
+        "fused_rollout_bf16_policy": {"ptxas": ptx_of(
+            "fused_rollout_bf16", "fused_rollout_bf16_kernelILi1ELb0EfLb1E")},
+        "fused_gae_bf16": {"ptxas": ptx_of("fused_gae",
+                                           "fused_gae_kernelItE")},
+        "fused_update_phase_bf16": {"ptxas": ptx_of(
+            "fused_update", "update_grad_kernelILi0EtE")}}
     # system 18 stores N_OBS_ROWS obs rows a world each tick: the
     # every-tick loop holds at least that many more STS than the held one
     f_sts = [design[f"fused_multistep_{n}"]["sass"]["STS_in_loop"]
@@ -3403,6 +3880,55 @@ def main():
                      "obs_bytes_all_ticks": obs_all,
                      "obs_bytes_all_ticks_ms": obs_all / HBM_BYTES_PER_S
                      * 1e3, **design.get(name, {})})
+    # the bf16 branches: the bytes of the bf16 variant (the trajectory
+    # rows at 2 bytes), the operations of the plain version (the bf16
+    # policy's roundings are conversions, not arithmetic); launches on
+    # their bf16 path (bf16_paths, 3 eager iterations)
+    ops_b16p = count_ops(FR.rollout_plain, cfg, sf_s, si_s, obs_s, mats_s,
+                         n_steps=1, trainee_idx=1,
+                         noise=FR.philox_noise(0, 0, 1, ws, cpu),
+                         policy_bf16=True) / ws
+    traj16_bytes = T * 128 * W * 2
+    per_sample16 = (FU.R_LOGP + 1) * 2 + 3 * 4
+    b16_src = "madrona_basketball_tpu_torch/csrc/fused_rollout_bf16.cu"
+    for name, src, rep_, nbytes, nops, path in (
+            ("fused_rollout_bf16_traj", b16_src,
+             "madrona_basketball_tpu/ops/fused_rollout.py:239",
+             bytes_b - traj16_bytes, ops_b * W * T, "bf16_traj_path"),
+            ("fused_rollout_bf16_policy", b16_src,
+             "madrona_basketball_tpu/ops/fused_rollout.py:239", bytes_b,
+             ops_b16p * W * T, "bf16_policy_path"),
+            ("fused_gae_bf16",
+             "madrona_basketball_tpu_torch/csrc/fused_gae.cu",
+             "madrona_basketball_tpu/ops/fused_gae.py:58",
+             bytes_c - 3 * T * W * 2, ops_c * W * T, "bf16_traj_path"),
+            ("obs_moments_bf16",
+             "madrona_basketball_tpu_torch/csrc/obs_moments.cu",
+             "madrona_basketball_tpu/ops/fused_gae.py:251",
+             bytes_e - T * FR.ROLL_OBS * W * 2, ops_e * T * FR.ROLL_OBS * W,
+             "bf16_dp_traj_path"),
+            ("fused_update_phase_bf16", upd,
+             "madrona_basketball_tpu/ops/fused_update.py:457",
+             bytes_d - T * W * (per_sample - per_sample16), ops_d,
+             "bf16_traj_path"),
+            ("fused_minibatch_grad_prefetch_bf16", upd,
+             "madrona_basketball_tpu/ops/fused_update.py:326",
+             bytes_g - hp.minibatch_size * (per_sample - per_sample16),
+             ops_g_per * hp.minibatch_size, "bf16_dp_update_traj_path")):
+        bms, by = bound(nbytes, nops)
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep_,
+                     "launches": bf16["launches"][path][name],
+                     "launches_path": f"{path} (3 iterations)",
+                     "bf16_path_launches_3_iterations": {
+                         ph: la[name] for ph, la in bf16["launches"].items()
+                         if la.get(name)},
+                     "max_abs_err": errs[name], "ms": ms[name][0],
+                     "wrapper_ms": ms[name][1], "plain_ms": ms[name][2],
+                     "bound_ms": bms, "bound_by": by, "library_ms": None,
+                     "bytes": nbytes, "ops": nops,
+                     "bound_share": bms / ms[name][0],
+                     **design.get(name, {})})
     emit({"phase": "kernel_times", "note": "library_ms is torch.var_mean "
           "over ticks and worlds for obs_moments (kernel E) and null "
           "elsewhere: no single PyTorch call computes a sim tick, a "
@@ -3421,7 +3947,10 @@ def main():
           f"2 x E x M = {2 * n_mb} kernels per wrapper call, and its ms "
           "sums them; fused_multistep's ms is one launch of "
           f"{KB} ticks, its plain_ms {8} ticks, its launches those of "
-          "the bench path"})
+          "the bench path; the *_bf16* rows are the bf16 branches "
+          "(--bf16-traj, --bf16-policy), their launches those of their "
+          "bf16 path's 3 eager iterations (launches_path), their bytes "
+          "the bf16 trajectory's"})
     emit({"kernels": rows})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,7 +3,8 @@ the root `bench_scaling.py`).
 
     python -m madrona_basketball_tpu_torch.bench_scaling
         [--worlds-per-gpu 4096] [--max-gpus N] [--num-rollout-steps 32]
-        [--sim-steps 500] [--iters-per-dispatch 20] [--device cpu]
+        [--sim-steps 500] [--iters-per-dispatch 20] [--bf16-traj]
+        [--bf16-policy] [--device cpu]
 
 For n = 1 .. N GPUs (N: every visible GPU) at a FIXED number of worlds a
 GPU, one process a GPU (n = 1 in this process, n > 1 spawned ranks of a
@@ -12,7 +13,8 @@ NCCL group), it times
   * stepping: each rank's `FusedEngine.step_many(sim_steps)` (kernel F)
     on its own worlds, best of 3 rounds, the slowest rank's time;
   * training: the plain data-parallel iteration (`make_train_iteration(
-    ..., mesh=...)`) at n x worlds a GPU, chunks of
+    ..., mesh=...)`, with the training CLI's bf16 flags when given) at
+    n x worlds a GPU, chunks of
     `--iters-per-dispatch` iterations (on the card one iteration
     captured as a CUDA graph), best of 3 chunks, the slowest rank's
     time;
@@ -82,7 +84,9 @@ def measure(args) -> dict:
     sim_s = _best(lambda: eng.step_many(args.sim_steps), dev)
     hp = PPOParams(num_envs=n * wpg, num_rollout_steps=T)
     state = shard_train_state(init_train_state(cfg, hp, 1, dev), mesh)
-    it = make_train_iteration(cfg, hp, dev, mesh=mesh)
+    it = make_train_iteration(cfg, hp, dev, mesh=mesh,
+                              bf16_traj=args.bf16_traj,
+                              bf16_policy=args.bf16_policy)
     chunk = make_train_chunk(it, args.iters_per_dispatch)
     holder = [state]
 
@@ -95,6 +99,7 @@ def measure(args) -> dict:
             "iters_per_dispatch": args.iters_per_dispatch,
             "train_iteration_ms": it_s * 1e3,
             "train_env_steps_per_s": n * wpg * T / it_s,
+            "bf16_traj": args.bf16_traj, "bf16_policy": args.bf16_policy,
             "backend": mesh.backend}
 
 
@@ -139,6 +144,8 @@ def main(argv=None) -> list:
                     default=PPOParams.num_rollout_steps)
     ap.add_argument("--sim-steps", type=int, default=500)
     ap.add_argument("--iters-per-dispatch", type=int, default=20)
+    ap.add_argument("--bf16-traj", action="store_true")
+    ap.add_argument("--bf16-policy", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)

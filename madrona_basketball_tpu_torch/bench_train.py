@@ -2,13 +2,14 @@
 (the port's counterpart of the root `bench_train.py`).
 
     python -m madrona_basketball_tpu_torch.bench_train [W] [--no-frozen]
-        [--tiled] [--iters-per-dispatch N] [--num-rollout-steps T]
-        [--device cpu]
+        [--tiled] [--bf16-traj] [--bf16-policy] [--iters-per-dispatch N]
+        [--num-rollout-steps T] [--device cpu]
 
 Times the flagship training iteration (rollout kernel B, or kernel I and
 E with `--tiled`, then GAE and the 4 x 4 minibatch update) at W worlds
 (default 8192) with the frozen opponent on (the JAX script's default),
-from `init_train_state(seed=1)`, two ways:
+from `init_train_state(seed=1)` (`--bf16-traj`, `--bf16-policy`: the
+training CLI's bf16 branches), two ways:
   * eager: one host dispatch an iteration, best of 3 rounds of 20
     chained iterations, after one untimed iteration;
   * chunked: N (50) iterations a dispatch (`ppo/train.py::
@@ -44,6 +45,8 @@ def main(argv=None) -> dict:
     ap.add_argument("worlds", nargs="?", type=int, default=8192)
     ap.add_argument("--no-frozen", action="store_true")
     ap.add_argument("--tiled", action="store_true")
+    ap.add_argument("--bf16-traj", action="store_true")
+    ap.add_argument("--bf16-policy", action="store_true")
     ap.add_argument("--iters-per-dispatch", type=int, default=50)
     ap.add_argument("--num-rollout-steps", type=int,
                     default=PPOParams.num_rollout_steps)
@@ -65,7 +68,9 @@ def main(argv=None) -> dict:
     cfg = SimConfig()
     hp = PPOParams(num_envs=W, num_rollout_steps=T,
                    use_frozen=not args.no_frozen)
-    it = make_train_iteration(cfg, hp, dev, rollout_tiled=args.tiled)
+    it = make_train_iteration(cfg, hp, dev, rollout_tiled=args.tiled,
+                              bf16_traj=args.bf16_traj,
+                              bf16_policy=args.bf16_policy)
     holder = [init_train_state(cfg, hp, seed=1, device=dev)]
 
     def eager():
@@ -78,6 +83,7 @@ def main(argv=None) -> dict:
     chunk_ms = bench_ms(chunked, reps=1, tries=TRIES, device=dev) / n
     line = {"metric": f"train_iteration_ms_{W}", "worlds": W, "ticks": T,
             "frozen": hp.use_frozen, "tiled": args.tiled,
+            "bf16_traj": args.bf16_traj, "bf16_policy": args.bf16_policy,
             "eager_ms": eager_ms,
             "eager_train_env_steps_per_s": W * T / (eager_ms / 1e3),
             "eager_method": f"best_of_{TRIES}x{REPS}_chained",

@@ -46,9 +46,15 @@ update over the feat matrix, shuffled in `--shuffle-block` super-rows;
 systems.py); `--viewer` records world 0 on the per-tick rollout and drops
 episode npz files under logs/{model} (`EpisodeRecorder`, the JAX CLI's),
 which the JAX viewer plays; the live viewer it would spawn is ROADMAP
-item 13's.  `--rollout-block` (a TPU kernel's VMEM tile) is refused for
-good, the bf16 flags and `--interactive` until their ROADMAP items
-(`UNPORTED`).
+item 13's.  `--bf16-traj` (the untiled fused-GAE paths: the flagship,
+`--data-parallel`, `--dp-update`) stores kernel B's trajectory in
+bfloat16, which kernels C, E, D and G upcast on load; `--bf16-policy`
+(wherever the untiled rollout kernel runs, also with `--no-fused-gae`
+and `--no-fused-grads`) rounds kernel B's Dense operands to bf16; other
+combinations exit with the JAX trainer's messages, and the structured
+backend ignores both, as the JAX CLI does.  `--rollout-block` (a TPU
+kernel's VMEM tile) is refused for good, `--interactive` until its
+ROADMAP item (`UNPORTED`).
 """
 
 from __future__ import annotations
@@ -157,8 +163,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "(torchrun's MASTER_ADDR / MASTER_PORT / RANK / "
                         "WORLD_SIZE)")
     p.add_argument("--rollout-tiled", action="store_true", default=False)
-    p.add_argument("--bf16-traj", action="store_true", default=False)
-    p.add_argument("--bf16-policy", action="store_true", default=False)
+    p.add_argument("--bf16-traj", action="store_true", default=False,
+                   help="flagship trainer only (rollout kernel + fused "
+                        "grads + fused GAE, untiled): store the rollout "
+                        "trajectory in bfloat16 (kernel math stays "
+                        "float32); kernels C, E, D and G upcast it on load")
+    p.add_argument("--bf16-policy", action="store_true", default=False,
+                   help="rollout-kernel trainer only (untiled): bf16 "
+                        "operands for kernel B's policy Dense layers "
+                        "(float32 sums)")
     p.add_argument("--rollout-block", type=int, default=0)
     p.add_argument("--iters-per-dispatch", type=int, default=0,
                    help="run N training iterations per host dispatch (on "
@@ -170,16 +183,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 _NOT_YET = "this trainer path is not ported to the PyTorch package yet"
-_BF16 = (f"{_NOT_YET} (ROADMAP.md queue 1, item 16c: bf16 variants of "
-         "kernels B, C, D and E)")
 # flag, test of a non-default value, the reason it is refused
 UNPORTED = (
     ("--rollout-block", lambda a: a.rollout_block != 0,
      "refused for good: it sets the TPU rollout kernel's VMEM block "
      "(cli.py:138-143 of the JAX package), and kernel B's CTA geometry on "
      "the card is fixed by its design (ROADMAP.md queue 1, item 16)"),
-    ("--bf16-traj", lambda a: a.bf16_traj, _BF16),
-    ("--bf16-policy", lambda a: a.bf16_policy, _BF16),
     ("--interactive", lambda a: a.interactive,
      f"{_NOT_YET} (ROADMAP.md queue 1, item 13: interactive trainer, "
      "viewer)"),
@@ -196,7 +205,7 @@ def resolve_paths(args) -> dict:
     """The rows trainer's path flags as the JAX CLI resolves them
     (cli.py:679-735), checked with its messages: {} for the structured
     backend, else make_train_iteration's backend / rollout_kernel /
-    fused_grads / fused_gae."""
+    fused_grads / fused_gae / bf16_traj / bf16_policy."""
     if args.backend == "structured":
         return {}
     rollout_kernel = args.rollout_kernel
@@ -215,7 +224,8 @@ def resolve_paths(args) -> dict:
                          "fused-GAE flagship path")
     paths = dict(backend="pallas" if args.backend == "fused" else "xla",
                  rollout_kernel=rollout_kernel, fused_grads=args.fused_grads,
-                 fused_gae=fused_gae)
+                 fused_gae=fused_gae, bf16_traj=args.bf16_traj,
+                 bf16_policy=args.bf16_policy)
     try:
         check_paths(PPOParams(record_world0=args.viewer),
                     rollout_tiled=args.rollout_tiled,

@@ -22,6 +22,13 @@
 //     the same way into `ticks`;
 //   * all threads write the (T, 8, 32) side rows with 16-byte stores.
 //
+// The bf16 branch (make_fused_gae(traj_dtype=bfloat16), fused_gae.py:61,
+// :88-93; --bf16-traj): the same kernel on a trajectory of bf16 bits
+// (template TT = uint16_t), which the staging loop reads 8 bytes (4
+// values) a thread and upcasts to float32 on load; everything after the
+// load is the float32 kernel's, so it equals that kernel run on the
+// upcast trajectory bit for bit.
+//
 // Bound: bytes (3 T + 3 floats read and 8 T + 2 written per world).  The
 // outputs' block partition (`moments` one row per gb-world block, `ticks`
 // (nb, T, 8)) is the glue's (ops/fused_gae.py); host_gae.cpp runs the same
@@ -30,6 +37,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "gae_tile.cuh"
 
 namespace cg = cooperative_groups;
@@ -40,6 +48,19 @@ namespace {
 constexpr int NT = 256;   // threads per CTA
 constexpr int MAX_CL = 4;  // CTAs per world block: pick_gae_block's cap / 32
 
+// 4 consecutive trajectory values (q-th group of 4 from src) as float32:
+// one 16-byte load of float32, one 8-byte load of bf16 bits
+__device__ __forceinline__ float4 load4(const float *src, int q) {
+    return reinterpret_cast<const float4 *>(src)[q];
+}
+__device__ __forceinline__ float4 load4(const uint16_t *src, int q) {
+    const uint2 v = reinterpret_cast<const uint2 *>(src)[q];
+    return make_float4(mbb::bf16_to_f32((uint16_t)(v.x & 0xffffu)),
+                       mbb::bf16_to_f32((uint16_t)(v.x >> 16)),
+                       mbb::bf16_to_f32((uint16_t)(v.y & 0xffffu)),
+                       mbb::bf16_to_f32((uint16_t)(v.y >> 16)));
+}
+
 // shared floats: staged rows 3 T | side 3 T | carry products 2 T (rows of
 // GAE_TILE), per-world sums 3 x GAE_TILE and M2 3 x GAE_TILE, the CTA's
 // partials read by the cluster (sums 3, M2 3, ticks 3 T)
@@ -47,8 +68,9 @@ __host__ __device__ constexpr size_t smem_floats(int T) {
     return (size_t)8 * T * GAE_TILE + 6 * GAE_TILE + 6 + 3 * T;
 }
 
+template <class TT>
 __global__ void __launch_bounds__(NT)
-fused_gae_kernel(const float *__restrict__ traj,
+fused_gae_kernel(const TT *__restrict__ traj,
                  const float *__restrict__ carry,
                  const float *__restrict__ next_value,
                  const float *__restrict__ vstats, float *__restrict__ side,
@@ -71,14 +93,13 @@ fused_gae_kernel(const float *__restrict__ traj,
     const int w0 = blockIdx.x * GAE_TILE;
     const int block = blockIdx.x / ncl;
 
-    // ---- stage the three input rows of every tick, 16 bytes a thread
+    // ---- stage the three input rows of every tick, 4 values a thread
     constexpr int V4 = GAE_TILE / 4;
     for (int i = tid; i < 3 * T * V4; i += NT) {
         const int q = i % V4, row = i / V4, t = row % T, k = row / T;
         const int r = k == 0 ? r_value : (k == 1 ? r_rew : r_done);
         reinterpret_cast<float4 *>(shm)[row * V4 + q] =
-            reinterpret_cast<const float4 *>(
-                traj + ((size_t)t * rows + r) * W + w0)[q];
+            load4(traj + ((size_t)t * rows + r) * W + w0, q);
     }
     __syncthreads();
 
@@ -156,20 +177,18 @@ fused_gae_kernel(const float *__restrict__ traj,
     cluster.sync();  // the other CTAs' partials are read until here
 }
 
-}  // namespace
-
-extern "C" int mbb_fused_gae(const float *traj, const float *carry,
-                             const float *next_value, const float *vstats,
-                             float *side, float *moments, float *carry_out,
-                             float *ticks, int T, int rows, int W, int gb,
-                             int r_value, int r_rew, int r_done, float gamma,
-                             float gamma_lam, cudaStream_t stream) {
+template <class TT>
+int launch(const TT *traj, const float *carry, const float *next_value,
+           const float *vstats, float *side, float *moments, float *carry_out,
+           float *ticks, int T, int rows, int W, int gb, int r_value,
+           int r_rew, int r_done, float gamma, float gamma_lam,
+           cudaStream_t stream) {
     const size_t smem = smem_floats(T) * sizeof(float);
     if (gb % GAE_TILE != 0 || gb / GAE_TILE > MAX_CL || W % gb != 0 ||
         T < 1 || smem > 227 * 1024)
         return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
-        fused_gae_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fused_gae_kernel<TT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     cudaLaunchConfig_t cfg = {};
@@ -184,11 +203,39 @@ extern "C" int mbb_fused_gae(const float *traj, const float *carry,
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, fused_gae_kernel, traj, carry, next_value,
-                             vstats, side, moments, carry_out, ticks, T, rows,
-                             W, r_value, r_rew, r_done, gamma, gamma_lam);
+    err = cudaLaunchKernelEx(&cfg, fused_gae_kernel<TT>, traj, carry,
+                             next_value, vstats, side, moments, carry_out,
+                             ticks, T, rows, W, r_value, r_rew, r_done, gamma,
+                             gamma_lam);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int mbb_fused_gae(const float *traj, const float *carry,
+                             const float *next_value, const float *vstats,
+                             float *side, float *moments, float *carry_out,
+                             float *ticks, int T, int rows, int W, int gb,
+                             int r_value, int r_rew, int r_done, float gamma,
+                             float gamma_lam, cudaStream_t stream) {
+    return launch(traj, carry, next_value, vstats, side, moments, carry_out,
+                  ticks, T, rows, W, gb, r_value, r_rew, r_done, gamma,
+                  gamma_lam, stream);
+}
+
+// mbb_fused_gae on a trajectory of bf16 bits (uint16_t).
+extern "C" int mbb_fused_gae_bf16(const uint16_t *traj, const float *carry,
+                                  const float *next_value,
+                                  const float *vstats, float *side,
+                                  float *moments, float *carry_out,
+                                  float *ticks, int T, int rows, int W, int gb,
+                                  int r_value, int r_rew, int r_done,
+                                  float gamma, float gamma_lam,
+                                  cudaStream_t stream) {
+    return launch(traj, carry, next_value, vstats, side, moments, carry_out,
+                  ticks, T, rows, W, gb, r_value, r_rew, r_done, gamma,
+                  gamma_lam, stream);
 }
 
 // Resident CTAs per SM, threads per CTA and dynamic shared memory at T
@@ -196,13 +243,13 @@ extern "C" int mbb_fused_gae(const float *traj, const float *carry,
 extern "C" int mbb_fused_gae_occupancy(int T, int *out) {
     const size_t smem = smem_floats(T) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
-        fused_gae_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fused_gae_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     out[1] = NT;
     out[2] = (int)smem;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out, fused_gae_kernel, NT, smem);
+        out, fused_gae_kernel<float>, NT, smem);
 }
 
 extern "C" const char *mbb_error_string(int err) {

@@ -44,12 +44,27 @@
 // warps) per SM; the loads of the next tile overlap the current tile's
 // arithmetic.
 
+// The bf16 branches of D and G (make_fused_update_phase /
+// make_fused_minibatch_grad_prefetch(traj_dtype=bfloat16), fused_update.py
+// :460, :616-618 and :328, :391-394; --bf16-traj): the trajectory's 110
+// rows (obs, actions, logp) are bf16 bits (TT = uint16_t).  cp.async
+// copies them, 16 bytes (8 values) at a time, into one of two bf16
+// staging tiles beside the input buffers (2 x 14 KB more shared memory:
+// 204 KB, still one CTA a SM); after the copy lands, the CTA upcasts the
+// staging tile into the float32 input buffer (one more barrier) and runs
+// the float32 stages.  So D and G in bf16 equal their float32 selves on
+// the upcast trajectory bit for bit.  The side rows, weights and Adam
+// moments stay float32; H keeps its float32 feat matrix.
+//
 // Scratch: `partials` holds max_parts + 2 rows of 5216 floats: the CTAs'
 // rows, then the summed gradient, then the slices' sums of squares and
 // the counter (D only).
 
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "update_tile.cuh"
 
 using namespace mbb::update;
@@ -57,8 +72,21 @@ using namespace mbb::update;
 namespace {
 
 constexpr size_t SMEM_BYTES = (size_t)SM_FLOATS * sizeof(float);
+// the bf16 instances: a trajectory tile's rows 0..R_LOGP (obs | actions |
+// logp), S bf16 values a row, staged twice after the float32 layout
+constexpr int TRAJ_ROWS = R_LOGP + 1;  // 110
+constexpr int STAGE_FLOATS = TRAJ_ROWS * S / 2;
+constexpr size_t SMEM_BYTES_BF16 =
+    (size_t)(SM_FLOATS + 2 * STAGE_FLOATS) * sizeof(float);
+static_assert(SM_FLOATS % 4 == 0 && (S * 2) % 16 == 0,
+              "16-byte aligned staging rows");
 
-__device__ __forceinline__ void cp_async16(float *dst, const float *src) {
+template <class TT>
+constexpr size_t smem_bytes() {
+    return sizeof(TT) == sizeof(float) ? SMEM_BYTES : SMEM_BYTES_BF16;
+}
+
+__device__ __forceinline__ void cp_async16(void *dst, const void *src) {
     const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
                  "l"(src));
@@ -81,20 +109,23 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // where tile u of a minibatch lies: its samples' first world column of
 // traj / side at its tick, and how many samples it holds
+template <class TT>
 struct TilePos {
-    const float *tc, *sc;
+    const TT *tc;
+    const float *sc;
     int w, n;
 };
 
-__device__ __forceinline__ TilePos tile_pos(const int *idx,
-                                            const float *traj,
-                                            const float *side, int rows,
-                                            int W, int wb, int u) {
+template <class TT>
+__device__ __forceinline__ TilePos<TT> tile_pos(const int *idx,
+                                                const TT *traj,
+                                                const float *side, int rows,
+                                                int W, int wb, int u) {
     const int tpb = (wb + S - 1) / S, wblk = W / wb;
     const int b = idx[u / tpb], sub = u % tpb;
     const int t = b / wblk;
     const int w = (b % wblk) * wb + sub * S;
-    TilePos p;
+    TilePos<TT> p;
     p.tc = traj + (size_t)t * rows * W + w;
     p.sc = side + (size_t)t * SIDE_ROWS * W + w;
     p.w = w;
@@ -103,15 +134,16 @@ __device__ __forceinline__ TilePos tile_pos(const int *idx,
 }
 
 // source row of input-buffer row r (r != D, the ones row)
-__device__ __forceinline__ const float *in_row(const TilePos &p, int r,
-                                               int W) {
+__device__ __forceinline__ const float *in_row(const TilePos<float> &p,
+                                               int r, int W) {
     if (r < D) return p.tc + (size_t)r * W;
     if (r < EX_V) return p.tc + (size_t)(R_ACT + r - EX_ACT) * W;
     return p.sc + (size_t)(r - EX_V) * W;
 }
 
 // the tile's 113 rows into `in`, asynchronously (samples >= n zeroed)
-__device__ void load_tile(float *in, const TilePos &p, int W, int tid) {
+__device__ void load_tile(float *in, uint16_t *, const TilePos<float> &p,
+                          int W, int tid) {
     const bool fast = p.n == S && (W & 3) == 0 && (p.w & 3) == 0;
     if (fast) {
         for (int i = tid; i < (IN_ROWS - 1) * (S / 4); i += NT) {
@@ -129,6 +161,52 @@ __device__ void load_tile(float *in, const TilePos &p, int W, int tid) {
     }
 }
 
+// bf16: the tile's trajectory rows 0..R_LOGP into the staging tile `stage`
+// (TRAJ_ROWS x S bf16 bits) and its 3 side rows into `in`, asynchronously
+// where the tile is whole and 16-byte aligned; else the bits by plain
+// loads (samples >= n zeroed) and the side rows 4 bytes at a time
+__device__ void load_tile(float *in, uint16_t *stage,
+                          const TilePos<uint16_t> &p, int W, int tid) {
+    if (p.n == S && (W & 7) == 0 && (p.w & 7) == 0) {
+        for (int i = tid; i < TRAJ_ROWS * (S / 8); i += NT) {
+            const int r = i / (S / 8), q = i % (S / 8);
+            cp_async16(stage + r * S + 8 * q, p.tc + (size_t)r * W + 8 * q);
+        }
+        for (int i = tid; i < 3 * (S / 4); i += NT) {
+            const int k = i / (S / 4), q = i % (S / 4);
+            cp_async16(in + (EX_V + k) * SP + 4 * q,
+                       p.sc + (size_t)k * W + 4 * q);
+        }
+    } else {
+        for (int i = tid; i < TRAJ_ROWS * S; i += NT) {
+            const int r = i / S, s = i % S;
+            stage[r * S + s] =
+                s < p.n ? p.tc[(size_t)r * W + s] : (uint16_t)0;
+        }
+        for (int i = tid; i < 3 * S; i += NT) {
+            const int k = i / S, s = i % S;
+            if (s < p.n)
+                cp_async4(in + (EX_V + k) * SP + s, p.sc + (size_t)k * W + s);
+            else
+                in[(EX_V + k) * SP + s] = 0.0f;
+        }
+    }
+}
+
+// the staging tile's bf16 rows upcast into the input buffer's trajectory
+// rows (all but the ones row and the side rows), two values a thread step
+__device__ __forceinline__ void upcast_stage(float *in,
+                                             const uint16_t *stage,
+                                             int tid) {
+    for (int i = tid; i < TRAJ_ROWS * (S / 2); i += NT) {
+        const int r = i / (S / 2), q = i % (S / 2);
+        const uint32_t v = reinterpret_cast<const uint32_t *>(stage + r * S)[q];
+        reinterpret_cast<float2 *>(in + (r < D ? r : r + 1) * SP)[q] =
+            make_float2(mbb::bf16_to_f32((uint16_t)(v & 0xffffu)),
+                        mbb::bf16_to_f32((uint16_t)(v >> 16)));
+    }
+}
+
 // MODE 1: rows r0.. of a row-major (mb, F) feat matrix (obs | actions |
 // logp | value_n | advantage | return_n), transposed into `in`
 __device__ void load_feat(float *in, const float *feat, int F, int r0,
@@ -143,10 +221,11 @@ __device__ void load_feat(float *in, const float *feat, int F, int r0,
 
 // MODE 0: tiles of permuted (tick, world-block) blocks of traj / side;
 // MODE 1: tiles of consecutive rows of a row-major (mb, F) feat matrix.
-template <int MODE>
+// TT: the trajectory's element type (MODE 0), float or bf16 bits.
+template <int MODE, class TT>
 __global__ void __launch_bounds__(NT, 1)
 update_grad_kernel(const int *__restrict__ idx,
-                   const float *__restrict__ traj,
+                   const TT *__restrict__ traj,
                    const float *__restrict__ side,
                    const float *__restrict__ feat,
                    const float *__restrict__ nrm,
@@ -158,11 +237,15 @@ update_grad_kernel(const int *__restrict__ idx,
     float *sm = reinterpret_cast<float *>(smem4);
     const int tid = threadIdx.x;
     float *bufs[2] = {sm + SI_IN, sm + SI_IN + IN_ROWS * SP};
+    constexpr bool F32T = sizeof(TT) == sizeof(float);
+    uint16_t *stg[2] = {
+        reinterpret_cast<uint16_t *>(sm + SM_FLOATS),
+        reinterpret_cast<uint16_t *>(sm + SM_FLOATS + STAGE_FLOATS)};
     load_weights(sm, params, nrm, tid);
     GradAcc acc;
     zero_acc(acc);
     if (MODE == 0 && blockIdx.x < n_tiles) {
-        load_tile(bufs[0],
+        load_tile(bufs[0], stg[0],
                   tile_pos(idx, traj, side, rows, W, wb, blockIdx.x), W,
                   tid);
         cp_async_commit();
@@ -176,7 +259,7 @@ update_grad_kernel(const int *__restrict__ idx,
             const int un = u + gridDim.x;
             if (un < n_tiles) {
                 // the other buffer's tile finished at the last barrier
-                load_tile(bufs[(it + 1) & 1],
+                load_tile(bufs[(it + 1) & 1], stg[(it + 1) & 1],
                           tile_pos(idx, traj, side, rows, W, wb, un), W,
                           tid);
                 cp_async_commit();
@@ -189,6 +272,10 @@ update_grad_kernel(const int *__restrict__ idx,
             load_feat(in, feat, F, u * S, n, tid);
         }
         __syncthreads();
+        if (MODE == 0 && !F32T) {
+            upcast_stage(in, stg[it & 1], tid);
+            __syncthreads();
+        }
 #pragma unroll
         for (int st = 0; st < N_STAGES; ++st) {
             tile_stage(st, sm, in, n, MODE == 0 ? ustats : nullptr, hp, acc,
@@ -266,11 +353,11 @@ update_reduce_kernel(const float *__restrict__ partials, int nparts,
                  mu[q], nu[q]);
 }
 
-template <int MODE>
+template <int MODE, class TT = float>
 cudaError_t set_smem() {
-    return cudaFuncSetAttribute(update_grad_kernel<MODE>,
+    return cudaFuncSetAttribute(update_grad_kernel<MODE, TT>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)SMEM_BYTES);
+                                (int)smem_bytes<TT>());
 }
 
 LossHp loss_hp(float clip, float vf_coef, float ent_coef, int clip_vloss,
@@ -306,6 +393,58 @@ cudaError_t reduce(const float *partials, int nparts, int max_parts,
     return cudaGetLastError();
 }
 
+template <class TT>
+int update_phase(const int *idx, const int *count, const TT *traj,
+                 const float *side, const float *nrm, const float *ustats,
+                 float *params, float *mu, float *nu, float *partials,
+                 int max_parts, int rows, int W, int wb, int bpm, int n_mb,
+                 float clip, float vf_coef, float ent_coef, int clip_vloss,
+                 float lr, float max_norm, cudaStream_t stream) {
+    if (wb < 1 || W % wb != 0 || bpm < 1 || n_mb < 1 || max_parts < 1 ||
+        rows <= R_LOGP || count == nullptr)
+        return (int)cudaErrorInvalidValue;
+    cudaError_t err = set_smem<0, TT>();
+    if (err != cudaSuccess) return (int)err;
+    err = cudaMemsetAsync(red_scratch(partials, max_parts).counter, 0,
+                          sizeof(int), stream);
+    if (err != cudaSuccess) return (int)err;
+    const int n_tiles = bpm * ((wb + S - 1) / S);
+    const int grid = n_tiles < max_parts ? n_tiles : max_parts;
+    const LossHp hp = loss_hp(clip, vf_coef, ent_coef, clip_vloss, bpm * wb);
+    for (int k = 0; k < n_mb; ++k) {
+        update_grad_kernel<0, TT><<<grid, NT, smem_bytes<TT>(), stream>>>(
+            idx + (size_t)k * bpm, traj, side, nullptr, nrm, ustats, params,
+            partials, rows, W, wb, n_tiles, 0, 0, hp);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+        err = reduce(partials, grid, max_parts, params, mu, nu, nullptr, 1,
+                     count, k, lr, max_norm, stream);
+        if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
+}
+
+template <class TT>
+int grad_prefetch(const int *idx, const TT *traj, const float *side,
+                  const float *nrm, const float *params, float *grads,
+                  float *partials, int max_parts, int rows, int W, int wb,
+                  int bpm, float clip, float vf_coef, float ent_coef,
+                  int clip_vloss, cudaStream_t stream) {
+    if (wb < 1 || W % wb != 0 || bpm < 1 || max_parts < 1 || rows <= R_LOGP)
+        return (int)cudaErrorInvalidValue;
+    cudaError_t err = set_smem<0, TT>();
+    if (err != cudaSuccess) return (int)err;
+    const int n_tiles = bpm * ((wb + S - 1) / S);
+    const int grid = n_tiles < max_parts ? n_tiles : max_parts;
+    update_grad_kernel<0, TT><<<grid, NT, smem_bytes<TT>(), stream>>>(
+        idx, traj, side, nullptr, nrm, nullptr, params, partials, rows, W, wb,
+        n_tiles, 0, 0, loss_hp(clip, vf_coef, ent_coef, clip_vloss, bpm * wb));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return (int)reduce(partials, grid, max_parts, nullptr, nullptr, nullptr,
+                       grads, 0, nullptr, 0, 0.0f, 0.0f, stream);
+}
+
 }  // namespace
 
 // Kernel D: the whole update phase, n_mb = E x M minibatches of bpm
@@ -320,28 +459,21 @@ extern "C" int mbb_fused_update_phase(
     float *nu, float *partials, int max_parts, int rows, int W, int wb,
     int bpm, int n_mb, float clip, float vf_coef, float ent_coef,
     int clip_vloss, float lr, float max_norm, cudaStream_t stream) {
-    if (wb < 1 || W % wb != 0 || bpm < 1 || n_mb < 1 || max_parts < 1 ||
-        rows <= R_LOGP || count == nullptr)
-        return (int)cudaErrorInvalidValue;
-    cudaError_t err = set_smem<0>();
-    if (err != cudaSuccess) return (int)err;
-    err = cudaMemsetAsync(red_scratch(partials, max_parts).counter, 0,
-                          sizeof(int), stream);
-    if (err != cudaSuccess) return (int)err;
-    const int n_tiles = bpm * ((wb + S - 1) / S);
-    const int grid = n_tiles < max_parts ? n_tiles : max_parts;
-    const LossHp hp = loss_hp(clip, vf_coef, ent_coef, clip_vloss, bpm * wb);
-    for (int k = 0; k < n_mb; ++k) {
-        update_grad_kernel<0><<<grid, NT, SMEM_BYTES, stream>>>(
-            idx + (size_t)k * bpm, traj, side, nullptr, nrm, ustats, params,
-            partials, rows, W, wb, n_tiles, 0, 0, hp);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-        err = reduce(partials, grid, max_parts, params, mu, nu, nullptr, 1,
-                     count, k, lr, max_norm, stream);
-        if (err != cudaSuccess) return (int)err;
-    }
-    return 0;
+    return update_phase(idx, count, traj, side, nrm, ustats, params, mu, nu,
+                        partials, max_parts, rows, W, wb, bpm, n_mb, clip,
+                        vf_coef, ent_coef, clip_vloss, lr, max_norm, stream);
+}
+
+// Kernel D on a trajectory of bf16 bits (uint16_t).
+extern "C" int mbb_fused_update_phase_bf16(
+    const int *idx, const int *count, const uint16_t *traj,
+    const float *side, const float *nrm, const float *ustats, float *params,
+    float *mu, float *nu, float *partials, int max_parts, int rows, int W,
+    int wb, int bpm, int n_mb, float clip, float vf_coef, float ent_coef,
+    int clip_vloss, float lr, float max_norm, cudaStream_t stream) {
+    return update_phase(idx, count, traj, side, nrm, ustats, params, mu, nu,
+                        partials, max_parts, rows, W, wb, bpm, n_mb, clip,
+                        vf_coef, ent_coef, clip_vloss, lr, max_norm, stream);
 }
 
 // Kernel G: one minibatch's gradient over the bpm blocks idx[0..bpm),
@@ -351,19 +483,20 @@ extern "C" int mbb_fused_minibatch_grad_prefetch(
     const float *params, float *grads, float *partials, int max_parts,
     int rows, int W, int wb, int bpm, float clip, float vf_coef,
     float ent_coef, int clip_vloss, cudaStream_t stream) {
-    if (wb < 1 || W % wb != 0 || bpm < 1 || max_parts < 1 || rows <= R_LOGP)
-        return (int)cudaErrorInvalidValue;
-    cudaError_t err = set_smem<0>();
-    if (err != cudaSuccess) return (int)err;
-    const int n_tiles = bpm * ((wb + S - 1) / S);
-    const int grid = n_tiles < max_parts ? n_tiles : max_parts;
-    update_grad_kernel<0><<<grid, NT, SMEM_BYTES, stream>>>(
-        idx, traj, side, nullptr, nrm, nullptr, params, partials, rows, W, wb,
-        n_tiles, 0, 0, loss_hp(clip, vf_coef, ent_coef, clip_vloss, bpm * wb));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    return (int)reduce(partials, grid, max_parts, nullptr, nullptr, nullptr,
-                       grads, 0, nullptr, 0, 0.0f, 0.0f, stream);
+    return grad_prefetch(idx, traj, side, nrm, params, grads, partials,
+                         max_parts, rows, W, wb, bpm, clip, vf_coef, ent_coef,
+                         clip_vloss, stream);
+}
+
+// Kernel G on a trajectory of bf16 bits (uint16_t).
+extern "C" int mbb_fused_minibatch_grad_prefetch_bf16(
+    const int *idx, const uint16_t *traj, const float *side,
+    const float *nrm, const float *params, float *grads, float *partials,
+    int max_parts, int rows, int W, int wb, int bpm, float clip,
+    float vf_coef, float ent_coef, int clip_vloss, cudaStream_t stream) {
+    return grad_prefetch(idx, traj, side, nrm, params, grads, partials,
+                         max_parts, rows, W, wb, bpm, clip, vf_coef, ent_coef,
+                         clip_vloss, stream);
 }
 
 // Kernel H: one minibatch's gradient over a row-major (mb, F) feat
@@ -378,7 +511,7 @@ extern "C" int mbb_fused_minibatch_grad(
     if (err != cudaSuccess) return (int)err;
     const int n_tiles = (mb + S - 1) / S;
     const int grid = n_tiles < max_parts ? n_tiles : max_parts;
-    update_grad_kernel<1><<<grid, NT, SMEM_BYTES, stream>>>(
+    update_grad_kernel<1, float><<<grid, NT, SMEM_BYTES, stream>>>(
         nullptr, nullptr, nullptr, feat, nrm, nullptr, params, partials, 0, 1,
         1, n_tiles, F, mb, loss_hp(clip, vf_coef, ent_coef, clip_vloss, mb));
     err = cudaGetLastError();
@@ -394,7 +527,7 @@ extern "C" int mbb_update_occupancy(int *out) {
     cudaError_t err = set_smem<0>();
     if (err != cudaSuccess) return (int)err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &out[0], update_grad_kernel<0>, NT, SMEM_BYTES);
+        &out[0], update_grad_kernel<0, float>, NT, SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &out[1], update_reduce_kernel, RED_NT, 0);

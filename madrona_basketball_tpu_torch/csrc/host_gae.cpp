@@ -3,21 +3,27 @@
 // CTAs runs the same gae_tile.cuh steps in the card's order (stage, the
 // reverse GAE and the carry, the CTA partials, the block means in rank
 // order, the M2 pass, rank 0's sums), compiled by g++ with contraction off.
-// Not part of the CUDA build (_build.py compiles the .cu files only).
+// mbb_host_gae_bf16 stages a trajectory of bf16 bits, upcast on load as
+// the bf16 instance stages it.  Not part of the CUDA build (_build.py
+// compiles the .cu files only).
 
 #include <cstddef>
+#include <cstdint>
 #include <vector>
 
+#include "bf16.cuh"
 #include "gae_tile.cuh"
 
 using namespace mbb::gae;
 
-extern "C" void mbb_host_gae(const float *traj, const float *carry,
-                             const float *next_value, const float *vstats,
-                             float *side, float *moments, float *carry_out,
-                             float *ticks, int T, int rows, int W, int gb,
-                             int r_value, int r_rew, int r_done, float gamma,
-                             float gamma_lam) {
+namespace {
+
+template <class TT>
+void host_gae(const TT *traj, const float *carry, const float *next_value,
+              const float *vstats, float *side, float *moments,
+              float *carry_out, float *ticks, int T, int rows, int W, int gb,
+              int r_value, int r_rew, int r_done, float gamma,
+              float gamma_lam) {
     const int ncl = gb / GAE_TILE, n = T * GAE_TILE;
     const float vmean = vstats[0], vsig = vstats[1];
     for (int block = 0; block < W / gb; ++block) {
@@ -31,8 +37,8 @@ extern "C" void mbb_host_gae(const float *traj, const float *carry,
                 const int r = k == 0 ? r_value : (k == 1 ? r_rew : r_done);
                 for (int t = 0; t < T; ++t)
                     for (int c = 0; c < GAE_TILE; ++c)
-                        sh[k * n + t * GAE_TILE + c] =
-                            traj[((size_t)t * rows + r) * W + w0 + c];
+                        sh[k * n + t * GAE_TILE + c] = mbb::from_traj(
+                            traj[((size_t)t * rows + r) * W + w0 + c]);
             }
             side3[rank].assign(3 * n, 0.0f);
             std::vector<float> wsum(3 * GAE_TILE);
@@ -97,4 +103,27 @@ extern "C" void mbb_host_gae(const float *traj, const float *carry,
                 ticks[((size_t)block * T + t) * 8 + k] = s;
             }
     }
+}
+
+}  // namespace
+
+extern "C" void mbb_host_gae(const float *traj, const float *carry,
+                             const float *next_value, const float *vstats,
+                             float *side, float *moments, float *carry_out,
+                             float *ticks, int T, int rows, int W, int gb,
+                             int r_value, int r_rew, int r_done, float gamma,
+                             float gamma_lam) {
+    host_gae(traj, carry, next_value, vstats, side, moments, carry_out, ticks,
+             T, rows, W, gb, r_value, r_rew, r_done, gamma, gamma_lam);
+}
+
+extern "C" void mbb_host_gae_bf16(const uint16_t *traj, const float *carry,
+                                  const float *next_value,
+                                  const float *vstats, float *side,
+                                  float *moments, float *carry_out,
+                                  float *ticks, int T, int rows, int W, int gb,
+                                  int r_value, int r_rew, int r_done,
+                                  float gamma, float gamma_lam) {
+    host_gae(traj, carry, next_value, vstats, side, moments, carry_out, ticks,
+             T, rows, W, gb, r_value, r_rew, r_done, gamma, gamma_lam);
 }

@@ -4,27 +4,38 @@
 // max_parts)), each walking tiles u, u + G, ..., every stage of a tile
 // run for threads 0..255 in turn, each thread's sums kept across its
 // CTA's tiles, then the reduce's chunk order, slice norms and clip +
-// Adam.  Compiled by g++ with contraction off; not part of the CUDA
-// build (_build.py compiles the .cu files only).
+// Adam.  The _bf16 entries read a trajectory of bf16 bits, upcast on load
+// as the card's bf16 instances upcast their staging tiles.  Compiled by
+// g++ with contraction off; not part of the CUDA build (_build.py
+// compiles the .cu files only).
 
 #include <cstdint>
 #include <cstring>
 #include <vector>
 
+#include "bf16.cuh"
 #include "update_tile.cuh"
 
 using namespace mbb::update;
 
 namespace {
 
-// where the samples of tile u come from: MODE 0 traj / side blocks,
-// MODE 1 a row-major feat matrix
+// where the samples of tile u come from: MODE 0 traj / side blocks (traj
+// float32, or bf16 bits when bf16), MODE 1 a row-major feat matrix
 struct Source {
     int mode;
     const int *idx;
-    const float *traj, *side, *feat;
+    const void *traj;
+    const float *side, *feat;
     int rows, W, wb, F, mb;
+    bool bf16;
 };
+
+// element i of a Source's trajectory as float32
+float traj_at(const Source &src, size_t i) {
+    return src.bf16 ? mbb::from_traj(static_cast<const uint16_t *>(src.traj)[i])
+                    : static_cast<const float *>(src.traj)[i];
+}
 
 int load_input(const Source &src, int u, float *in) {
     if (src.mode == 1) {
@@ -40,14 +51,20 @@ int load_input(const Source &src, int u, float *in) {
     const int b = src.idx[u / tpb], sub = u % tpb, t = b / wblk;
     const int w = (b % wblk) * src.wb + sub * S;
     const int n = src.wb - sub * S < S ? src.wb - sub * S : S;
-    const float *tc = src.traj + (size_t)t * src.rows * src.W + w;
+    const size_t tc = (size_t)t * src.rows * src.W + w;
     const float *sc = src.side + (size_t)t * SIDE_ROWS * src.W + w;
     for (int r = 0; r < IN_ROWS; ++r) {
         if (r == D) continue;
-        const float *row = r < D ? tc + (size_t)r * src.W
-                         : r < EX_V ? tc + (size_t)(R_ACT + r - EX_ACT) * src.W
-                                    : sc + (size_t)(r - EX_V) * src.W;
-        for (int s = 0; s < S; ++s) in[r * SP + s] = s < n ? row[s] : 0.0f;
+        for (int s = 0; s < S; ++s) {
+            float v = 0.0f;
+            if (s < n && r < EX_V) {
+                const int tr = r < D ? r : R_ACT + r - EX_ACT;
+                v = traj_at(src, tc + (size_t)tr * src.W + s);
+            } else if (s < n) {
+                v = sc[(size_t)(r - EX_V) * src.W + s];
+            }
+            in[r * SP + s] = v;
+        }
     }
     return n;
 }
@@ -114,21 +131,18 @@ LossHp loss_hp(float clip, float vf_coef, float ent_coef, int clip_vloss,
     return hp;
 }
 
-}  // namespace
-
-// Kernel D's arguments without the stream and the scratch.
-extern "C" void mbb_host_update_phase(
-    const int *idx, const int *count, const float *traj, const float *side,
-    const float *nrm, const float *ustats, float *params, float *mu,
-    float *nu, int max_parts, int rows, int W, int wb, int bpm, int n_mb,
-    float clip, float vf_coef, float ent_coef, int clip_vloss, float lr,
-    float max_norm) {
+void update_phase(const int *idx, const int *count, const void *traj,
+                  bool bf16, const float *side, const float *nrm,
+                  const float *ustats, float *params, float *mu, float *nu,
+                  int max_parts, int rows, int W, int wb, int bpm, int n_mb,
+                  float clip, float vf_coef, float ent_coef, int clip_vloss,
+                  float lr, float max_norm) {
     const int n_tiles = bpm * ((wb + S - 1) / S);
     const LossHp hp = loss_hp(clip, vf_coef, ent_coef, clip_vloss, bpm * wb);
     std::vector<float> partials((size_t)max_parts * P), g(P);
     for (int k = 0; k < n_mb; ++k) {
         const Source src{0, idx + (size_t)k * bpm, traj, side, nullptr,
-                         rows, W, wb, 0, 0};
+                         rows, W, wb, 0, 0, bf16};
         const int grid = grad_launch(src, n_tiles, max_parts, nrm, ustats,
                                      params, hp, partials.data());
         const float gn = reduce(partials.data(), grid, g.data());
@@ -140,13 +154,12 @@ extern "C" void mbb_host_update_phase(
     }
 }
 
-// Kernel G's arguments without the stream and the scratch.
-extern "C" void mbb_host_minibatch_grad_prefetch(
-    const int *idx, const float *traj, const float *side, const float *nrm,
-    const float *params, float *grads, int max_parts, int rows, int W,
-    int wb, int bpm, float clip, float vf_coef, float ent_coef,
-    int clip_vloss) {
-    const Source src{0, idx, traj, side, nullptr, rows, W, wb, 0, 0};
+void grad_prefetch(const int *idx, const void *traj, bool bf16,
+                   const float *side, const float *nrm, const float *params,
+                   float *grads, int max_parts, int rows, int W, int wb,
+                   int bpm, float clip, float vf_coef, float ent_coef,
+                   int clip_vloss) {
+    const Source src{0, idx, traj, side, nullptr, rows, W, wb, 0, 0, bf16};
     std::vector<float> partials((size_t)max_parts * P);
     const int grid = grad_launch(
         src, bpm * ((wb + S - 1) / S), max_parts, nrm, nullptr, params,
@@ -155,13 +168,60 @@ extern "C" void mbb_host_minibatch_grad_prefetch(
     reduce(partials.data(), grid, grads);
 }
 
+}  // namespace
+
+// Kernel D's arguments without the stream and the scratch.
+extern "C" void mbb_host_update_phase(
+    const int *idx, const int *count, const float *traj, const float *side,
+    const float *nrm, const float *ustats, float *params, float *mu,
+    float *nu, int max_parts, int rows, int W, int wb, int bpm, int n_mb,
+    float clip, float vf_coef, float ent_coef, int clip_vloss, float lr,
+    float max_norm) {
+    update_phase(idx, count, traj, false, side, nrm, ustats, params, mu, nu,
+                 max_parts, rows, W, wb, bpm, n_mb, clip, vf_coef, ent_coef,
+                 clip_vloss, lr, max_norm);
+}
+
+// Kernel D on a trajectory of bf16 bits (uint16_t).
+extern "C" void mbb_host_update_phase_bf16(
+    const int *idx, const int *count, const uint16_t *traj,
+    const float *side, const float *nrm, const float *ustats, float *params,
+    float *mu, float *nu, int max_parts, int rows, int W, int wb, int bpm,
+    int n_mb, float clip, float vf_coef, float ent_coef, int clip_vloss,
+    float lr, float max_norm) {
+    update_phase(idx, count, traj, true, side, nrm, ustats, params, mu, nu,
+                 max_parts, rows, W, wb, bpm, n_mb, clip, vf_coef, ent_coef,
+                 clip_vloss, lr, max_norm);
+}
+
+// Kernel G's arguments without the stream and the scratch.
+extern "C" void mbb_host_minibatch_grad_prefetch(
+    const int *idx, const float *traj, const float *side, const float *nrm,
+    const float *params, float *grads, int max_parts, int rows, int W,
+    int wb, int bpm, float clip, float vf_coef, float ent_coef,
+    int clip_vloss) {
+    grad_prefetch(idx, traj, false, side, nrm, params, grads, max_parts, rows,
+                  W, wb, bpm, clip, vf_coef, ent_coef, clip_vloss);
+}
+
+// Kernel G on a trajectory of bf16 bits (uint16_t).
+extern "C" void mbb_host_minibatch_grad_prefetch_bf16(
+    const int *idx, const uint16_t *traj, const float *side,
+    const float *nrm, const float *params, float *grads, int max_parts,
+    int rows, int W, int wb, int bpm, float clip, float vf_coef,
+    float ent_coef, int clip_vloss) {
+    grad_prefetch(idx, traj, true, side, nrm, params, grads, max_parts, rows,
+                  W, wb, bpm, clip, vf_coef, ent_coef, clip_vloss);
+}
+
 // Kernel H's arguments without the stream and the scratch.
 extern "C" void mbb_host_minibatch_grad(const float *feat, const float *nrm,
                                         const float *params, float *grads,
                                         int max_parts, int mb, int F,
                                         float clip, float vf_coef,
                                         float ent_coef, int clip_vloss) {
-    const Source src{1, nullptr, nullptr, nullptr, feat, 0, 1, 1, F, mb};
+    const Source src{1, nullptr, nullptr, nullptr, feat, 0, 1, 1, F, mb,
+                     false};
     std::vector<float> partials((size_t)max_parts * P);
     const int grid = grad_launch(
         src, (mb + S - 1) / S, max_parts, nrm, nullptr, params,

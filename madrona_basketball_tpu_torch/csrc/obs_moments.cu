@@ -20,15 +20,27 @@
 // differently from the fold (ops/fused_gae.py::obs_moments_plain), ~1e-6
 // relative.
 //
+// The bf16 branch (make_obs_moments(traj_dtype=bfloat16), fused_gae.py:252,
+// :271-273; --data-parallel --bf16-traj): the partial kernel reads bf16
+// bits (template TT = uint16_t) and upcasts each value on load; the rest
+// is the float32 kernel's, so it equals that kernel on the upcast
+// trajectory bit for bit.
+//
 // Bound: bytes.  It reads T * used * W floats once (108 MB at the flagship
-// 32 x 103 x 8192, 0.032 ms at 3.35 TB/s) for ~4 operations a value; loads
-// are coalesced (consecutive threads on consecutive worlds).
+// 32 x 103 x 8192, 0.032 ms at 3.35 TB/s; half that in bf16) for ~4
+// operations a value; loads are coalesced (consecutive threads on
+// consecutive worlds).
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
+
 namespace {
 
-__global__ void obs_moment_partial_kernel(const float *__restrict__ traj,
+template <class TT>
+__global__ void obs_moment_partial_kernel(const TT *__restrict__ traj,
                                           float *__restrict__ partials,
                                           int T, int rows, int W) {
     extern __shared__ float sm[];  // mean[blockDim] | m2[blockDim]
@@ -37,14 +49,14 @@ __global__ void obs_moment_partial_kernel(const float *__restrict__ traj,
     const int f = blockIdx.x;
     const int c = blockIdx.y;
     const int w = c * blockDim.x + threadIdx.x;
-    const float *x = traj + (size_t)f * W + w;
+    const TT *x = traj + (size_t)f * W + w;
     const size_t stride = (size_t)rows * W;
     float s = 0.0f;
-    for (int t = 0; t < T; ++t) s += x[t * stride];
+    for (int t = 0; t < T; ++t) s += mbb::from_traj(x[t * stride]);
     const float mean = s / (float)T;
     float m2 = 0.0f;
     for (int t = 0; t < T; ++t) {
-        const float d = x[t * stride] - mean;
+        const float d = mbb::from_traj(x[t * stride]) - mean;
         m2 += d * d;
     }
     sm_mean[threadIdx.x] = mean;
@@ -96,6 +108,23 @@ __global__ void obs_moment_combine_kernel(const float *__restrict__ partials,
     for (int k = 3; k < 8; ++k) o[k] = 0.0f;
 }
 
+template <class TT>
+int launch(const TT *traj, float *partials, float *out, int T, int rows,
+           int W, int used, int chunk, cudaStream_t stream) {
+    if (T < 1 || used < 1 || used > rows || chunk < 32 || chunk > 1024 ||
+        (chunk & (chunk - 1)) != 0 || W % chunk != 0)
+        return (int)cudaErrorInvalidValue;
+    const int n_chunks = W / chunk;
+    obs_moment_partial_kernel<TT><<<dim3(used, n_chunks), chunk,
+                                2 * chunk * sizeof(float), stream>>>(
+        traj, partials, T, rows, W);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    obs_moment_combine_kernel<<<(used + 127) / 128, 128, 0, stream>>>(
+        partials, out, used, n_chunks, (float)T * (float)chunk);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // traj (T, rows, W) float32; partials (used, W / chunk, 2) scratch;
@@ -104,18 +133,15 @@ __global__ void obs_moment_combine_kernel(const float *__restrict__ partials,
 extern "C" int mbb_obs_moments(const float *traj, float *partials,
                                float *out, int T, int rows, int W, int used,
                                int chunk, cudaStream_t stream) {
-    if (T < 1 || used < 1 || used > rows || chunk < 32 || chunk > 1024 ||
-        (chunk & (chunk - 1)) != 0 || W % chunk != 0)
-        return (int)cudaErrorInvalidValue;
-    const int n_chunks = W / chunk;
-    obs_moment_partial_kernel<<<dim3(used, n_chunks), chunk,
-                                2 * chunk * sizeof(float), stream>>>(
-        traj, partials, T, rows, W);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    obs_moment_combine_kernel<<<(used + 127) / 128, 128, 0, stream>>>(
-        partials, out, used, n_chunks, (float)T * (float)chunk);
-    return (int)cudaGetLastError();
+    return launch(traj, partials, out, T, rows, W, used, chunk, stream);
+}
+
+// mbb_obs_moments on a trajectory of bf16 bits (uint16_t).
+extern "C" int mbb_obs_moments_bf16(const uint16_t *traj, float *partials,
+                                    float *out, int T, int rows, int W,
+                                    int used, int chunk,
+                                    cudaStream_t stream) {
+    return launch(traj, partials, out, T, rows, W, used, chunk, stream);
 }
 
 extern "C" const char *mbb_error_string(int err) {

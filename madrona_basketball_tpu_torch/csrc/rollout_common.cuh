@@ -28,6 +28,26 @@
 //     written to the trajectory), one world a lane, and reduce them with
 //     the xor butterfly: mean = sum / 32, then M2 = sum of squared
 //     deviations.
+//
+// Storage and policy types (template parameters TT and PBF; the float32
+// instance, TT = float and PBF = false, is the flagship's):
+//   * TT = uint16_t stores every trajectory row in bf16 (bf16.cuh, round
+//     to nearest even on store; the JAX kernel's traj_dtype=bfloat16):
+//     the same rows, including the zero rows, each the float32 instance's
+//     value rounded.  State, obs and the fold stay float32: the fold
+//     reads the pre-tick obs that the policy saw, not the rounded rows,
+//     from a float32 copy of the tile's 103 trainee obs rows that the
+//     row stores write into the normalized-obs tile (free from the end of
+//     the policy to the next tick's, so no more shared memory).  The cost:
+//     6,592 shared stores a tick, and the fold reads shared memory where
+//     the float32 instance reads L2.
+//   * PBF rounds the operands of the three Dense layers to bf16 (the JAX
+//     kernel's policy_bf16, fused_rollout.py:140-155): the weights once,
+//     as they enter shared memory, the normalized and clipped obs and the
+//     LayerNorm-ReLU outputs as they are written.  A product of two bf16
+//     values is exact in float32, so each sum is the same FMA chain over
+//     k in ascending order; biases, LayerNorm and sampling stay float32.
+//     The frozen policy's forward does the same.
 // Per tick, in the JAX kernel's order: policy on the pre-tick obs,
 // sampling, actions into the world (and the frozen policy's for the other
 // agent), the trajectory rows (103 obs, 6 actions, logp, value, zeros),
@@ -53,6 +73,7 @@
 
 #pragma once
 
+#include "bf16.cuh"
 #include "sim_world.cuh"
 
 namespace mbb {
@@ -182,7 +203,9 @@ __device__ __forceinline__ void dense(const float *__restrict__ wt,
 }
 
 // LayerNorm (flax fast variance, eps 1e-6) + ReLU over the H units of each
-// world of the tile h (H, TILE), in place; kernel B's arithmetic.
+// world of the tile h (H, TILE), in place; kernel B's arithmetic.  PBF:
+// the outputs rounded to bf16 (the next Dense layer's operand).
+template <bool PBF>
 __device__ __forceinline__ void layer_norm_relu(float *__restrict__ h,
                                                 const float *__restrict__ b,
                                                 int sc, int bc,
@@ -207,15 +230,19 @@ __device__ __forceinline__ void layer_norm_relu(float *__restrict__ h,
 #pragma unroll
     for (int q = 0; q < J; ++q) {
         const int j = g * J + q;
-        h[j * TILE + c] =
+        const float y =
             fmaxf((h[j * TILE + c] - mu) * r * b[j * 8 + sc] + b[j * 8 + bc],
                   0.0f);
+        h[j * TILE + c] = PBF ? bf16_round(y) : y;
     }
     __syncthreads();
 }
 
 // The policy on the obs block ob (128, TILE) of the tile: logits and value
-// into sm[S_OUT] (20, TILE).  All NT threads; ends synchronized.
+// into sm[S_OUT] (20, TILE).  All NT threads; ends synchronized.  PBF: the
+// Dense layers' activation operands rounded to bf16 (the weights P are
+// rounded already).
+template <bool PBF>
 __device__ __forceinline__ void policy_tile(const float *__restrict__ P,
                                             const float *__restrict__ ob,
                                             float *__restrict__ sm, int tid) {
@@ -225,16 +252,17 @@ __device__ __forceinline__ void policy_tile(const float *__restrict__ P,
     const float *b = P + P_B;
     for (int i = tid; i < OBS * TILE; i += NT) {
         const int k = i / TILE;
-        xn[i] = clampf((ob[i] - P[P_NRM + 2 * k]) * P[P_NRM + 2 * k + 1],
-                       -5.0f, 5.0f);
+        const float x = clampf(
+            (ob[i] - P[P_NRM + 2 * k]) * P[P_NRM + 2 * k + 1], -5.0f, 5.0f);
+        xn[i] = PBF ? bf16_round(x) : x;
     }
     __syncthreads();
     dense<OBS, H / G>(P + P_W1, xn, h1, b, 0, g, c);
     __syncthreads();
-    layer_norm_relu(h1, b, 1, 2, st, tid, g, c);
+    layer_norm_relu<PBF>(h1, b, 1, 2, st, tid, g, c);
     dense<H, H / G>(P + P_W2, h1, h2, b, 3, g, c);
     __syncthreads();
-    layer_norm_relu(h2, b, 4, 5, st, tid, g, c);
+    layer_norm_relu<PBF>(h2, b, 4, 5, st, tid, g, c);
     dense<H, (NL + 1) / G>(P + P_WH, h2, sm + S_OUT, b, 6, g, c);
     __syncthreads();
 }
@@ -250,12 +278,15 @@ __device__ __forceinline__ float sample_tile(const float *__restrict__ out,
 }
 
 // FOLD: (feature, 32-world group) pairs of one tick's trainee obs rows
-// (tr, rows 0..102 at worlds w0..) over the warps of threads TILE..NT-1,
+// (tr, rows 0..102 at worlds w0.. of the float32 trajectory; SMEM: the
+// tile's float32 copy in shared memory, row stride TILE) over the warps of
+// threads TILE..NT-1,
 // FOLD_ILP pairs at a time so that their butterflies interleave; each
 // pair: mean = butterfly sum / 32, M2 = butterfly sum of squared
 // deviations, lane 0 writes pt[(g, k, 0..1)].
 constexpr int FOLD_ILP = 6;
 
+template <bool SMEM>
 __device__ __forceinline__ void fold_tick(const float *tr,
                                           float *__restrict__ pt, int W,
                                           int w0, int ng, int tid) {
@@ -267,9 +298,11 @@ __device__ __forceinline__ void fold_tick(const float *tr,
 #pragma unroll
         for (int j = 0; j < FOLD_ILP; ++j) {
             const int pr = min(p0 + j, npairs - 1);
-            // L2 reads: the rows were written by this CTA this tick
-            raw[j] = __ldcg(tr + (size_t)(pr / ng) * W + w0 + 32 * (pr % ng) +
-                            lane);
+            if (SMEM)
+                raw[j] = tr[(pr / ng) * TILE + 32 * (pr % ng) + lane];
+            else  // L2 reads: the rows were written by this CTA this tick
+                raw[j] = __ldcg(tr + (size_t)(pr / ng) * W + w0 +
+                                32 * (pr % ng) + lane);
             v[j] = raw[j];
         }
 #pragma unroll
@@ -306,17 +339,19 @@ __device__ __forceinline__ void fold_tick(const float *tr,
 // The T ticks of the tile of worlds [blockIdx.x * TILE, + TILE) (fewer in
 // a last tile of W % TILE == 32 worlds).  FOLD: partials (T, W / 32,
 // ROLL_OBS, 2) receive each tick's per-group (mean, M2) of the trainee's
-// pre-tick obs.
-template <int TI, bool FROZEN, bool FOLD>
+// pre-tick obs.  TT: the trajectory's storage type; PBF: bf16 policy
+// operands (see the header).
+template <int TI, bool FROZEN, bool FOLD, class TT = float, bool PBF = false>
 __device__ __forceinline__ void rollout_tile(
     SimParams p, float *__restrict__ sf, int *__restrict__ si,
     float *__restrict__ obs, const float *__restrict__ pol,
     const float *__restrict__ fpol, const float *__restrict__ ext,
-    float *__restrict__ traj, float *__restrict__ partials, int W, int T,
+    TT *__restrict__ traj, float *__restrict__ partials, int W, int T,
     uint32_t k0, uint32_t k1, const int *__restrict__ tick_base,
     int world_base) {
     extern __shared__ float smem[];
     constexpr int FI = 1 - TI;
+    constexpr bool F32T = sizeof(TT) == sizeof(float);
     float *sp = smem;
     float *sfp = smem + POL;
     float *sm = smem + (FROZEN ? 2 : 1) * POL;
@@ -325,8 +360,10 @@ __device__ __forceinline__ void rollout_tile(
     const int w0 = blockIdx.x * TILE;
     const int nw = min(TILE, W - w0);
     for (int i = tid; i < POL; i += NT) {
-        sp[i] = pol[i];
-        if (FROZEN) sfp[i] = fpol[i];
+        // PBF: the Dense weights w1t | w2t | wht rounded to bf16 once
+        const bool rw = PBF && i >= P_W1 && i < P_B;
+        sp[i] = rw ? bf16_round(pol[i]) : pol[i];
+        if (FROZEN) sfp[i] = rw ? bf16_round(fpol[i]) : fpol[i];
     }
     for (int i = tid; i < N_OBS_ROWS * TILE; i += NT)
         so[i] = i % TILE < nw ? obs[(size_t)(i / TILE) * W + w0 + i % TILE]
@@ -343,9 +380,9 @@ __device__ __forceinline__ void rollout_tile(
         const uint32_t tick = (uint32_t)(tb + t);
         const float *e =
             ext != nullptr ? ext + (size_t)t * EXT_CHUNK * W + w : nullptr;
-        float *tr = traj + (size_t)t * ROLL_ROWS * W;
+        TT *tr = traj + (size_t)t * ROLL_ROWS * W;
 
-        policy_tile(sp, so + TI * OBS * TILE, sm, tid);
+        policy_tile<PBF>(sp, so + TI * OBS * TILE, sm, tid);
         if (sim) {
             float u[NL];
             if (e != nullptr) {
@@ -359,15 +396,16 @@ __device__ __forceinline__ void rollout_tile(
             set_actions(s.ag[TI], act);
 #pragma unroll
             for (int j = 0; j < 6; ++j)
-                tr[(size_t)(R_ACT + j) * W + w] = (float)act[j];
-            tr[(size_t)R_LOGP * W + w] = logp;
-            tr[(size_t)(R_LOGP + 1) * W + w] = 0.0f;
-            tr[(size_t)(R_LOGP + 2) * W + w] = 0.0f;
-            tr[(size_t)R_VALUE * W + w] = sm[S_OUT + NL * TILE + tid];
+                tr[(size_t)(R_ACT + j) * W + w] = to_traj<TT>((float)act[j]);
+            tr[(size_t)R_LOGP * W + w] = to_traj<TT>(logp);
+            tr[(size_t)(R_LOGP + 1) * W + w] = to_traj<TT>(0.0f);
+            tr[(size_t)(R_LOGP + 2) * W + w] = to_traj<TT>(0.0f);
+            tr[(size_t)R_VALUE * W + w] =
+                to_traj<TT>(sm[S_OUT + NL * TILE + tid]);
         }
         if (FROZEN) {
             __syncthreads();  // the logits tile is read before it is reused
-            policy_tile(sfp, so + FI * OBS * TILE, sm, tid);
+            policy_tile<PBF>(sfp, so + FI * OBS * TILE, sm, tid);
             if (sim) {
                 float u[NL];
                 if (e != nullptr) {
@@ -383,19 +421,29 @@ __device__ __forceinline__ void rollout_tile(
                 set_actions(s.ag[FI], act);
             }
         }
-        // the trainee's pre-tick obs rows, coalesced over the tile
+        // the trainee's pre-tick obs rows, coalesced over the tile (bf16
+        // storage with the fold: and their float32 copy into the free
+        // normalized-obs tile, which the fold reads)
         const float *to = so + TI * OBS * TILE;
+        float *xs = sm + S_XN;
         for (int i = tid; i < ROLL_OBS * TILE; i += NT)
-            if (i % TILE < nw)
-                tr[(size_t)(i / TILE) * W + w0 + i % TILE] = to[i];
+            if (i % TILE < nw) {
+                tr[(size_t)(i / TILE) * W + w0 + i % TILE] = to_traj<TT>(to[i]);
+                if (FOLD && !F32T) xs[i] = to[i];
+            }
         __syncthreads();  // the obs tile is read before the tick rewrites it
 
         // the warps that run no sim fold the tick's obs rows (just
         // written to the trajectory) while warps 0-1 step the worlds
-        if (FOLD && tid >= TILE)
-            fold_tick(tr, partials + ((size_t)t * (W >> 5) + (w0 >> 5)) *
-                                         ROLL_OBS * 2,
-                      W, w0, nw >> 5, tid);
+        if (FOLD && tid >= TILE) {
+            float *pt = partials +
+                        ((size_t)t * (W >> 5) + (w0 >> 5)) * ROLL_OBS * 2;
+            if (F32T)
+                fold_tick<false>(reinterpret_cast<const float *>(tr), pt, W,
+                                 w0, nw >> 5, tid);
+            else
+                fold_tick<true>(xs, pt, W, w0, nw >> 5, tid);
+        }
         if (sim) {
             float nz[N_NOISE_ROWS];
             if (e != nullptr) {
@@ -410,10 +458,10 @@ __device__ __forceinline__ void rollout_tile(
                 nz[N_NOISE_ROWS - 1] = u[N_NOISE_ROWS - 1];
             }
             step_world(p, s, nz, so, TILE, tid);
-            tr[(size_t)R_REW * W + w] = s.ag[TI].reward;
-            tr[(size_t)R_DONE * W + w] = s.ag[TI].done;
+            tr[(size_t)R_REW * W + w] = to_traj<TT>(s.ag[TI].reward);
+            tr[(size_t)R_DONE * W + w] = to_traj<TT>(s.ag[TI].done);
             for (int r = R_DONE + 1; r < ROLL_ROWS; ++r)
-                tr[(size_t)r * W + w] = 0.0f;
+                tr[(size_t)r * W + w] = to_traj<TT>(0.0f);
         }
         __syncthreads();  // the new obs tile, before the next tick's policy
     }
@@ -424,10 +472,10 @@ __device__ __forceinline__ void rollout_tile(
 }
 
 // Launch KERNEL (a __global__ wrapper of rollout_tile) on W / TILE tiles.
-template <bool FROZEN, class Kernel>
+template <bool FROZEN, class Kernel, class TT>
 int launch_tiles(Kernel kernel, SimParams p, float *sf, int *si, float *obs,
                  const float *pol, const float *fpol, const float *ext,
-                 float *traj, float *partials, int W, int T, uint32_t k0,
+                 TT *traj, float *partials, int W, int T, uint32_t k0,
                  uint32_t k1, const int *tick_base, int world_base,
                  cudaStream_t stream) {
     const size_t smem = ((FROZEN ? 2 : 1) * POL + S_END) * sizeof(float);

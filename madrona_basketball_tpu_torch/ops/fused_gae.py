@@ -34,6 +34,13 @@ grid order; kernel E (csrc/obs_moments.cu), replacing the Pallas kernel
 `make_obs_moments` (fused_gae.py:251, pallas_call :281), reduces the same
 samples as a fixed tree (per-world two-pass, then pairwise and per-chunk
 Chan merges), which rounds differently (~1e-6 relative).
+
+Both take a trajectory of float32 or of bfloat16 (the JAX kernels'
+traj_dtype, the trainer's --bf16-traj): a bf16 trajectory is upcast to
+float32 as it is read, and everything after is the float32 arithmetic, so
+each equals its float32 version on the upcast trajectory.  On the card
+a bf16 trajectory runs the kernels' bf16 instances (`mbb_fused_gae_bf16`,
+`mbb_obs_moments_bf16`), counted apart from the float32 ones.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import torch
 from .. import constants as C
 
 F32 = torch.float32
+BF16 = torch.bfloat16
 OBS_USED = C.OBS_USED  # the packed obs slots (103)
 
 VSTAT_COLS = 8       # vstats (1, 8): [value_mean, value_sigma, 0...]
@@ -98,8 +106,9 @@ def combine_block_moments(means, m2s, n_per: float):
 
 def _check(traj, carry, next_value_n, vstats, r_done):
     T, rows, W = traj.shape
-    if traj.dtype != F32 or rows <= r_done:
-        raise ValueError("traj must be (T, rows > r_done, W) float32")
+    if traj.dtype not in (F32, BF16) or rows <= r_done:
+        raise ValueError("traj must be (T, rows > r_done, W) float32 or "
+                         "bfloat16")
     if carry.shape != (2, W) or next_value_n.shape != (1, W):
         raise ValueError("carry must be (2, W), next_value (1, W)")
     if vstats.shape != (1, VSTAT_COLS):
@@ -119,7 +128,7 @@ def gae_plain(traj, carry, next_value_n, vstats, *, gamma: float,
     gb = pick_gae_block(W)
     nb = W // gb
     vmean, vsig = vstats[0, 0], vstats[0, 1]
-    vals, rew, dn = traj[:, r_value], traj[:, r_rew], traj[:, r_done]
+    vals, rew, dn = (traj[:, r].to(F32) for r in (r_value, r_rew, r_done))
     v_un = vmean + vsig * torch.clamp(vals, -5.0, 5.0)
     next_un = vmean + vsig * torch.clamp(next_value_n, -5.0, 5.0)
     nd = 1.0 - dn
@@ -162,12 +171,14 @@ def gae_plain(traj, carry, next_value_n, vstats, *, gamma: float,
 
 
 launches = 0  # kernel C launches (the wrapper counts, the caller resets)
+bf16_launches = 0  # of its bf16 instance (a bf16 trajectory)
 
 
 def fused_gae(traj, carry, next_value_n, vstats, *, gamma: float,
               lam: float, r_value: int, r_rew: int, r_done: int):
-    """Kernel C on CUDA tensors, `gae_plain` on CPU tensors."""
-    global launches
+    """Kernel C on CUDA tensors, `gae_plain` on CPU tensors; traj float32
+    or bfloat16."""
+    global launches, bf16_launches
     T, W = _check(traj, carry, next_value_n, vstats, r_done)
     if traj.device.type == "cpu":
         return gae_plain(traj, carry, next_value_n, vstats, gamma=gamma,
@@ -188,19 +199,24 @@ def fused_gae(traj, carry, next_value_n, vstats, *, gamma: float,
     traj, carry, next_value_n, vstats = (
         x.contiguous() for x in (traj, carry, next_value_n, vstats))
     if traj.data_ptr() % 16:
-        traj = traj.clone()  # the kernel reads 16-byte vectors
+        traj = traj.clone()  # the kernel reads 16- (bf16: 8-) byte vectors
     side = torch.empty((T, SIDE_ROWS, W), dtype=F32, device=dev)
     moments = torch.empty((nb, 8), dtype=F32, device=dev)
     carry2 = torch.empty((2, W), dtype=F32, device=dev)
     ticks = torch.empty((nb, T, 8), dtype=F32, device=dev)
-    err = lib.mbb_fused_gae(
+    bf16 = traj.dtype == BF16
+    entry = lib.mbb_fused_gae_bf16 if bf16 else lib.mbb_fused_gae
+    err = entry(
         _build.ptr(traj), _build.ptr(carry), _build.ptr(next_value_n),
         _build.ptr(vstats), _build.ptr(side), _build.ptr(moments),
         _build.ptr(carry2), _build.ptr(ticks), T, traj.shape[1], W, gb,
         r_value, r_rew, r_done, float(gamma), float(gamma * lam),
         _build.stream(dev))
     _build.check(err, "fused_gae")
-    launches += 1
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return side, moments, carry2, ticks
 
 
@@ -236,8 +252,10 @@ def gae_occupancy(dev, T: int, W: int) -> dict:
 # =====================================================================
 
 def _check_obs(traj, used):
-    if traj.dim() != 3 or traj.dtype != F32 or traj.shape[1] < used:
-        raise ValueError(f"traj must be (T, rows >= {used}, W) float32")
+    if traj.dim() != 3 or traj.dtype not in (F32, BF16) or \
+            traj.shape[1] < used:
+        raise ValueError(f"traj must be (T, rows >= {used}, W) float32 or "
+                         f"bfloat16")
     return traj.shape[0], traj.shape[2]
 
 
@@ -252,16 +270,19 @@ def obs_moments_plain(traj, used: int = OBS_USED):
     acc = None
     for t in range(T):
         for b in range(W // gb):
-            acc = chan_fold(acc, traj[t, 0:used, b * gb:(b + 1) * gb])
+            acc = chan_fold(acc, traj[t, 0:used, b * gb:(b + 1) * gb]
+                            .to(F32))
     return acc
 
 
 moment_launches = 0  # kernel E launches (wrapper counts, caller resets)
+bf16_moment_launches = 0  # of its bf16 instance (a bf16 trajectory)
 
 
 def obs_moments(traj, used: int = OBS_USED):
-    """Kernel E on CUDA tensors, `obs_moments_plain` on CPU tensors."""
-    global moment_launches
+    """Kernel E on CUDA tensors, `obs_moments_plain` on CPU tensors; traj
+    float32 or bfloat16."""
+    global moment_launches, bf16_moment_launches
     T, W = _check_obs(traj, used)
     if traj.device.type == "cpu":
         return obs_moments_plain(traj, used)
@@ -277,9 +298,13 @@ def obs_moments(traj, used: int = OBS_USED):
     traj = traj.contiguous()
     partials = torch.empty((used, W // chunk, 2), dtype=F32, device=dev)
     out = torch.empty((used, 8), dtype=F32, device=dev)
-    err = lib.mbb_obs_moments(_build.ptr(traj), _build.ptr(partials),
-                              _build.ptr(out), T, traj.shape[1], W, used,
-                              chunk, _build.stream(dev))
+    bf16 = traj.dtype == BF16
+    entry = lib.mbb_obs_moments_bf16 if bf16 else lib.mbb_obs_moments
+    err = entry(_build.ptr(traj), _build.ptr(partials), _build.ptr(out), T,
+                traj.shape[1], W, used, chunk, _build.stream(dev))
     _build.check(err, "obs_moments")
-    moment_launches += 1
+    if bf16:
+        bf16_moment_launches += 1
+    else:
+        moment_launches += 1
     return out

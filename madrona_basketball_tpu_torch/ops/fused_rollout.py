@@ -39,6 +39,16 @@ shard) draws what a launch on the whole fleet draws for those worlds.
     fold.  Its plain version is `rollout_tiled_plain`; on one seed and
     state kernels I and B write the same trajectory bit for bit.
 
+The bf16 branches (the JAX kernel's `traj_dtype=bfloat16` and
+`policy_bf16`, the trainer's --bf16-traj and --bf16-policy): with
+`traj_dtype=torch.bfloat16` the trajectory is stored in bf16, each row
+the float32 value rounded to nearest even (state, obs and the obs
+moments stay float32, the moments folding the obs before rounding);
+with `policy_bf16` the three Dense layers take bf16 operands (weights,
+normalized obs, LayerNorm-ReLU outputs) and sum in float32.  On the card
+either runs kernel B's bf16 instances (csrc/fused_rollout_bf16.cu, the
+same tile body); the plain versions round where the kernel rounds.
+
 Obs-normalizer moments: every (tick, 32-world group) writes its
 per-feature (mean, M2) of the 103 used obs slots; `combine_obs_moments`
 merges those equal-count partials (Chan) into the (103, 8)
@@ -58,6 +68,7 @@ from .fused_step import check_rows, step_rows_plain
 from .layout import (ACTION_ROWS, F_IDX, N_NOISE_ROWS, N_OBS_ROWS)
 
 F32 = torch.float32
+BF16 = torch.bfloat16
 I32 = torch.int32
 I64 = torch.int64
 A = C.NUM_AGENTS
@@ -150,15 +161,25 @@ def _layer_norm(x, scale, b):
     return (x - mu) * torch.rsqrt(var + LN_EPS) * scale + b
 
 
-def policy_forward_rows(obs_block, nrm, w1t, w2t, wht, bias):
+def _round(x, mm_dtype):
+    """x rounded to mm_dtype and back to float32 (mm_dtype F32: x)."""
+    return x if mm_dtype == F32 else x.to(mm_dtype).to(F32)
+
+
+def policy_forward_rows(obs_block, nrm, w1t, w2t, wht, bias, mm_dtype=F32):
     """(OBS, B) raw obs -> (logits (N_LOGITS, B), value (B,)); the math
-    of models.agent.forward, feature-major."""
+    of models.agent.forward, feature-major.  mm_dtype=torch.bfloat16
+    rounds each Dense layer's operands to bf16 (the JAX
+    policy_forward_rows(mm_dtype=)): a product of two bf16 values is
+    exact in float32, so the sums are float32 sums of exact products;
+    biases, LayerNorm and ReLU stay float32."""
     x = torch.clamp((obs_block - nrm[:, 0:1]) * nrm[:, 1:2], -5.0, 5.0)
-    h = _matvec(w1t, x) + bias[:, 0:1]
+    h = _matvec(_round(w1t, mm_dtype), _round(x, mm_dtype)) + bias[:, 0:1]
     h = torch.clamp(_layer_norm(h, bias[:, 1:2], bias[:, 2:3]), min=0.0)
-    h = _matvec(w2t, h) + bias[:, 3:4]
+    h = _matvec(_round(w2t, mm_dtype), _round(h, mm_dtype)) + bias[:, 3:4]
     h = torch.clamp(_layer_norm(h, bias[:, 4:5], bias[:, 5:6]), min=0.0)
-    out = _matvec(wht, h) + bias[0:N_LOGITS + 1, 6:7]
+    out = _matvec(_round(wht, mm_dtype), _round(h, mm_dtype)) + \
+        bias[0:N_LOGITS + 1, 6:7]
     return out[0:N_LOGITS], out[N_LOGITS]
 
 
@@ -313,6 +334,12 @@ def combine_obs_moments(partials: torch.Tensor) -> torch.Tensor:
 # The rollout: plain version and kernel B
 # =====================================================================
 
+def _check_traj_dtype(traj_dtype):
+    if traj_dtype not in (F32, BF16):
+        raise ValueError(f"traj_dtype must be torch.float32 or "
+                         f"torch.bfloat16, not {traj_dtype}")
+
+
 def _check_rollout_args(sf, si, obs0, n_steps, noise, mats, frozen_mats,
                         use_frozen):
     W = check_rows(sf, si)
@@ -337,45 +364,51 @@ def _check_rollout_args(sf, si, obs0, n_steps, noise, mats, frozen_mats,
 
 @torch.no_grad()
 def rollout_plain(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
-                  n_steps: int, trainee_idx: int, noise: torch.Tensor):
+                  n_steps: int, trainee_idx: int, noise: torch.Tensor,
+                  traj_dtype=F32, policy_bf16: bool = False):
     """The rollout in plain torch on external noise.  Returns
-    (sf', si', obs', traj (T, 128, W), obs_moments (103, 8))."""
+    (sf', si', obs', traj (T, 128, W) of traj_dtype, obs_moments
+    (103, 8)); policy_bf16 takes bf16 policy operands."""
     return _rollout_plain(cfg, sf, si, obs0, mats, frozen_mats,
                           n_steps=n_steps, trainee_idx=trainee_idx,
-                          noise=noise, moments=True)
+                          noise=noise, moments=True, traj_dtype=traj_dtype,
+                          policy_bf16=policy_bf16)
 
 
 def _rollout_plain(cfg: SimConfig, sf, si, obs0, mats, frozen_mats, *,
                    n_steps: int, trainee_idx: int, noise: torch.Tensor,
-                   moments: bool):
+                   moments: bool, traj_dtype=F32, policy_bf16: bool = False,
+                   partials: bool = False):
     use_frozen = frozen_mats is not None
     W = _check_rollout_args(sf, si, obs0, n_steps, noise, mats,
                             frozen_mats, use_frozen)
+    _check_traj_dtype(traj_dtype)
+    mm = BF16 if policy_bf16 else F32
     ti_lo = trainee_idx * OBS
     fi_lo = (1 - trainee_idx) * OBS
     rew_row = F_IDX[f"a{trainee_idx}.reward"]
     done_row = F_IDX[f"a{trainee_idx}.done"]
     traj = torch.zeros((n_steps, ROLL_ROWS, W), dtype=F32, device=sf.device)
-    partials = []
+    parts = []
     obs = obs0
     si = si.clone()
     for t in range(n_steps):
         chunk = noise[t * EXT_NOISE_CHUNK:(t + 1) * EXT_NOISE_CHUNK]
         obs_t = obs[ti_lo:ti_lo + OBS]
-        logits, value = policy_forward_rows(obs_t, *mats)
+        logits, value = policy_forward_rows(obs_t, *mats, mm_dtype=mm)
         actions, logp = sample_rows(logits, gumbel_from_uniform(
             chunk[EXT_TRAINEE_U:EXT_TRAINEE_U + N_LOGITS]))
         for j in range(6):
             si[ACTION_ROWS[trainee_idx][j]] = actions[j]
         if use_frozen:
             f_logits, _ = policy_forward_rows(obs[fi_lo:fi_lo + OBS],
-                                              *frozen_mats)
+                                              *frozen_mats, mm_dtype=mm)
             f_actions, _ = sample_rows(f_logits, gumbel_from_uniform(
                 chunk[EXT_FROZEN_U:EXT_FROZEN_U + N_LOGITS]))
             for j in range(6):
                 si[ACTION_ROWS[1 - trainee_idx][j]] = f_actions[j]
         if moments:
-            partials.append(obs_moment_partials(obs_t[0:ROLL_OBS]))
+            parts.append(obs_moment_partials(obs_t[0:ROLL_OBS]))
         traj[t, 0:ROLL_OBS] = obs_t[0:ROLL_OBS]
         for j in range(6):
             traj[t, R_ACT + j] = actions[j].to(F32)
@@ -384,9 +417,13 @@ def _rollout_plain(cfg: SimConfig, sf, si, obs0, mats, frozen_mats, *,
         sf, si, obs = step_rows_plain(cfg, sf, si, chunk[0:N_NOISE_ROWS])
         traj[t, R_REW] = sf[rew_row]
         traj[t, R_DONE] = sf[done_row]
+    # bf16 storage: every row rounded once, as the kernel stores it (the
+    # moments above fold the float32 obs)
+    traj = traj.to(traj_dtype)
     if not moments:
         return sf, si, obs, traj
-    return sf, si, obs, traj, combine_obs_moments(torch.stack(partials))
+    out = (sf, si, obs, traj, combine_obs_moments(torch.stack(parts)))
+    return (*out, torch.stack(parts)) if partials else out
 
 
 def _check_world_base(world_base):
@@ -396,13 +433,18 @@ def _check_world_base(world_base):
 
 
 launches = 0  # kernel B launches (the wrapper counts, the caller resets)
+# launches of kernel B's bf16 instances, by branch (the wrapper counts, the
+# caller resets): "traj" bf16 storage, "policy" bf16 policy operands; a
+# launch with both flags counts in both
+bf16_launches = {"traj": 0, "policy": 0}
 
 
 def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
                   n_steps: int, trainee_idx: int,
                   noise: torch.Tensor | None = None, seed: int = 0,
                   tick_base=0, world_base: int = 0,
-                  moment_partials: bool = False):
+                  moment_partials: bool = False, traj_dtype=F32,
+                  policy_bf16: bool = False):
     """Kernel B on CUDA tensors, the plain version on CPU tensors.
 
     noise=None draws in-kernel Philox noise from (seed, tick_base), the
@@ -413,23 +455,26 @@ def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
     value).  Returns
     (sf', si', obs', traj (T, 128, W), obs_moments (103, 8)), and with
     moment_partials the per-(tick, 32-world group) (mean, M2) partials
-    (T, W / 32, 103, 2) they were merged from."""
+    (T, W / 32, 103, 2) they were merged from.  traj_dtype=torch.bfloat16
+    stores the trajectory in bf16 and policy_bf16 takes bf16 policy
+    operands (kernel B's bf16 instances on the card)."""
     global launches
     use_frozen = frozen_mats is not None
     W = _check_rollout_args(sf, si, obs0, n_steps, noise, mats,
                             frozen_mats, use_frozen)
     _check_world_base(world_base)
+    _check_traj_dtype(traj_dtype)
+    bf16 = traj_dtype == BF16 or policy_bf16
     if sf.device.type == "cpu":
         if noise is None:
             noise = philox_noise(seed, int(tick_base), n_steps, W, sf.device,
                                  world_base)
-        out = rollout_plain(cfg, sf, si, obs0, mats, frozen_mats,
-                            n_steps=n_steps, trainee_idx=trainee_idx,
-                            noise=noise)
-        if not moment_partials:
-            return out
-        return (*out, torch.stack([obs_moment_partials(x[0:ROLL_OBS])
-                                   for x in out[3]]))
+        with torch.no_grad():
+            return _rollout_plain(
+                cfg, sf, si, obs0, mats, frozen_mats, n_steps=n_steps,
+                trainee_idx=trainee_idx, noise=noise, moments=True,
+                traj_dtype=traj_dtype, policy_bf16=policy_bf16,
+                partials=moment_partials)
     if sf.device.type != "cuda":
         raise ValueError(f"unsupported device {sf.device}")
     from .. import _build
@@ -439,25 +484,35 @@ def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
                         **{f"mats[{i}]": m for i, m in enumerate(mats)},
                         **{f"frozen_mats[{i}]": m
                            for i, m in enumerate(frozen_mats or ())})
-    lib = _build.load("fused_rollout")
+    name = "fused_rollout_bf16" if bf16 else "fused_rollout"
+    lib = _build.load(name)
     sf2 = sf.contiguous().clone()
     si2 = si.contiguous().clone()
     obs = obs0.contiguous().clone()
     pol = flat_policy(mats)
     fpol = flat_policy(frozen_mats) if use_frozen else pol
-    traj = torch.empty((n_steps, ROLL_ROWS, W), dtype=F32, device=dev)
+    traj = torch.empty((n_steps, ROLL_ROWS, W), dtype=traj_dtype, device=dev)
     partials = torch.empty((n_steps, W // MOM_GROUP, ROLL_OBS, 2),
                            dtype=F32, device=dev)
     ext = None if noise is None else noise.contiguous()
     tb = None if noise is not None else _build.device_int(tick_base, dev)
-    err = lib.mbb_fused_rollout(
-        sim_params(cfg), _build.ptr(sf2), _build.ptr(si2), _build.ptr(obs),
-        _build.ptr(pol), _build.ptr(fpol), _build.ptr(ext),
-        _build.ptr(traj), _build.ptr(partials), W, n_steps, trainee_idx,
-        1 if use_frozen else 0, seed & MASK32, (seed >> 32) & MASK32,
-        _build.ptr(tb), world_base, _build.stream(dev))
-    _build.check(err, "fused_rollout")
-    launches += 1
+    head = (sim_params(cfg), _build.ptr(sf2), _build.ptr(si2),
+            _build.ptr(obs), _build.ptr(pol), _build.ptr(fpol),
+            _build.ptr(ext), _build.ptr(traj), _build.ptr(partials), W,
+            n_steps, trainee_idx, 1 if use_frozen else 0)
+    tail = (seed & MASK32, (seed >> 32) & MASK32, _build.ptr(tb),
+            world_base, _build.stream(dev))
+    if bf16:
+        err = lib.mbb_fused_rollout_bf16(
+            *head, int(traj_dtype == BF16), int(policy_bf16), *tail)
+    else:
+        err = lib.mbb_fused_rollout(*head, *tail)
+    _build.check(err, name)
+    if bf16:
+        bf16_launches["traj"] += int(traj_dtype == BF16)
+        bf16_launches["policy"] += int(policy_bf16)
+    else:
+        launches += 1
     out = (sf2, si2, obs, traj, combine_obs_moments(partials))
     return (*out, partials) if moment_partials else out
 

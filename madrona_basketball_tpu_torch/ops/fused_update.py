@@ -36,6 +36,15 @@ Each wrapper runs its plain version for CPU tensors, launches its kernel
 for CUDA tensors and counts the launch; nothing falls back.  D issues all
 of a phase's 2 x E x M device launches from one C call.
 
+D and G take a trajectory of float32 or of bfloat16 (the JAX kernels'
+traj_dtype, the trainer's --bf16-traj): a bf16 trajectory's rows are
+upcast to float32 as they are read, and everything after is the float32
+arithmetic, so each equals its float32 version on the upcast trajectory.
+On the card a bf16 trajectory runs their bf16 instances
+(`mbb_fused_update_phase_bf16`, `mbb_fused_minibatch_grad_prefetch_bf16`),
+counted in `bf16_launches`.  The side rows, weights and Adam moments stay
+float32, and H keeps its float32 feat matrix.
+
 `update_phase_kinks` is D's plain version with a report of the samples
 at a kink of the loss and of what they can change over the phase: the
 allowance chip_smoke.py adds to D's parity tier.
@@ -56,6 +65,7 @@ from .fused_gae import SIDE_ADV, SIDE_RET, SIDE_ROWS, SIDE_VALUE
 from .fused_rollout import pack_net
 
 F32 = torch.float32
+BF16 = torch.bfloat16
 I32 = torch.int32
 BUCKETS = tuple(C.ACTION_BUCKETS)
 N_LOGITS = sum(BUCKETS)           # 19
@@ -321,14 +331,16 @@ def gather_blocks(idx, traj, side, wb: int):
     """The blocks `idx` of a (T, rows, W) trajectory and its side array,
     concatenated along the samples: block b is tick b // (W / wb),
     worlds (b % (W / wb)) * wb onward.  Returns (traj rows 0..R_LOGP,
-    side rows) as ((R_LOGP + 1, n), (SIDE_ROWS, n))."""
+    side rows) as ((R_LOGP + 1, n), (SIDE_ROWS, n)), the trajectory's
+    rows upcast to float32 (a bf16 trajectory's exactly)."""
     wblk = traj.shape[2] // wb
     t = (idx // wblk).long()
     w0 = (idx % wblk).long() * wb
     cols = w0[:, None] + torch.arange(wb, device=idx.device)[None, :]
     tb = traj[t[:, None], 0:R_LOGP + 1, cols]        # (n_blk, wb, rows)
     sb = side[t[:, None], :, cols]
-    return (tb.reshape(-1, R_LOGP + 1).T, sb.reshape(-1, sb.shape[-1]).T)
+    return (tb.reshape(-1, R_LOGP + 1).T.to(F32),
+            sb.reshape(-1, sb.shape[-1]).T)
 
 
 def normalize_side(side, ustats):
@@ -374,8 +386,9 @@ def _phase_geometry(hp, idx, traj, side, wb):
                          f"({hp.update_epochs * hp.num_minibatches} for a "
                          "phase)")
     n_mb = idx.numel() // bpm
-    if traj.dtype != F32 or rows <= R_LOGP:
-        raise ValueError("traj must be (T, rows > R_LOGP, W) float32")
+    if traj.dtype not in (F32, BF16) or rows <= R_LOGP:
+        raise ValueError("traj must be (T, rows > R_LOGP, W) float32 or "
+                         "bfloat16")
     if side.shape != (T, SIDE_ROWS, W) or side.dtype != F32:
         raise ValueError(f"side must be ({T}, {SIDE_ROWS}, {W}) float32")
     return n_mb, bpm
@@ -524,7 +537,11 @@ def _update_phase(hp, idx, count, traj, side, nrm, ustats, params, mu, nu,
 
 launches = {"fused_update_phase": 0, "fused_minibatch_grad_prefetch": 0,
             "fused_minibatch_grad": 0}  # wrapper calls that launched
-device_launches = 0  # D's device launches (D1 + D2 per minibatch)
+# wrapper calls that launched D's and G's bf16 instances (a bf16 traj)
+bf16_launches = {"fused_update_phase": 0,
+                 "fused_minibatch_grad_prefetch": 0}
+device_launches = 0  # D's device launches (D1 + D2 per minibatch), both
+#                      instances
 
 
 def _flat(mats):
@@ -605,9 +622,11 @@ def fused_minibatch_grad(hp, feat, nrm, w1t, w2t, wht, bias):
 def fused_minibatch_grad_prefetch(hp, idx, traj, side, nrm, w1t, w2t, wht,
                                   bias, *, wb: int):
     """Kernel G on CUDA tensors, `minibatch_grad_prefetch_plain` on CPU
-    tensors."""
+    tensors; traj float32 or bfloat16."""
     if idx.dtype != I32 or idx.shape[0] * wb != hp.minibatch_size:
         raise ValueError(f"idx must be ({hp.minibatch_size // wb},) int32")
+    if traj.dtype not in (F32, BF16):
+        raise ValueError("traj must be float32 or bfloat16")
     _check_mats((w1t, w2t, wht, bias))
     if traj.device.type == "cpu":
         return minibatch_grad_prefetch_plain(hp, idx, traj, side, nrm, w1t,
@@ -619,19 +638,24 @@ def fused_minibatch_grad_prefetch(hp, idx, traj, side, nrm, w1t, w2t, wht,
     idx, traj, side, nrm = (x.contiguous() for x in (idx, traj, side, nrm))
     params = _flat((w1t, w2t, wht, bias))
     grads = torch.empty((N_PARAMS,), dtype=F32, device=dev)
-    err = lib.mbb_fused_minibatch_grad_prefetch(
+    bf16 = traj.dtype == BF16
+    entry = lib.mbb_fused_minibatch_grad_prefetch_bf16 if bf16 else \
+        lib.mbb_fused_minibatch_grad_prefetch
+    err = entry(
         _b.ptr(idx), _b.ptr(traj), _b.ptr(side), _b.ptr(nrm),
         _b.ptr(params), _b.ptr(grads), _b.ptr(_partials(dev)),
         grad_ctas(dev), rows, W, wb, hp.minibatch_size // wb, *_loss_args(hp),
         _b.stream(dev))
     _b.check(err, "fused_update")
-    launches["fused_minibatch_grad_prefetch"] += 1
+    (bf16_launches if bf16 else launches)[
+        "fused_minibatch_grad_prefetch"] += 1
     return _split(grads)
 
 
 def fused_update_phase(hp, idx, count, traj, side, nrm, ustats, params,
                        mu, nu, *, wb: int):
-    """Kernel D on CUDA tensors, `update_phase_plain` on CPU tensors.
+    """Kernel D on CUDA tensors, `update_phase_plain` on CPU tensors;
+    traj float32 or bfloat16.
 
     idx (E * T * W / wb,) int32: each epoch's permutation of the blocks,
     epochs in order (any whole number of minibatches of it runs those
@@ -661,12 +685,15 @@ def fused_update_phase(hp, idx, count, traj, side, nrm, ustats, params,
     us = None if ustats is None else ustats.contiguous()
     p, m, v = _flat(params), _flat(mu), _flat(nu)
     cnt = _b.device_int(count, dev)
-    err = lib.mbb_fused_update_phase(
+    bf16 = traj.dtype == BF16
+    entry = lib.mbb_fused_update_phase_bf16 if bf16 else \
+        lib.mbb_fused_update_phase
+    err = entry(
         _b.ptr(idx), _b.ptr(cnt), _b.ptr(traj), _b.ptr(side), _b.ptr(nrm),
         _b.ptr(us), _b.ptr(p), _b.ptr(m), _b.ptr(v), _b.ptr(_partials(dev)),
         grad_ctas(dev), rows, W, wb, bpm, n_mb, *_loss_args(hp),
         float(hp.learning_rate), float(hp.max_grad_norm), _b.stream(dev))
     _b.check(err, "fused_update")
-    launches["fused_update_phase"] += 1
+    (bf16_launches if bf16 else launches)["fused_update_phase"] += 1
     device_launches += 2 * n_mb
     return _split(p), _split(m), _split(v)

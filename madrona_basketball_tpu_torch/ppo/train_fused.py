@@ -90,6 +90,17 @@ autodiff update; ppo/train.py's structured trainer runs the same body
 over the structured engine.  With hp.record_world0 the per-tick paths
 return world 0's rows (`world0_rows`) in out["metrics"]["world0"].
 
+The bf16 flags (train_fused.py:114-115,146-154,161; `make_train_iteration`'s
+bf16_traj / bf16_policy, checked by `check_paths` with the JAX
+messages): bf16_traj stores kernel B's trajectory in bfloat16 (rounded
+on store; state, obs and the obs moments float32), and every consumer
+upcasts it on load - kernel C, kernel E and kernel D, or kernel G under
+dp_update; under a plain mesh the bf16 trajectory is what is
+all-gathered.  It needs the untiled fused-GAE path.  bf16_policy rounds
+the operands of kernel B's Dense layers (and the frozen policy's) to
+bf16; it needs the untiled rollout kernel.  Neither changes the train
+state's types: the weights, normalizers and Adam moments stay float32.
+
 `train_iteration.static(state)` is the iteration's static-buffer form,
 `StaticIteration`: the state copied into tensors that keep their
 addresses, and `step()`, one iteration from those tensors back into
@@ -334,14 +345,16 @@ def _reset_pulse(cfg: SimConfig, hp: PPOParams, dev, gen, local,
 
 def _collect_body(cfg: SimConfig, hp: PPOParams, device, rollout_tiled,
                   mesh: Optional[DataMesh] = None, dp_update: bool = False,
-                  fused_gae: bool = True, fused_grads: bool = True):
+                  fused_gae: bool = True, fused_grads: bool = True,
+                  bf16_traj: bool = False, bf16_policy: bool = False):
     """(run, gen): `run(state, noise, mark, tick_base)` is the collect
     with the pulse drawn from the generator `gen` as it stands (unless
     `noise` is given) and kernel B's Philox ticks from tick_base (an int
     or a 0-d int32 tensor on the card).  Under a mesh the state holds the
     rank's columns and `noise` the whole fleet's draws.  fused_gae=False
     is the JAX trainer's `--no-fused-gae` tail (`_unfused_tail`), which
-    also serves `--no-fused-grads`."""
+    also serves `--no-fused-grads`.  bf16_traj / bf16_policy select kernel
+    B's bf16 branches (the trajectory's dtype then picks its consumers')."""
     ti = hp.trainee_idx
     fi = 1 - ti
     T = hp.num_rollout_steps
@@ -379,8 +392,10 @@ def _collect_body(cfg: SimConfig, hp: PPOParams, device, rollout_tiled,
             sf, si, obs, traj = FR.fused_rollout_tiled(cfg, sf, si, obs,
                                                        mats, fmats, **kw)
         else:
-            sf, si, obs, traj, om = FR.fused_rollout(cfg, sf, si, obs, mats,
-                                                     fmats, **kw)
+            sf, si, obs, traj, om = FR.fused_rollout(
+                cfg, sf, si, obs, mats, fmats, **kw,
+                traj_dtype=torch.bfloat16 if bf16_traj else F32,
+                policy_bf16=bf16_policy)
         mark("rollout")
         obs_t = obs[ti_lo:ti_lo + OBS]
         if gather:
@@ -842,13 +857,22 @@ FUSED_GAE_NEEDS = ("fused_gae requires rollout_kernel=True and "
                    "raw-side contract)")
 TILED_NEEDS = ("rollout_tiled selects the 2-D-tiled variant of the rollout "
                "kernel; pass rollout_kernel=True")
+BF16_TRAJ_NEEDS = ("bf16_traj requires the flagship path (rollout_kernel + "
+                   "fused_grads + fused_gae, untiled): only its Pallas "
+                   "consumers understand the bf16 trajectory layout")
+BF16_POLICY_NEEDS = ("bf16_policy selects bf16 matmul operands inside the "
+                     "(untiled) rollout kernel; pass rollout_kernel=True")
 
 
 def check_paths(hp: PPOParams, backend: str, rollout_kernel: bool,
                 fused_grads: bool, fused_gae: bool, rollout_tiled: bool,
-                mesh, dp_update: bool):
+                mesh, dp_update: bool, bf16_traj: bool = False,
+                bf16_policy: bool = False):
     """The JAX trainer's checks of its path flags, with its messages
-    (train_fused.py:132-160; the bf16 flags are not ported)."""
+    (train_fused.py:132-160): among them, bf16_traj takes the untiled
+    fused-GAE path (the flagship, a plain mesh, dp_update) and
+    bf16_policy the untiled rollout kernel (also --no-fused-gae and
+    --no-fused-grads)."""
     if backend not in ("pallas", "xla"):
         raise ValueError(f"backend must be 'pallas' or 'xla', not "
                          f"{backend!r}")
@@ -860,6 +884,10 @@ def check_paths(hp: PPOParams, backend: str, rollout_kernel: bool,
         raise ValueError(FUSED_GAE_NEEDS)
     if rollout_tiled and not rollout_kernel:
         raise ValueError(TILED_NEEDS)
+    if bf16_traj and not (fused_gae and not rollout_tiled):
+        raise ValueError(BF16_TRAJ_NEEDS)
+    if bf16_policy and not (rollout_kernel and not rollout_tiled):
+        raise ValueError(BF16_POLICY_NEEDS)
     if dp_update and not (mesh is not None and fused_gae and
                           not rollout_tiled):
         raise ValueError(DP_UPDATE_NEEDS)
@@ -872,7 +900,8 @@ def make_train_iteration(cfg: SimConfig, hp: PPOParams, device="cuda",
                          rollout_kernel: bool = True,
                          fused_grads: bool = True,
                          fused_gae: Optional[bool] = None,
-                         backend: str = "pallas", worlds=RowsWorlds):
+                         backend: str = "pallas", worlds=RowsWorlds,
+                         bf16_traj: bool = False, bf16_policy: bool = False):
     """The iteration of the JAX `make_train_iteration_fused` for its path
     flags (fused_gae None: on when rollout_kernel and fused_grads are, as
     the JAX CLI defaults it), checked with its messages (`check_paths`):
@@ -890,7 +919,10 @@ def make_train_iteration(cfg: SimConfig, hp: PPOParams, device="cuda",
         the JAX CLI's `--backend xla-rows`): `_per_tick_body`'s T
         launches of kernel A with the policy in torch, then the autodiff
         update (with `worlds`=ppo/train.py::StructuredWorlds, the
-        structured trainer: its engine's tick in place of kernel A).
+        structured trainer: its engine's tick in place of kernel A);
+      * bf16_traj (untiled fused GAE): kernel B stores the trajectory in
+        bf16 and C, E, D (or G) upcast it on load; bf16_policy (untiled
+        rollout kernel): kernel B's Dense layers take bf16 operands.
         On the card kernel A is the rows tick's only implementation, so
         "pallas" and "xla" run the same tick; the backend only decides,
         as in JAX, whether the rollout kernel may be asked for.
@@ -903,7 +935,7 @@ def make_train_iteration(cfg: SimConfig, hp: PPOParams, device="cuda",
     if fused_gae is None:
         fused_gae = rollout_kernel and fused_grads
     check_paths(hp, backend, rollout_kernel, fused_grads, fused_gae,
-                rollout_tiled, mesh, dp_update)
+                rollout_tiled, mesh, dp_update, bf16_traj, bf16_policy)
     T = hp.num_rollout_steps
     if hp.num_minibatches * hp.minibatch_size != T * hp.num_envs:
         raise ValueError(
@@ -917,7 +949,7 @@ def make_train_iteration(cfg: SimConfig, hp: PPOParams, device="cuda",
     if rollout_kernel:
         run_collect, pulse_gen = _collect_body(
             cfg, hp, device, rollout_tiled, mesh, dp_update, fused_gae,
-            fused_grads)
+            fused_grads, bf16_traj, bf16_policy)
     else:
         run_collect, pulse_gen = _per_tick_body(cfg, hp, device, mesh,
                                                 worlds)

@@ -5,8 +5,8 @@ chunked 100 iterations a dispatch as the JAX script does.
     python -m madrona_basketball_tpu_torch.run_convergence [W] [iters]
         [seed] [update_block] [--tiled] [--frozen]
         [--no-fused-gae] [--no-fused-grads] [--shuffle-block G]
-        [--no-rollout-kernel] [--structured]
-        [--num-rollout-steps T] [--device cpu]
+        [--no-rollout-kernel] [--structured] [--bf16-traj]
+        [--bf16-policy] [--num-rollout-steps T] [--device cpu]
 
 Defaults: 8192 worlds, 1500 iterations (a multiple of the 100-iteration
 chunk), seed 1, the default update block
@@ -14,8 +14,9 @@ chunk), seed 1, the default update block
 no frozen opponent; `--frozen` adds a frozen random policy as the JAX
 script's flag does).  `--tiled` runs the `--rollout-tiled` iteration
 (kernels I and E); `--no-fused-gae`, `--no-fused-grads` (with
-`--shuffle-block`), `--no-rollout-kernel` and `--structured` the
-training CLI's alternate paths of the same names.  Prints the reward
+`--shuffle-block`), `--no-rollout-kernel`, `--structured`, `--bf16-traj`
+and `--bf16-policy` the training CLI's alternate paths of the same names
+(with the JAX trainer's refusals).  Prints the reward
 and episode length after every chunk
 (`utils/benching.py::run_chunked_train`), then one JSON line: the curve,
 whether the params are finite, the sustained train env-steps/s (the
@@ -54,6 +55,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--no-fused-grads", action="store_true")
     ap.add_argument("--no-rollout-kernel", action="store_true")
     ap.add_argument("--structured", action="store_true")
+    ap.add_argument("--bf16-traj", action="store_true")
+    ap.add_argument("--bf16-policy", action="store_true")
     ap.add_argument("--shuffle-block", type=int,
                     default=PPOParams.shuffle_block)
     ap.add_argument("--num-rollout-steps", type=int,
@@ -76,7 +79,8 @@ def main(argv=None) -> dict:
                    update_block=args.update_block,
                    shuffle_block=args.shuffle_block)
     paths = [f for f in ("tiled", "no_fused_gae", "no_fused_grads",
-                         "no_rollout_kernel", "structured")
+                         "no_rollout_kernel", "structured", "bf16_traj",
+                         "bf16_policy")
              if getattr(args, f)]
     if args.structured:
         it = TT.make_train_iteration(cfg, hp, dev)
@@ -86,7 +90,8 @@ def main(argv=None) -> dict:
             cfg, hp, dev, rollout_tiled=args.tiled,
             rollout_kernel=not args.no_rollout_kernel,
             fused_grads=not args.no_fused_grads,
-            fused_gae=False if args.no_fused_gae else None)
+            fused_gae=False if args.no_fused_gae else None,
+            bf16_traj=args.bf16_traj, bf16_policy=args.bf16_policy)
         state = init_train_state(cfg, hp, seed=args.seed, device=dev)
     label = (f"conv seed={args.seed} ub={args.update_block or 'auto'}"
              f"{''.join(' ' + f for f in paths)}"

@@ -26,17 +26,29 @@ def test_kernel_signatures_parse_from_sources():
         "meter_scan": [P] * 3 + [I] * 2 + [P],
         "fused_rollout_tiled": [sp] + [P] * 7 + [I] * 4 + [U, U, P, I, P],
         "obs_moments": [P] * 3 + [I] * 5 + [P],
+        # kernel B's contract plus traj_bf16, policy_bf16
+        "fused_rollout_bf16": [sp] + [P] * 8 + [I] * 6 + [U, U, P, I, P],
     }
-    # a source's entries besides its kernel's: the resident CTAs per SM
-    # (kernel C's at a tick count)
+    # a source's entries besides its kernel's: its bf16 instance (the
+    # trajectory as bf16 bits), the resident CTAs per SM (kernel C's at a
+    # tick count)
     occupancy = {"fused_rollout": {"mbb_fused_rollout_occupancy": [P]},
-                 "fused_gae": {"mbb_fused_gae_occupancy": [I, P]}}
-    # one source, three entries: kernels D, G and H, and their occupancy
+                 "fused_gae": {"mbb_fused_gae_bf16": [P] * 8 + [I] * 7 +
+                               [F, F, P],
+                               "mbb_fused_gae_occupancy": [I, P]},
+                 "obs_moments": {"mbb_obs_moments_bf16": [P] * 3 + [I] * 5 +
+                                 [P]}}
+    # one source, six entries: kernels D, G and H, D's and G's bf16
+    # instances, and the occupancy
     update = {
         "mbb_fused_update_phase": [P, P] + [P] * 8 + [I] * 6 + [F] * 3 +
         [I, F, F, P],
+        "mbb_fused_update_phase_bf16": [P, P] + [P] * 8 + [I] * 6 +
+        [F] * 3 + [I, F, F, P],
         "mbb_fused_minibatch_grad_prefetch": [P] * 7 + [I] * 5 + [F] * 3 +
         [I, P],
+        "mbb_fused_minibatch_grad_prefetch_bf16": [P] * 7 + [I] * 5 +
+        [F] * 3 + [I, P],
         "mbb_fused_minibatch_grad": [P] * 5 + [I] * 3 + [F] * 3 + [I, P],
         "mbb_update_occupancy": [P],
     }

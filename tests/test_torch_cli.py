@@ -12,6 +12,8 @@ port does not have exit; `--dp-update` without
 `--data-parallel`, or with `--rollout-tiled`, refuses with the JAX
 package's messages."""
 
+import re
+
 import jax
 import numpy as np
 import pytest
@@ -24,6 +26,8 @@ from madrona_basketball_tpu.utils.torch_compat import \
 
 from madrona_basketball_tpu_torch import cli
 from madrona_basketball_tpu_torch import constants as C
+from madrona_basketball_tpu_torch.ppo.train_fused import (BF16_POLICY_NEEDS,
+                                                          BF16_TRAJ_NEEDS)
 from madrona_basketball_tpu_torch.utils import checkpoint as ckpt
 from madrona_basketball_tpu_torch.utils.jax_params import agent_from_numpy
 
@@ -103,8 +107,9 @@ def test_foreign_obs_tail_is_zeroed_with_a_warning(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--bf16-traj"], ["--bf16-policy"], ["--rollout-block", "2048"],
-    ["--interactive"]])
+    ["--interactive", "--bf16-traj"], ["--rollout-block", "2048",
+                                       "--bf16-policy"],
+    ["--rollout-block", "2048"], ["--interactive"]])
 def test_unported_flags_exit_naming_the_roadmap_item(flags):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         cli.main(SMALL + ["--num-iterations", "1"] + flags)
@@ -113,12 +118,16 @@ def test_unported_flags_exit_naming_the_roadmap_item(flags):
 @pytest.mark.parametrize("flags", [
     ["--backend", "xla-rows"], ["--no-rollout-kernel"], ["--no-fused-grads"],
     ["--no-fused-gae"], ["--shuffle-block", "1"], ["--viewer"],
-    ["--backend", "structured"]])
+    ["--backend", "structured"], ["--bf16-traj", "--bf16-policy"],
+    ["--bf16-policy", "--no-fused-gae"],
+    ["--bf16-policy", "--no-fused-grads"],
+    ["--bf16-traj", "--data-parallel", "--dp-update"]])
 def test_alternate_path_flags_train_and_save(flags, tmp_path, monkeypatch,
                                              capsys):
-    """The flags of the alternate trainer paths (once refused, each with a
-    case of the test above) train one iteration and save a checkpoint
-    that loads back finite."""
+    """The flags of the alternate trainer paths and the bf16 flags (once
+    refused, each with a case of the test above), the bf16 flags on the
+    paths that take them, train one iteration and save a checkpoint that
+    loads back finite."""
     monkeypatch.chdir(tmp_path)
     state = cli.main(SMALL + ["--num-iterations", "1",
                               "--save-model-every-n-iterations", "1",
@@ -145,7 +154,12 @@ def test_alternate_path_flags_train_and_save(flags, tmp_path, monkeypatch,
     (["--no-rollout-kernel", "--rollout-tiled"],
      "rollout_tiled selects the 2-D-tiled variant"),
     (["--no-fused-gae", "--data-parallel", "--dp-update"],
-     "--dp-update requires --data-parallel and the fused-GAE flagship")])
+     "--dp-update requires --data-parallel and the fused-GAE flagship"),
+    (["--bf16-traj", "--rollout-tiled"], re.escape(BF16_TRAJ_NEEDS)),
+    (["--bf16-traj", "--no-fused-gae"], re.escape(BF16_TRAJ_NEEDS)),
+    (["--bf16-policy", "--no-rollout-kernel"], re.escape(BF16_POLICY_NEEDS)),
+    (["--bf16-policy", "--backend", "xla-rows"],
+     re.escape(BF16_POLICY_NEEDS))])
 def test_invalid_path_combinations_refuse_with_the_jax_messages(flags,
                                                                 message):
     with pytest.raises(SystemExit, match=message):
