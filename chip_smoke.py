@@ -131,7 +131,24 @@ busy and idle share, peak memory); `learning_bf16_traj` and
 100 and hold the plateau (min..max of the mean reward from iteration
 1100 on) inside -150..-112 (the value at 600 printed, not gated); and
 `cli_bf16` runs the CLI with both flags (a loadable checkpoint) and with
---rollout-tiled --bf16-traj (the JAX trainer's refusal).  Each kernel's
+--rollout-tiled --bf16-traj (the JAX trainer's refusal).  The interactive
+path (ROADMAP item 13) follows: `InteractiveTrainer` at the flagship
+width with a scripted viewer object (no pygame), 3 counted iterations
+(kernel A 33 launches an iteration), human control of world 0's trainee
+over a span of ticks (kernel A's input rows hold the scripted action
+there, the policy's elsewhere), a scripted iteration with two paused
+ticks (state unchanged, world 0's action zeroed, 31 launches), the
+viewer ticking once a call after the first reset, ms an iteration, the
+timer's spans, the idle share and peak memory, and one iteration with
+the frozen opponent (`interactive_path`); one iteration at 256 x 8, 2 x
+2 on the card and on the CPU on injected draws (`interactive_card_vs_cpu`,
+tiers in its docstring); the native host executor (item 17) against
+kernel A at 8192 worlds over 100 ticks, 1 thread against all bit for
+bit, host env-steps/s beside the host CPU's model (`native_engine`); the
+cross-check trainer at 512 worlds, 3 iterations, the agent on the card
+(`crosscheck`); PopArt, EMA and RolloutBuffer on the card against the
+CPU within 1e-6, and `utils/profiling.trace` around one interactive
+iteration naming kernel A (`aux_modules`; item 15).  Each kernel's
 own device time comes from torch.profiler, beside the CUDA-event time of
 back-to-back wrapper calls and of its plain version; kernel D's is also
 split into its gradient and reduce launches, and the redesigned kernels'
@@ -403,44 +420,37 @@ def count_ops(fn, *args, **kw):
     return Counter.n
 
 
-def state_to(state, dev):
-    """A copy of a RolloutState with every tensor on `dev`."""
+def state_to_agent(agent, dev):
+    """A copy of an Agent with every tensor on `dev`."""
     from madrona_basketball_tpu_torch.models.agent import Agent
     from madrona_basketball_tpu_torch.models.normalize import RMSState
 
     def rms(r):
         return RMSState(mean=r.mean.to(dev), var=r.var.to(dev),
                         count=r.count.to(dev))
+    return Agent(net=copy.deepcopy(agent.net).to(dev),
+                 obs_rms=rms(agent.obs_rms), value_rms=rms(agent.value_rms))
 
-    def agent(a):
-        return Agent(net=copy.deepcopy(a.net).to(dev), obs_rms=rms(a.obs_rms),
-                     value_rms=rms(a.value_rms))
+
+def state_to(state, dev):
+    """A copy of a RolloutState with every tensor on `dev`."""
     stats = dataclasses.replace(state.stats, **{
         f.name: getattr(state.stats, f.name).to(dev)
         for f in dataclasses.fields(state.stats)})
-    return dataclasses.replace(state, agent=agent(state.agent),
-                               frozen=agent(state.frozen),
+    return dataclasses.replace(state, agent=state_to_agent(state.agent, dev),
+                               frozen=state_to_agent(state.frozen, dev),
                                sf=state.sf.to(dev), si=state.si.to(dev),
                                obs=state.obs.to(dev), stats=stats)
 
 
 def host_multistep_lib():
-    """csrc/host_step.cpp built with g++ (contraction off, as the CPU tests
-    build it), `mbb_host_multistep` typed from its signature."""
-    import ctypes
-    from madrona_basketball_tpu_torch import _build
-    gxx = shutil.which("g++")
-    if gxx is None:
+    """csrc/host_step.cpp built with g++ by the package's builder
+    (native/__init__.py::load_host_step, contraction off, as the CPU tests
+    build it), every entry typed from its signature."""
+    from madrona_basketball_tpu_torch.native import load_host_step
+    if shutil.which("g++") is None:
         raise Fail("g++ is missing: the host twin of kernel F needs it")
-    out = _build.BUILD_DIR / "host" / "libhost_step.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([gxx, "-O1", "-std=c++17", "-ffp-contract=off", "-shared",
-                    "-fPIC", "-o", str(out),
-                    str(_build.CSRC / "host_step.cpp")], check=True)
-    lib = ctypes.CDLL(str(out))
-    lib.mbb_host_multistep.argtypes = _build.c_signature(
-        _build.CSRC / "host_step.cpp", "mbb_host_multistep")
-    return lib
+    return load_host_step()
 
 
 # the eval log's keys, per-world shapes and dtypes (the reference's key
@@ -1358,6 +1368,484 @@ def bf16_cli():
               "note": "2 CLI runs started together"})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------
+# The interactive path, the host executor, the cross-check trainer and
+# the modules no trainer uses (ROADMAP items 13, 15, 17)
+# ---------------------------------------------------------------------
+
+HUMAN_ACTION = (1, 3, 0, 0, 0, 0)   # the scripted keyboard's action
+HUMAN_TICKS = (10, 20)   # the ticks of counted iteration 2 under human control
+PAUSE_TICKS = (5, 7)     # the ticks of the scripted iteration that pause
+NATIVE_TICKS = 100       # ticks of the host executor against kernel A
+
+
+class ScriptedViewer:
+    """The viewer's surface (tests/test_interactive.py:19-43) without
+    pygame, scripted by its tick count: after tick k it turns human
+    control on for the next call when k is in `human`, sets the pause for
+    the next call when k is in `pause`, and stores a copy of the rows at
+    the ticks in `snap`.  `record` (set by the phase) receives the action
+    rows of the selected agent that each launch of kernel A is given."""
+
+    def __init__(self, selected: int):
+        self.training_paused = False
+        self.controller_manager = None
+        self.selected = selected
+        self.ticks = 0
+        self.human_calls = 0
+        self.human, self.pause, self.snap = set(), set(), {}
+        self.snaps = {}
+        self.env = None
+
+    def set_controller_manager(self, mgr):
+        self.controller_manager = mgr
+
+    def set_training_paused(self, paused):
+        self.training_paused = paused
+
+    def get_selected_agent_index(self):
+        return self.selected
+
+    def get_human_action(self):
+        self.human_calls += 1
+        return list(HUMAN_ACTION)
+
+    def tick(self):
+        self.ticks += 1
+        k = self.ticks
+        mgr = self.controller_manager
+        if mgr.human_control_active != (k in self.human):
+            mgr.human_control_active = k in self.human
+        self.training_paused = k in self.pause
+        if k in self.snap:
+            e = self.env.engine
+            self.snaps[self.snap[k]] = (e.sf.clone(), e.si.clone(),
+                                        e.obs.clone())
+
+
+def interactive_path(cfg, hp, dev, reset_counts, counts, profiled):
+    """`InteractiveTrainer` (ppo/train_interactive.py) at the flagship
+    width (8192 x 32, 4 x 4; trainee 1) with a ScriptedViewer: a warm-up
+    iteration, then 3 iterations with kernel A's launches counted from 0
+    (33 an iteration: the reset pulse and 32 ticks), timed on the host
+    clock (the trainer fences the card at every phase) with the timer's
+    rollout / inference / sim / update spans and the peak memory; in the
+    second, human control over ticks HUMAN_TICKS on world 0's trainee:
+    kernel A's input rows must hold HUMAN_ACTION there and the policy's
+    actions (the buffer's) in every other world and tick, and the
+    keyboard read once a tick.  A scripted iteration pauses over
+    PAUSE_TICKS: sf and obs unchanged across the two paused calls, si
+    unchanged but the trainee's action rows (written for every world, as
+    the JAX env writes them) and world 0's zeroed, 31 launches.  The
+    viewer must tick once a call after the first reset.  One profiled
+    iteration gives the device's busy time (idle share against the
+    un-profiled median); one more runs with the frozen opponent
+    (use_frozen: 33 launches, finite metrics).  No pygame is imported.
+    Returns the trainer and the phase's numbers."""
+    import torch
+    from madrona_basketball_tpu_torch.models.agent import init_agent
+    from madrona_basketball_tpu_torch.ops.layout import ACTION_ROWS
+    from madrona_basketball_tpu_torch.ppo.train_interactive import (
+        InteractiveTrainer)
+    ti = hp.trainee_idx
+    viewer = ScriptedViewer(selected=ti)
+    trainer = InteractiveTrainer(cfg, hp, viewer=viewer, seed=1, device=dev)
+    env = viewer.env = trainer.env
+    launched, bufs = [], []
+    step0, roll0 = env.engine.step, trainer.rollout
+
+    def step(noise=None):
+        launched.append(env.engine.si[ACTION_ROWS[ti]].clone())
+        step0(noise)
+
+    def rollout(noise=None, gumbel=None):
+        bufs.append(roll0(noise, gumbel))
+        return bufs[-1]
+    env.engine.step, trainer.rollout = step, rollout
+    calls = {"n": 0}
+    sw0 = env.step_with_world_actions
+
+    def step_with_world_actions(*a, **k):
+        calls["n"] += env.first_reset_done
+        return sw0(*a, **k)
+    env.step_with_world_actions = step_with_world_actions
+    reset0 = env.reset
+
+    def reset(noise=None):
+        calls["n"] += env.first_reset_done
+        return reset0(noise)
+    env.reset = reset
+
+    def base(i):
+        """The viewer's tick count before iteration i's reset (iteration
+        0, the warm-up, ticks T times: its reset precedes the first)."""
+        return T + (i - 1) * (T + 1)
+
+    trainer.train_iteration()                       # warm-up
+    torch.cuda.synchronize()
+    a, b = HUMAN_TICKS
+    viewer.human = set(range(base(2) + 1 + a, base(2) + 1 + b))
+    trainer.timer.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    start_bytes = torch.cuda.memory_allocated(dev)
+    launched.clear()
+    bufs.clear()
+    reset_counts()
+    wall = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        m = trainer.train_iteration()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    launches = counts()
+    spans = {k: v / 3 * 1e3 for k, v in trainer.timer.t.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches["fused_step"] != 3 * (T + 1) or any(
+            n for k, n in launches.items() if k != "fused_step"):
+        raise Fail(f"interactive_path: launches {launches}, want kernel A "
+                   f"{3 * (T + 1)} and no other")
+    if not all(bool(torch.isfinite(v).all()) for v in m.values()):
+        raise Fail(f"interactive_path: non-finite metrics {m}")
+    # the human override: the second iteration's launches 1..T are its
+    # ticks (launch 0 is the reset pulse)
+    human = torch.tensor(HUMAN_ACTION, dtype=torch.int32, device=dev)
+    bad = 0
+    for t in range(T):
+        rows, acts = launched[(T + 1) + 1 + t], bufs[1]["actions"][t].T
+        want_w0 = human if a <= t < b else acts[:, 0]
+        bad += int((rows[:, 0] != want_w0).sum())
+        bad += int((rows[:, 1:] != acts[:, 1:]).sum())
+    if bad or viewer.human_calls != b - a:
+        raise Fail(f"interactive_path: the override left {bad} action "
+                   f"entries wrong, the keyboard read {viewer.human_calls} "
+                   f"times (want {b - a})")
+    # the pause (a scripted iteration, not counted above)
+    p0, p1 = PAUSE_TICKS
+    # the tick before tick t's call is number base + 1 + t
+    viewer.pause = set(range(base(4) + 1 + p0, base(4) + 1 + p1))
+    viewer.snap = {base(4) + 1 + p0: "before", base(4) + 1 + p1: "after"}
+    reset_counts()
+    trainer.train_iteration()
+    paused_launches = counts()["fused_step"]
+    (sf0, si0, ob0), (sf1, si1, ob1) = viewer.snaps["before"], \
+        viewer.snaps["after"]
+    act_rows = [r for rr in ACTION_ROWS for r in rr]
+    keep = [r for r in range(si0.shape[0]) if r not in act_rows]
+    if not (torch.equal(sf0, sf1) and torch.equal(ob0, ob1) and
+            torch.equal(si0[keep], si1[keep]) and
+            not bool(si1[ACTION_ROWS[ti], 0].any()) and
+            paused_launches == T + 1 - (p1 - p0)):
+        raise Fail(f"interactive_path: the pause moved the state or "
+                   f"launched kernel A {paused_launches} times")
+    ticks_ok = viewer.ticks == calls["n"] == T + 4 * (T + 1)
+    if not ticks_ok:
+        raise Fail(f"interactive_path: the viewer ticked {viewer.ticks} "
+                   f"times over {calls['n']} calls after the first reset")
+    # one profiled iteration: device busy
+    _, busy, prof_wall, top = profiled(trainer.train_iteration)
+    it_ms = statistics.median(wall)
+    # the frozen opponent: one iteration of a trainer with use_frozen
+    hp_f = dataclasses.replace(hp, use_frozen=True)
+    frozen = init_agent(torch.Generator().manual_seed(9), dev)
+    tr_f = InteractiveTrainer(cfg, hp_f, frozen=frozen, seed=2, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    m_f = tr_f.train_iteration()
+    f_ms = (time.perf_counter() - t0) * 1e3
+    f_launch = counts()["fused_step"]
+    if f_launch != T + 1 or not all(bool(torch.isfinite(v).all())
+                                    for v in m_f.values()):
+        raise Fail(f"interactive_path frozen: {f_launch} launches, {m_f}")
+    if "pygame" in sys.modules:
+        raise Fail("interactive_path: pygame was imported")
+    line = {"phase": "interactive_path", "worlds": W, "ticks": T,
+            "epochs_x_minibatches": [hp.update_epochs, hp.num_minibatches],
+            "iteration_ms": wall, "iteration_ms_median": it_ms,
+            "train_env_steps_per_s": W * T / (it_ms / 1e3),
+            "timer_spans_ms_per_iteration": spans,
+            "launches_3_iterations": launches["fused_step"],
+            "launches_per_iteration": launches["fused_step"] / 3,
+            "human_ticks": [a, b], "keyboard_reads": viewer.human_calls,
+            "paused_ticks": p1 - p0,
+            "paused_iteration_launches": paused_launches,
+            "viewer_ticks": viewer.ticks, "env_calls_after_reset":
+            calls["n"], "profiled_wall_ms": prof_wall,
+            "device_busy_ms": busy,
+            "device_idle_share": (1.0 - busy / it_ms) if busy else None,
+            "top_device_ms": top, "peak_memory_bytes": peak,
+            "peak_over_start_bytes": peak - start_bytes,
+            "frozen_iteration_ms": f_ms, "frozen_launches": f_launch,
+            "metrics": {k: float(v) for k, v in m.items()},
+            "pygame_imported": False}
+    emit(line)
+    env.engine.step, trainer.rollout = step0, roll0
+    env.step_with_world_actions, env.reset = sw0, reset0
+    return trainer, line
+
+
+def interactive_card_vs_cpu(cfg, dev):
+    """One interactive iteration at 256 worlds x 8 ticks, 2 x 2, on the
+    card and on the CPU (kernel A's plain version and torch there) from
+    one state (the card trainer's rows and agent copied), with one set
+    of injected draws (the sim noise, the Gumbel draws, the update's
+    permutations, through the trainer's seams).  Rollout rows at kernel
+    A's tier: the buffer's actions and the engine's integer rows exact
+    but in worlds at the shot's going-in threshold (F1, counted; at most
+    0.1 % of world-ticks), every float of the other worlds within 1e-5
+    of max(1, |x|); the params after the update at
+    parity_autodiff_update's tier, carried over the E x M = 4 Adam
+    steps: within 4 x 1e-4 / 16, but entries whose update may flip sign
+    on a near-zero gradient, which may move up to 4 x 2 lr and must stay
+    under 1 % of the entries (counted)."""
+    import torch
+    from madrona_basketball_tpu_torch.ops import fused_update as FU
+    from madrona_basketball_tpu_torch.ops.fused_rollout import (
+        N_LOGITS, gumbel_from_uniform)
+    from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
+    from madrona_basketball_tpu_torch.ppo.train_interactive import (
+        InteractiveTrainer)
+    w, t_, cpu = 256, 8, torch.device("cpu")
+    hp = PPOParams(num_envs=w, num_rollout_steps=t_, num_minibatches=2,
+                   update_epochs=2)
+    card = InteractiveTrainer(cfg, hp, seed=4, device=dev)
+    host = InteractiveTrainer(cfg, hp, agent=state_to_agent(card.agent, cpu),
+                              seed=4, device="cpu")
+    host.env.engine.sf = card.env.engine.sf.cpu()
+    host.env.engine.si = card.env.engine.si.cpu()
+    g = torch.Generator().manual_seed(12)
+    u = torch.rand((t_ + 1, 9, w), generator=g)
+    noise = torch.cat([2 * u[:, :8] - 1, u[:, 8:]], dim=1)
+    gum = gumbel_from_uniform(torch.rand((t_, w, N_LOGITS), generator=g))
+    perms = card._update_policy.draw_perms(g, cpu)
+    bufs = {}
+    for name, tr in (("card", card), ("cpu", host)):
+        d = tr.device
+        r0 = tr.rollout
+
+        def rollout(noise=None, gumbel=None, r0=r0, name=name):
+            bufs[name] = r0(noise, gumbel)
+            return bufs[name]
+        tr.rollout = rollout
+        tr.train_iteration(noise=iter(noise.to(d)), gumbel=iter(gum.to(d)),
+                           perms=perms.to(d))
+    cb, hb = bufs["card"], bufs["cpu"]
+    bad_w = (cb["actions"].cpu() != hb["actions"]).any(dim=2).any(dim=0)
+    bad_w |= (card.env.engine.si.cpu() != host.env.engine.si).any(dim=0)
+    n_bad = int(bad_w.sum())
+    if n_bad > max(1, 1e-3 * w * t_):
+        raise Fail(f"interactive_card_vs_cpu: {n_bad} worlds diverge")
+    ok = ~bad_w
+    err = 0.0
+    for k in ("obs", "values", "log_probs", "not_dones", "rewards"):
+        gk, hk = cb[k].cpu()[:, ok], hb[k][:, ok]
+        d_ = ((gk - hk).abs() / torch.clamp(hk.abs(), min=1.0)).max()
+        err = max(err, float(d_))
+    for gk, hk in ((card.env.engine.sf.cpu(), host.env.engine.sf),
+                   (card.env.engine.obs.cpu(), host.env.engine.obs)):
+        d_ = ((gk - hk)[:, ok].abs() / torch.clamp(hk[:, ok].abs(),
+                                                     min=1.0)).max()
+        err = max(err, float(d_))
+    if err > 1e-5:
+        raise Fail(f"interactive_card_vs_cpu: rollout float error {err}")
+    steps = hp.update_epochs * hp.num_minibatches
+    p_err, flips = 0.0, 0
+    for a, b in zip(FU.pack_weights(card.agent.net),
+                    FU.pack_weights(host.agent.net)):
+        d_ = (a.cpu() - b).abs()
+        if bool((d_ > steps * 2 * hp.learning_rate + 1e-6).any()):
+            raise Fail(f"interactive_card_vs_cpu: params off by "
+                       f"{float(d_.max())}")
+        over = d_ > steps * 1e-4 / 16
+        flips += int(over.sum())
+        p_err = max(p_err, float(d_[~over].max()) if bool((~over).any())
+                    else 0.0)
+    n_params = sum(p.numel() for p in card.agent.net.parameters())
+    if flips > 0.01 * n_params or card.opt.count != host.opt.count:
+        raise Fail(f"interactive_card_vs_cpu: {flips} param entries beyond "
+                   f"{steps} x 1e-4 / 16")
+    emit({"phase": "interactive_card_vs_cpu", "worlds": w, "ticks": t_,
+          "epochs_x_minibatches": [2, 2], "diverged_worlds": n_bad,
+          "rollout_max_rel_err": err, "params_max_abs_err": p_err,
+          "param_entries_beyond_the_step_tier": flips,
+          "tier": "ints exact but <= 0.1 % of world-ticks, floats 1e-5 of "
+                  "max(1, |x|); params 4 x 1e-4 / 16, or 4 x 2 lr on < 1 % "
+                  "of entries"})
+
+
+def cpu_model() -> str:
+    """The host CPU: lscpu's model name, or, where the machine hides it,
+    its vendor, family and model numbers; and the CPU count."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=60).stdout
+    except OSError:
+        out = ""
+    f = {k.strip(): v.strip() for k, _, v in
+         (line.partition(":") for line in out.splitlines())}
+    name = f.get("Model name", "unknown")
+    if name in ("", "unknown"):
+        name = (f"{f.get('Vendor ID', '?')} family "
+                f"{f.get('CPU family', '?')} model {f.get('Model', '?')} "
+                "(model name not exposed)")
+    return f"{name}, {os.cpu_count()} CPUs"
+
+
+def native_engine(cfg, dev):
+    """The port's native host executor (native/__init__.py::NativeEngine,
+    csrc/host_step.cpp over sim_world.cuh's step_world, g++) at 8192
+    worlds against kernel A on the same rows, random actions and noise,
+    NATIVE_TICKS ticks, the host rows resynchronized to the card's after
+    each tick: integer rows exact but for world-ticks at the shot's
+    going-in threshold (F1: the card's sinf / cosf and contracted FMAs
+    against the host's libm, unfused; counted, at most 0.1 %), float rows
+    and obs of the other worlds within 1e-4 (A's tier, the g++ body's in
+    parity_multistep).  Then 1 thread against all threads, 5 ticks, bit
+    for bit.  Host env-steps/s (the host's clock around `step`) beside
+    the host CPU's model and the thread count."""
+    import numpy as np
+    import torch
+    from madrona_basketball_tpu_torch.native import NativeEngine
+    from madrona_basketball_tpu_torch.ops import fused_step as FS
+    from madrona_basketball_tpu_torch.ops.layout import ACTION_ROWS
+    eng = NativeEngine(cfg, W, seed=5)
+    sf, si = (torch.tensor(x, device=dev) for x in (eng.sf, eng.si))
+    rng = np.random.RandomState(3)
+    bad, err, host_s = 0, 0.0, 0.0
+    for _ in range(NATIVE_TICKS):
+        acts = rng.randint(0, [2, 8, 3, 2, 2, 2],
+                           size=(W, 2, 6)).astype(np.int32)
+        eng.set_actions(acts)
+        a_d = torch.from_numpy(acts).to(dev)
+        si = si.clone()
+        for i in range(2):
+            for j, r in enumerate(ACTION_ROWS[i]):
+                si[r] = a_d[:, i, j]
+        noise = eng.draw_noise()
+        t0 = time.perf_counter()
+        eng.step(noise)
+        host_s += time.perf_counter() - t0
+        sf, si, obs = FS.fused_step(cfg, sf, si,
+                                    torch.from_numpy(noise).to(dev))
+        h_sf, h_si, h_obs = (torch.from_numpy(x) for x in
+                             (eng.sf, eng.si, eng.obs))
+        g_sf, g_si, g_obs = sf.cpu(), si.cpu(), obs.cpu()
+        wb = (g_si != h_si).any(dim=0)
+        bad += int(wb.sum())
+        ok = ~wb
+        if bool(ok.any()):
+            err = max(err, float((g_sf - h_sf)[:, ok].abs().max()),
+                      float((g_obs - h_obs)[:, ok].abs().max()))
+        np.copyto(eng.sf, g_sf.numpy())
+        np.copyto(eng.si, g_si.numpy())
+    if bad > 1e-3 * W * NATIVE_TICKS or err > 1e-4:
+        raise Fail(f"native_engine vs kernel A: {bad} world-ticks differ "
+                   f"in integers, float error {err}")
+    one = NativeEngine(cfg, W, seed=5, n_threads=1)
+    every = NativeEngine(cfg, W, seed=5)
+    one_s = 0.0
+    for _ in range(5):
+        noise = one.draw_noise()
+        t0 = time.perf_counter()
+        one.step(noise)
+        one_s += time.perf_counter() - t0
+        every.step(noise)
+    same = all(np.array_equal(x, y) for x, y in
+               ((one.sf, every.sf), (one.si, every.si),
+                (one.obs, every.obs)))
+    if not same:
+        raise Fail("native_engine: 1 thread and all threads differ")
+    emit({"phase": "native_engine", "worlds": W, "ticks": NATIVE_TICKS,
+          "world_ticks_differing": bad, "max_abs_err": err,
+          "threads": eng.n_threads, "host_cpu": cpu_model(),
+          "host_env_steps_per_s_all_threads": W * NATIVE_TICKS / host_s,
+          "host_env_steps_per_s_1_thread": W * 5 / one_s,
+          "one_thread_equals_all_threads": True,
+          "note": "host numbers: the host CPU's clock, not the card's",
+          "tier": "ints exact but <= 0.1 % of world-ticks, floats 1e-4"})
+
+
+def crosscheck(dev):
+    """The cross-check trainer (crosscheck/torch_ppo.py::train) at 512
+    worlds, 3 iterations of PPOParams' T = 32 and 4 x 4, the agent and
+    the update on the card, the native host executor stepping: ms an
+    iteration (the host's clock over the run / 3) and the mean reward."""
+    import torch
+    from madrona_basketball_tpu_torch.crosscheck.torch_ppo import train
+    from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
+    hp = PPOParams(num_envs=512)
+    t0 = time.perf_counter()
+    agent, history = train(512, 3, seed=0, log_every=1, hp=hp, device=dev)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 3
+    if next(agent.parameters()).device != torch.device(dev) or \
+            len(history) != 3 \
+            or not all(bool(torch.isfinite(p).all())
+                       for p in agent.parameters()):
+        raise Fail(f"crosscheck: {history}")
+    emit({"phase": "crosscheck", "worlds": 512, "iterations": 3,
+          "iteration_ms": ms, "mean_reward": history[-1]["mean_reward"],
+          "episodes": history[-1]["episodes"], "host_cpu": cpu_model()})
+
+
+def aux_modules(dev, trainer):
+    """PopArt, the EMA normalizer and RolloutBuffer on CUDA tensors
+    against the same calls on the CPU, within 1e-6 (of max(1, |x|));
+    `utils/profiling.trace` around one interactive iteration must write a
+    trace that names kernel A's launch."""
+    import torch
+    from madrona_basketball_tpu_torch.models import moving_avg as EMA
+    from madrona_basketball_tpu_torch.models import popart as PA
+    from madrona_basketball_tpu_torch.ppo import buffers as BUF
+    from madrona_basketball_tpu_torch.utils import profiling
+    g = torch.Generator().manual_seed(21)
+    errs = []
+
+    def close(a, b):
+        e = float(((a.cpu() - b).abs() /
+                   torch.clamp(b.abs(), min=1.0)).max())
+        errs.append(e)
+        if e > 1e-6:
+            raise Fail(f"aux_modules: error {e}")
+    out = []
+    for d in (dev, torch.device("cpu")):
+        g.manual_seed(21)
+        x = torch.randn((4096, 2), generator=g).mul(3).add(1)
+        k, b = torch.randn((32, 2), generator=g), torch.randn(2, generator=g)
+        st = PA.popart_init(2, device=d)
+        res = []
+        for _ in range(3):
+            st, kk, bb = PA.popart_update(st, x.to(d), k.to(d), b.to(d))
+            res += [st.m, st.v, kk, bb, PA.popart_normalize(st, x.to(d)),
+                    PA.popart_normalize(st, x.to(d), unnorm=True)]
+        e = EMA.ema_init(0.99, device=d)
+        for i in range(3):
+            e = EMA.ema_update(e, x[:, 0].to(d) * (i + 1))
+            res += [e.mu, e.sigma, EMA.ema_normalize(e, x[:, 1].to(d)),
+                    EMA.ema_unnormalize(e, x[:, 1].to(d))]
+        buf = BUF.make_buffer(8, 512, 16, 6, d)
+        for t in range(8):
+            buf = buf.set_step(t, x[:512, :1].repeat(1, 16).to(d) + t,
+                               torch.zeros((512, 6), dtype=torch.int32,
+                                           device=d) + t,
+                               *(x[:512, 0].to(d) * (t + j) for j in range(4)))
+        idx = torch.arange(0, 4096, 7)
+        res += list(buf.get_minibatch(idx.to(d)))[:1] + \
+            [v.float() for v in buf.get_minibatch(idx.to(d))[1:]]
+        out.append(res)
+    for a, b in zip(*out):
+        close(a, b)
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as path:
+            with profiling.annotate("interactive_iteration"):
+                trainer.train_iteration()
+        text = Path(path).read_text()
+        size = Path(path).stat().st_size
+    if "fused_step_kernel" not in text or "interactive_iteration" not in text:
+        raise Fail("aux_modules: the trace does not name kernel A")
+    emit({"phase": "aux_modules", "max_rel_err": max(errs),
+          "compared": len(errs), "trace_bytes": size,
+          "trace_names_kernel_a": True})
 
 
 def main():
@@ -3507,6 +3995,19 @@ def main():
     # the CLI with each new flag, as subprocesses side by side
     alt_cli(dev)
 
+    # ---------------------------------------------------------- interactive
+    # ROADMAP items 13, 15 and 17: the interactive trainer at the flagship
+    # width with a scripted viewer, the card against the CPU, the native
+    # host executor against kernel A, the cross-check trainer, and the
+    # modules no trainer uses
+    inter_trainer, inter = interactive_path(cfg, hp, dev, reset_counts,
+                                            counts, profiled)
+    interactive_card_vs_cpu(cfg, dev)
+    native_engine(cfg, dev)
+    crosscheck(dev)
+    aux_modules(dev, inter_trainer)
+    del inter_trainer
+
     # ---------------------------------------------------------- kernel times
     pulse_si = state.si.clone()
     for r in RESET_ROWS:
@@ -3860,6 +4361,13 @@ def main():
     # kernel A's launches on the eval path (eval_path, counted from 0
     # around each run)
     rows[0]["eval_launches"] = eval_launches
+    # and on the interactive path (interactive_path, counted from 0
+    # around 3 iterations; the scripted pause and the frozen opponent's
+    # iteration apart)
+    rows[0]["interactive_launches"] = {
+        "interactive_path_3_iterations": inter["launches_3_iterations"],
+        "paused_iteration": inter["paused_iteration_launches"],
+        "frozen_iteration": inter["frozen_launches"]}
     # kernel F: launches from the bench path; ms per launch of K ticks
     for name, nops in (
             ("fused_multistep_every_tick_obs", ops_a * W * KB),

@@ -43,23 +43,33 @@ torch, then the autodiff update); `--no-fused-gae` runs GAE in torch and
 kernel D on the normalized side rows; `--no-fused-grads` the autodiff
 update over the feat matrix, shuffled in `--shuffle-block` super-rows;
 `--backend structured` the structured-state trainer (ppo/train.py over
-systems.py); `--viewer` records world 0 on the per-tick rollout and drops
-episode npz files under logs/{model} (`EpisodeRecorder`, the JAX CLI's),
-which the JAX viewer plays; the live viewer it would spawn is ROADMAP
-item 13's.  `--bf16-traj` (the untiled fused-GAE paths: the flagship,
+systems.py); `--viewer` records world 0 on the per-tick rollout, drops
+episode npz files under logs/{model} (`EpisodeRecorder`, the JAX CLI's)
+and spawns `python -m madrona_basketball_tpu_torch.viewer
+--live-log-folder logs/{model}` to play them (not on a headless host: no
+DISPLAY, WAYLAND_DISPLAY or SDL_VIDEODRIVER), torn down at exit.
+`--bf16-traj` (the untiled fused-GAE paths: the flagship,
 `--data-parallel`, `--dp-update`) stores kernel B's trajectory in
 bfloat16, which kernels C, E, D and G upcast on load; `--bf16-policy`
 (wherever the untiled rollout kernel runs, also with `--no-fused-gae`
 and `--no-fused-grads`) rounds kernel B's Dense operands to bf16; other
 combinations exit with the JAX trainer's messages, and the structured
 backend ignores both, as the JAX CLI does.  `--rollout-block` (a TPU
-kernel's VMEM tile) is refused for good, `--interactive` until its
-ROADMAP item (`UNPORTED`).
+kernel's VMEM tile) is refused for good (`UNPORTED`).
+
+`--interactive` (cli.py:248-277 of the JAX CLI) trains through
+`ppo/train_interactive.py::InteractiveTrainer` with the embedded viewer
+(viewer/app.py, pygame): per tick the policy, the controller manager's
+check and one kernel-A step, then the autodiff update; H hands world 0's
+selected agent to the keyboard, Ctrl+P pauses, 1-0 switch worlds.  It
+takes the training flags above and ignores the path flags, as the JAX
+CLI does; `SDL_VIDEODRIVER=dummy` runs it without a display.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import os
 import socket
 import sys
@@ -182,16 +192,12 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_NOT_YET = "this trainer path is not ported to the PyTorch package yet"
 # flag, test of a non-default value, the reason it is refused
 UNPORTED = (
     ("--rollout-block", lambda a: a.rollout_block != 0,
      "refused for good: it sets the TPU rollout kernel's VMEM block "
      "(cli.py:138-143 of the JAX package), and kernel B's CTA geometry on "
      "the card is fixed by its design (ROADMAP.md queue 1, item 16)"),
-    ("--interactive", lambda a: a.interactive,
-     f"{_NOT_YET} (ROADMAP.md queue 1, item 13: interactive trainer, "
-     "viewer)"),
 )
 
 
@@ -291,15 +297,56 @@ class EpisodeRecorder:
 
 
 def _recorder(cfg: SimConfig, model_name: str, every_n: int):
-    """The world-0 recorder of `--viewer` (cli.py:745-760).  The live
-    viewer the JAX CLI spawns beside it is ROADMAP item 13's: this prints
-    so and trains on, as the JAX CLI does on a headless host."""
+    """The world-0 recorder of `--viewer` (cli.py:745-760)."""
     (h0x, h0y), (h1x, h1y) = _hoop_geometry(cfg)
     hoop_pos = np.array([[[h0x, h0y, 0.0], [h1x, h1y, 0.0]]], np.float32)
-    folder = f"logs/{model_name}"
-    print("The live viewer is not ported yet (ROADMAP.md queue 1, item 13): "
-          f"not spawning it; npz drops still land in {folder}")
-    return EpisodeRecorder(folder, hoop_pos, every_n=every_n)
+    return EpisodeRecorder(f"logs/{model_name}", hoop_pos, every_n=every_n)
+
+
+def _spawn_viewer(log_folder: str):
+    """Launch the live-log watcher viewer as a subprocess
+    (scripts/ppo.py:261-276; the JAX CLI's cli.py:202-229).  Skipped on a
+    headless host (no display and no SDL video driver override): the
+    recorder still drops npz logs that a later `python -m
+    madrona_basketball_tpu_torch.viewer` can play."""
+    import subprocess
+    if not (os.environ.get("DISPLAY") or os.environ.get("WAYLAND_DISPLAY")
+            or os.environ.get("SDL_VIDEODRIVER")):
+        print("Headless host (no DISPLAY): not spawning the live viewer; "
+              f"npz drops still land in {log_folder}")
+        return None
+    os.makedirs(log_folder, exist_ok=True)
+    print("Setting up viewer process...")
+    command = [sys.executable, "-m", "madrona_basketball_tpu_torch.viewer",
+               "--live-log-folder", log_folder]
+    try:
+        proc = subprocess.Popen(command)
+    except OSError as e:
+        print(f"Failed to start viewer process: {e}")
+        return None
+    print(f"Viewer process started with PID: {proc.pid}")
+    print(f"Viewer is now watching: {log_folder}")
+    return proc
+
+
+def _teardown_viewer(proc) -> None:
+    """Terminate the spawned viewer on trainer exit
+    (scripts/ppo.py:352-368; the JAX CLI's cli.py:232-245)."""
+    import subprocess
+    if proc is None:
+        return
+    print(f"Terminating viewer process (PID: {proc.pid})...")
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=5)
+            print("Viewer process terminated successfully")
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            print("Viewer process killed")
+    else:
+        print(f"Viewer process already exited with code: {proc.returncode}")
 
 
 def _free_port() -> int:
@@ -342,6 +389,8 @@ def _join_group(args, argv) -> tuple:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     check_ported(args)
+    if args.interactive:
+        return _run_interactive(args)
     paths = resolve_paths(args)
     if args.rollout_tiled and args.backend != "structured" and \
             not args.data_parallel:
@@ -357,6 +406,75 @@ def main(argv=None):
     finally:
         if owns:
             dist.destroy_process_group()
+
+
+def _config(args):
+    """(model name, SimConfig, PPOParams) of the training flags."""
+    model_name = args.model_name or \
+        f"MadronaBasketball__{args.seed}__{int(time.time())}"
+    cfg = SimConfig(one_on_one=not args.full_game,
+                    tag_mode=not args.no_tag_mode and not args.full_game)
+    hp = PPOParams(
+        num_envs=args.num_envs,
+        num_rollout_steps=args.num_rollout_steps,
+        learning_rate=args.learning_rate,
+        gamma=args.gamma, gae_lambda=args.gae_lambda,
+        num_minibatches=args.num_minibatches,
+        update_epochs=args.update_epochs,
+        clip_coef=args.clip_coef, ent_coef=args.ent_coef,
+        vf_coef=args.vf_coef, max_grad_norm=args.max_grad_norm,
+        trainee_idx=args.trainee_idx,
+        use_frozen=args.frozen_checkpoint is not None,
+        record_world0=args.viewer, shuffle_block=args.shuffle_block)
+    return model_name, cfg, hp
+
+
+def _print_config(args, model_name, hp, dev):
+    print("🎯 TRAINING CONFIGURATION:")
+    print(f"   Trainee Agent Index: {hp.trainee_idx}")
+    print(f"   Frozen Checkpoint: {args.frozen_checkpoint}")
+    print(f"   Model: {model_name}  Envs: {hp.num_envs}  "
+          f"Iters: {args.num_iterations}")
+    print(f"   Device: {dev}")
+
+
+def _run_interactive(args):
+    """Interactive training session: the embedded live viewer and the
+    human override (scripts/ppo.py:257-276; the JAX CLI's cli.py:248-277,
+    ppo/train_interactive.py's loop).  Returns the trainer."""
+    from .ppo.train_interactive import InteractiveTrainer
+    from .viewer.app import ViewerClass
+    model_name, cfg, hp = _config(args)
+    dev = args.device
+    agent = load_agent(args.trainee_checkpoint, dev) \
+        if args.trainee_checkpoint else None
+    frozen = load_agent(args.frozen_checkpoint, dev) \
+        if args.frozen_checkpoint else None
+    _print_config(args, model_name, hp, dev)
+    viewer = ViewerClass(training_mode=True)
+    timer = PPOTimer(dev)
+    trainer = InteractiveTrainer(cfg, hp, agent=agent, frozen=frozen,
+                                 viewer=viewer, seed=args.seed, timer=timer,
+                                 device=dev)
+    viewer.env = trainer.env
+    print("Interactive training: H = human control of selected agent "
+          "(click to select), Ctrl+P = pause, 1-0 = world switch")
+    for iteration in range(1, args.num_iterations + 1):
+        timer.start("iter")
+        timer.add_steps(hp.num_envs * hp.num_rollout_steps)
+        metrics = trainer.train_iteration()
+        timer.end("iter")
+        if iteration % args.log_every_n_iterations == 0:
+            m = {k: float(v) for k, v in metrics.items()}
+            print(f"\nUpdate: {iteration}", end=" ")
+            timer.print()
+            print(f"Mean reward: {m['mean_reward']:.2f}. "
+                  f"Mean episode length: {m['mean_episode_length']:.2f}")
+            timer.reset()
+        if iteration % args.save_model_every_n_iterations == 0:
+            save_agent(trainer.agent, checkpoint_path(model_name, iteration))
+            print(f"Model {model_name} saved at iteration {iteration}")
+    return trainer
 
 
 def _train(args, paths: dict):
@@ -376,22 +494,7 @@ def _train(args, paths: dict):
                 raise SystemExit(f"--rollout-tiled: {e}") from None
     elif torch.device(dev).type == "cuda" and dist.is_initialized():
         dev = torch.device("cuda", torch.cuda.current_device())
-    model_name = args.model_name or \
-        f"MadronaBasketball__{args.seed}__{int(time.time())}"
-    cfg = SimConfig(one_on_one=not args.full_game,
-                    tag_mode=not args.no_tag_mode and not args.full_game)
-    hp = PPOParams(
-        num_envs=args.num_envs,
-        num_rollout_steps=args.num_rollout_steps,
-        learning_rate=args.learning_rate,
-        gamma=args.gamma, gae_lambda=args.gae_lambda,
-        num_minibatches=args.num_minibatches,
-        update_epochs=args.update_epochs,
-        clip_coef=args.clip_coef, ent_coef=args.ent_coef,
-        vf_coef=args.vf_coef, max_grad_norm=args.max_grad_norm,
-        trainee_idx=args.trainee_idx,
-        use_frozen=args.frozen_checkpoint is not None,
-        record_world0=args.viewer, shuffle_block=args.shuffle_block)
+    model_name, cfg, hp = _config(args)
     dev = args.device
     agent = load_agent(args.trainee_checkpoint, dev) \
         if args.trainee_checkpoint else None
@@ -399,12 +502,7 @@ def _train(args, paths: dict):
         if args.frozen_checkpoint else None
 
     if is_main:
-        print("🎯 TRAINING CONFIGURATION:")
-        print(f"   Trainee Agent Index: {hp.trainee_idx}")
-        print(f"   Frozen Checkpoint: {args.frozen_checkpoint}")
-        print(f"   Model: {model_name}  Envs: {hp.num_envs}  "
-              f"Iters: {args.num_iterations}")
-        print(f"   Device: {dev}")
+        _print_config(args, model_name, hp, dev)
         if mesh is not None:
             print(f"Data-parallel over {mesh.size} devices "
                   f"({hp.num_envs // mesh.size} worlds each"
@@ -439,8 +537,14 @@ def _train(args, paths: dict):
         train_iteration = make_train_iteration(
             cfg, hp, dev, rollout_tiled=args.rollout_tiled, mesh=mesh,
             dp_update=args.dp_update, **paths)
-    recorder = _recorder(cfg, model_name, log_every) \
-        if args.viewer and is_main else None
+    recorder, viewer_process = None, None
+    if args.viewer and is_main:
+        recorder = _recorder(cfg, model_name, log_every)
+        # scripts/ppo.py:261-276: --viewer also spawns the watcher viewer;
+        # the atexit hook tears it down on an exception or Ctrl-C too
+        viewer_process = _spawn_viewer(recorder.log_folder)
+        if viewer_process is not None:
+            atexit.register(_teardown_viewer, viewer_process)
     # a missing tensorboardX raises ImportError here, as in the JAX CLI
     logger = WandbLogger("madrona_basketball", model_name,
                          tensorboard_dir=f"runs/{model_name}",
@@ -487,6 +591,10 @@ def _train(args, paths: dict):
                 save_agent(state.agent, checkpoint_path(model_name,
                                                         iteration))
                 print(f"Model {model_name} saved at iteration {iteration}")
+    if viewer_process is not None:
+        # the clean exit tears down once and drops the crash-path hook
+        atexit.unregister(_teardown_viewer)
+        _teardown_viewer(viewer_process)
     if logger is not None:
         logger.close()
     if recorder is not None:

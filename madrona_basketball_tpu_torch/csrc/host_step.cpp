@@ -1,18 +1,25 @@
-// Host build of the per-world device body (sim_world.cuh) for the CPU
-// tests (tests/test_torch_device_body.py, tests/test_torch_multistep_tile.py):
-// the same step_world, compiled by g++ with contraction off, looped over
-// the worlds.  Not part of the CUDA build (_build.py compiles the .cu files
-// only).
+// Host build of the per-world device body (sim_world.cuh): the same
+// step_world that kernel A runs, compiled by g++ with contraction off
+// (native/__init__.py::build_host_step builds it).  mbb_host_step loops it
+// over the worlds, mbb_host_step_threaded splits the worlds into
+// contiguous ranges, one std::thread each (the native host executor,
+// native/__init__.py::NativeEngine); mbb_host_multistep is kernel F's CTA
+// for the CPU tests.  Not part of the CUDA build (_build.py compiles the
+// .cu files only).
 
 #include <algorithm>
+#include <functional>
+#include <thread>
 #include <vector>
 
 #include "sim_world.cuh"
 
-extern "C" void mbb_host_step(mbb::SimParams p, const float *noise,
-                              const float *sf, const int *si, float *sf_out,
-                              int *si_out, float *obs, int W) {
-    for (int w = 0; w < W; ++w) {
+// Worlds [lo, hi).  Each world is loaded whole before it is stored, so
+// sf_out / si_out may be sf / si (a step in place).
+static void step_range(const mbb::SimParams &p, const float *noise,
+                       const float *sf, const int *si, float *sf_out,
+                       int *si_out, float *obs, int W, int lo, int hi) {
+    for (int w = lo; w < hi; ++w) {
         mbb::World s;
         mbb::load_world(s, sf, si, W, w);
         float nz[mbb::N_NOISE_ROWS];
@@ -21,6 +28,31 @@ extern "C" void mbb_host_step(mbb::SimParams p, const float *noise,
         mbb::step_world(p, s, nz, obs, W, w);
         mbb::store_world(s, sf_out, si_out, W, w);
     }
+}
+
+extern "C" void mbb_host_step(mbb::SimParams p, const float *noise,
+                              const float *sf, const int *si, float *sf_out,
+                              int *si_out, float *obs, int W) {
+    step_range(p, noise, sf, si, sf_out, si_out, obs, W, 0, W);
+}
+
+// The worlds share no state (sim_world.cuh holds no statics), so every
+// thread count gives the same bits.
+extern "C" void mbb_host_step_threaded(mbb::SimParams p, const float *noise,
+                                       const float *sf, const int *si,
+                                       float *sf_out, int *si_out,
+                                       float *obs, int W, int n_threads) {
+    const int nt = std::max(1, std::min(n_threads, W));
+    if (nt == 1) {
+        step_range(p, noise, sf, si, sf_out, si_out, obs, W, 0, W);
+        return;
+    }
+    const int chunk = (W + nt - 1) / nt;
+    std::vector<std::thread> pool;
+    for (int lo = 0; lo < W; lo += chunk)
+        pool.emplace_back(step_range, std::cref(p), noise, sf, si, sf_out,
+                          si_out, obs, W, lo, std::min(W, lo + chunk));
+    for (auto &t : pool) t.join();
 }
 
 // Kernel F's CTA on the host: each tile of MS_TILE worlds runs the warp

@@ -9,8 +9,11 @@ env serves interactive use, evaluation and benchmarking.
 
 Every stepping call takes `noise=None`: a (9, W) matrix there replaces the
 engine's draw, so tests can drive the env on the JAX package's noise.
-The viewer and the interactive controller are ROADMAP queue 1 item 13 and
-not ported: passing either raises.
+An attached viewer (viewer/app.py::ViewerClass, or any object with its
+`tick` / `training_paused` / `set_controller_manager` /
+`set_training_paused` surface) ticks after every step once the first
+reset is done, and its pause flag freezes the sim in
+`step_with_world_actions` (JAX env.py:150-208).
 """
 
 from __future__ import annotations
@@ -26,8 +29,6 @@ from .export import export_tensors
 from .ops.layout import ACTION_ROWS, F_IDX, RESET_ROWS
 
 I32 = torch.int32
-_NOT_PORTED = ("the viewer and the interactive controller are ROADMAP "
-               "queue 1 item 13, not ported yet")
 
 
 class BasketballEnv:
@@ -36,8 +37,6 @@ class BasketballEnv:
     def __init__(self, num_worlds: int, cfg: SimConfig = SimConfig(),
                  seed: int = 0, frozen_policy: Optional[Callable] = None,
                  trainee_agent_idx: int = 0, viewer=None, device="cuda"):
-        if viewer is not None:
-            raise NotImplementedError(_NOT_PORTED)
         self.cfg = cfg
         self.num_worlds = num_worlds
         self.agent_idx = trainee_agent_idx
@@ -45,8 +44,10 @@ class BasketballEnv:
         # Optional frozen-opponent policy for self-play:
         # obs (W, 128) -> actions (W, 6)  (scripts/env.py:105-143).
         self.frozen_policy = frozen_policy
+        self.viewer = viewer
         self.action_buckets = list(C.ACTION_BUCKETS)
         self.first_reset_done = False
+        self.controller_manager = None
         self.training_paused = False
 
     # ---- introspection (scripts/env.py:113-123) ----
@@ -109,7 +110,12 @@ class BasketballEnv:
             si = self._write(frozen_idx, fa, si)
         self.engine.si = si
         self.engine.step(noise)
+        self._tick_viewer()
         return self._outputs()
+
+    def _tick_viewer(self):
+        if self.viewer is not None and self.first_reset_done:
+            self.viewer.tick()
 
     def _set_reset_flags(self, value: int):
         si = self.engine.si.clone()
@@ -141,13 +147,24 @@ class BasketballEnv:
 
     # ---- interactive-control plumbing (scripts/env.py:186-207) ----
     def set_controller_manager(self, controller_manager):
-        raise NotImplementedError(_NOT_PORTED)
+        """Attach a SimpleControllerManager for interactive training or
+        evaluation; forwarded to the viewer, whose H key toggles it."""
+        self.controller_manager = controller_manager
+        if self.viewer is not None:
+            self.viewer.set_controller_manager(controller_manager)
+
+    def toggle_human_control(self):
+        if self.controller_manager is not None:
+            self.controller_manager.set_human_control(
+                not self.controller_manager.is_human_control_active())
 
     def is_training_paused(self) -> bool:
         return self.training_paused
 
     def set_training_paused(self, paused: bool):
         self.training_paused = paused
+        if self.viewer is not None:
+            self.viewer.set_training_paused(paused)
 
     def step_with_world_actions(self, actions, human_action_world_0=None,
                                 human_agent_idx=None,
@@ -157,9 +174,10 @@ class BasketballEnv:
 
         Order follows the reference: the trainee (and frozen) actions are
         written for all worlds first, then world 0 is overridden, so the
-        human action survives.  Without a viewer nothing reports a pause,
-        so the sim always advances and the pause flag is cleared, as in
-        the JAX env with no viewer."""
+        human action survives.  While the viewer reports paused, world 0's
+        action of that agent is zeroed (the agent freezes visually) and
+        the sim does not advance, so `noise` goes unused; the viewer still
+        ticks, for its interaction."""
         si = self._write(self.agent_idx, actions)
         if self.frozen_policy is not None:
             frozen_idx, fa = self._frozen_actions()
@@ -170,8 +188,15 @@ class BasketballEnv:
                 device=si.device, dtype=I32)
             for j, r in enumerate(ACTION_ROWS[idx]):
                 si[r, 0] = human[j]
-        self.training_paused = False
+        self.training_paused = bool(
+            self.viewer is not None and
+            getattr(self.viewer, "training_paused", False))
+        if self.training_paused:
+            for r in ACTION_ROWS[idx]:
+                si[r, 0] = 0
         self.engine.si = si
-        self.engine.step(noise)
+        if not self.training_paused:
+            self.engine.step(noise)
+        self._tick_viewer()
         return self._outputs()
 

@@ -20,7 +20,8 @@ then the env noise, each from its own generator: the trainee's seeded
 engine's the env's seed.
 
 CLI: python -m madrona_basketball_tpu_torch.infer [...] (the JAX CLI's
-flags and defaults, plus `--device`).
+flags and defaults, plus `--device`); `--viewer` evaluates per step with
+the embedded viewer (viewer/app.py) and the human override.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch
 
 from . import constants as C
 from .config import SimConfig
+from .controllers import SimpleControllerManager
 from .engine_fused import draw_noise_rows
 from .env import BasketballEnv
 from .models.agent import Agent, act
@@ -316,13 +318,17 @@ def infer(env: BasketballEnv, policy_params: Agent,
     first) and `gumbel` (the trainee policy's seam) inject draws on the
     per-step path.
 
-    The JAX package attaches a keyboard controller manager here
-    (infer.py:133-138) that only a live viewer reads; the viewer is not
-    ported (ROADMAP item 13), so none is attached."""
+    A controller manager is attached (scripts/infer.py:45-48, JAX
+    infer.py:133-138), so that a live viewer's H key hands world 0's
+    selected agent to the keyboard: with a viewer attached the loop runs
+    per step (chunk_size 0 means 1 there, and a chunk is never used) and
+    overrides that agent's action while human control is on."""
     env.set_agent_idx(trainee_idx)
     dev = env.engine.device
     policy = make_policy_fn(policy_params, generator(seed, dev), stochastic,
                             gumbel)
+    manager = SimpleControllerManager(policy_params, seed=seed)
+    env.set_controller_manager(manager)
     static_log = {}
     if log_path:
         Path(log_path).parent.mkdir(parents=True, exist_ok=True)
@@ -332,8 +338,8 @@ def infer(env: BasketballEnv, policy_params: Agent,
     logs = {k: [] for k in (*LOG_ROWS, "done")} if log_path else None
 
     if chunk_size == 0:
-        chunk_size = EVAL_CHUNK
-    if chunk_size > 1:
+        chunk_size = 1 if env.viewer is not None else EVAL_CHUNK
+    if chunk_size > 1 and env.viewer is None:
         if noise is not None or gumbel is not None:
             raise ValueError("injected draws need the per-step loop "
                              "(chunk_size=1)")
@@ -343,8 +349,14 @@ def infer(env: BasketballEnv, policy_params: Agent,
         step = 0
         while step < max_steps:
             actions = policy(obs)
-            obs, _, done = env.step(actions, None if noise is None
-                                    else _draw(noise))
+            n = None if noise is None else _draw(noise)
+            if env.viewer is not None and manager.is_human_control_active():
+                # scripts/infer.py:91-109: world 0's selected agent
+                obs, _, done = env.step_with_world_actions(
+                    actions, env.viewer.get_human_action(),
+                    env.viewer.get_selected_agent_index(), noise=n)
+            else:
+                obs, _, done = env.step(actions, n)
             if log_path:
                 row = log_row(env.engine.sf, env.engine.si, trainee_idx)
                 for k, v in row.items():
@@ -444,14 +456,12 @@ def main(argv=None):
     p.add_argument("--deterministic", action="store_true")
     p.add_argument("--num-envs", type=int, default=10)
     p.add_argument("--test-seed", type=int, default=0)
-    p.add_argument("--viewer", action="store_true", default=False)
+    p.add_argument("--viewer", action="store_true", default=False,
+                   help="embedded live viewer during eval (per step); "
+                        "press H to take over world 0's selected agent")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (kernel A) or cpu (its plain version)")
     args = p.parse_args(argv)
-    if args.viewer:
-        raise SystemExit("--viewer: the live viewer is not ported to the "
-                         "PyTorch package yet (ROADMAP.md queue 1, item 13 "
-                         "(interactive trainer, viewer))")
     dev = args.device
     if args.model_name is not None:
         multi_gen_infer(args.model_name, args.num_envs,
@@ -466,9 +476,16 @@ def main(argv=None):
         frozen_params = load_agent(args.frozen_checkpoint, dev)
         frozen_fn = make_policy_fn(frozen_params,
                                    generator(args.test_seed + 1, dev))
+    viewer = None
+    if args.viewer:
+        from .viewer.app import ViewerClass
+        viewer = ViewerClass()
     env = BasketballEnv(args.num_envs, SimConfig(), seed=args.test_seed,
                         frozen_policy=frozen_fn,
-                        trainee_agent_idx=args.trainee_idx, device=dev)
+                        trainee_agent_idx=args.trainee_idx, viewer=viewer,
+                        device=dev)
+    if viewer is not None:
+        viewer.env = env
     infer(env, load_agent(args.trainee_checkpoint, dev), args.log_path,
           args.num_episodes, args.max_steps, not args.deterministic,
           seed=args.test_seed, trainee_idx=args.trainee_idx,

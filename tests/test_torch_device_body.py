@@ -1,5 +1,6 @@
 """The CUDA device body on the CPU: csrc/sim_world.cuh compiled by g++
-(csrc/host_step.cpp) vs the plain torch tick, in all three game modes.
+(csrc/host_step.cpp, built by native/__init__.py::build_host_step) vs the
+plain torch tick, in all three game modes.
 
 The same `step_world` source that kernels A and B run, built for the host
 with contraction off, must give the plain version's integer state exactly
@@ -20,15 +21,14 @@ an ulp of dist2).  On the card both sides use CUDA's sinf and cosf."""
 import ctypes
 import ctypes.util
 import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
-from madrona_basketball_tpu_torch import _build
 from madrona_basketball_tpu_torch.config import GAME_MODES
 from madrona_basketball_tpu_torch.engine import init_rows
+from madrona_basketball_tpu_torch.native import load_host_step
 from madrona_basketball_tpu_torch.ops import fused_step as FS
 from madrona_basketball_tpu_torch.ops.layout import (ACTION_ROWS, F_IDX,
                                                      RESET_ROWS)
@@ -38,18 +38,9 @@ W, TICKS = 256, 40
 
 @pytest.fixture(scope="module")
 def host_step():
-    gxx = shutil.which("g++")
-    if gxx is None:
+    if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
-    out = _build.BUILD_DIR / "host" / "libhost_step.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([gxx, "-O1", "-std=c++17", "-ffp-contract=off", "-shared",
-                    "-fPIC", "-o", str(out),
-                    str(_build.CSRC / "host_step.cpp")], check=True)
-    lib = ctypes.CDLL(str(out))
-    for entry in ("mbb_host_step", "mbb_host_multistep"):
-        getattr(lib, entry).argtypes = _build.c_signature(
-            _build.CSRC / "host_step.cpp", entry)
+    lib = load_host_step()   # the package's build, contraction off
 
     def step(cfg, sf, si, noise):
         sf2, si2 = torch.empty_like(sf), torch.empty_like(si)

@@ -103,7 +103,19 @@ def test_env_surface():
     assert len(env.tensors()) == 19
     env.set_training_paused(True)
     assert env.is_training_paused()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        BasketballEnv(W, SimConfig(), viewer=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        env.set_controller_manager(object())
+    # a viewer is kept and gets the manager and the pause flag
+    class Viewer:
+        controller_manager, training_paused = None, False
+
+        def set_controller_manager(self, mgr):
+            self.controller_manager = mgr
+
+        def set_training_paused(self, paused):
+            self.training_paused = paused
+    viewer, mgr = Viewer(), object()
+    env = BasketballEnv(W, SimConfig(), viewer=viewer, device="cpu")
+    assert env.viewer is viewer
+    env.set_controller_manager(mgr)
+    assert env.controller_manager is mgr and viewer.controller_manager is mgr
+    env.set_training_paused(True)
+    assert viewer.training_paused and env.is_training_paused()

@@ -104,5 +104,20 @@ def test_cli(tmp_path, monkeypatch, capsys):
           "--device", "cpu"])
     assert os.path.exists("logs/mgi/M_/M_5.npz")
     assert "Inference Complete" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="item 13"):
-        main(["--viewer", "--trainee-checkpoint", "x.pth"])
+    # --viewer: the embedded viewer (headless), per step, a controller
+    # manager attached through the env
+    from madrona_basketball_tpu_torch import infer as infer_mod
+    from madrona_basketball_tpu_torch.controllers import \
+        SimpleControllerManager
+    from madrona_basketball_tpu_torch.viewer.app import ViewerClass
+    monkeypatch.setenv("SDL_VIDEODRIVER", "dummy")
+    monkeypatch.setenv("SDL_AUDIODRIVER", "dummy")
+    ticked = []
+    monkeypatch.setattr(ViewerClass, "tick", lambda self: ticked.append(self))
+    monkeypatch.setattr(infer_mod, "_infer_chunked", None)  # never called
+    main(["--viewer", "--trainee-checkpoint", "checkpoints/M/M_5.pth",
+          "--num-envs", "2", "--max-steps", "3", "--device", "cpu",
+          "--log-path", "logs/v.npz"])
+    assert np.load("logs/v.npz")["actions"].shape == (3, 2, 2, 6)
+    assert len(ticked) == 3 and ticked[0].env is not None
+    assert isinstance(ticked[0].controller_manager, SimpleControllerManager)
