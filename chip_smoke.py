@@ -9,7 +9,8 @@ update kernels D, G and H (fused_update), the K-tick kernel F
 (fused_multistep, both instances), the tiled rollout I
 (fused_rollout_tiled), the obs moments E (obs_moments) and kernel B's
 bf16 instances (fused_rollout_bf16; C, D, E and G keep their bf16
-instances in their own sources) - holds each
+instances in their own sources) and kernel B's timing probes
+(fused_rollout_probe) - holds each
 against its plain torch version on the card at the flagship shapes
 (plus the shot's going-in test on worlds at its threshold, and the tiled
 collect), then drives the port's training paths: `init_train_state` and
@@ -118,10 +119,14 @@ tier, plus one bf16 ulp), B's bf16 policy without and with the frozen
 policy (B's Philox tier, logp and value within POLICY_TOL = 2e-3: an
 FMA-contracted LayerNorm sum can round a Dense operand to the next bf16
 value; both flags at once are the bf16-policy launch rounded, bit for
-bit), and kernels C, E, D and G on a bf16 trajectory (each the float32
+bit; the bf16-policy instances run their Dense layers on the tensor
+cores: HMMA in the SASS of each, none in the storage-only ones, printed
+with ptxas's registers and spills and the warps per SM), and kernels C,
+E, D and G on a bf16 trajectory (each the float32
 instance on the upcast trajectory bit for bit, and its plain version at
 the float32 phase's tier, D per Adam step in
-`parity_fused_update_phase_bf16`); `bf16_paths` runs --bf16-traj,
+`parity_fused_update_phase_bf16`; E's time beside its byte bound);
+`bf16_paths` runs --bf16-traj,
 --bf16-policy, both, --data-parallel --bf16-traj and --dp-update
 --bf16-traj beside each other (launches counted from 0 around 3 eager
 iterations: each path's bf16 branches launched, nothing else; a chunk of
@@ -155,6 +160,18 @@ split into its gradient and reduce launches, and the redesigned kernels'
 rows carry ptxas's registers and spills and their warps per SM (what an
 SM could hold; for F and C also what the 8192-world grid places on it);
 kernels A and E also carry the median and spread of 30 profiled launches.
+Kernel B's timing probes (the JAX kernel's `probe`: sim_only,
+policy_only, no_prng, no_traj; csrc/fused_rollout_probe.cu) run at the
+main path's shapes, without and with the frozen policy, against their
+plain versions at B's Philox tier (`rollout_probes`, with each
+instance's registers and spills): no_prng in-kernel also equals the
+float32 launch on its constants as external noise, and no_traj's state,
+obs, moments and partials the float32 launch's, bit for bit, its
+trajectory one zero block.  Their path is the attribution bench,
+`python -m madrona_basketball_tpu_torch.bench_rollout_attr 8192` as a
+subprocess after the stepping bench (`rollout_attr`: its lines and JSON
+line re-emitted, every probe, the float32 and both bf16 instances
+launched there; no trainer path launches a probe).
 Every phase line carries the card's name and power limit.  Every phase prints
 one JSON line; any failure raises and the exit code is non-zero.  The
 last lines are the per-kernel JSON line, the card's name and power
@@ -218,6 +235,10 @@ T = 32                      # PPOParams().num_rollout_steps
 DEVICE = "cuda:0"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, non-tensor FP32
+BF16_TC_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
+# the policy's Dense products a world-tick: 2 x (32 x 128 + 32 x 32 + 20 x
+# 32) operations (the bf16 policy runs them on the tensor cores)
+DENSE_OPS = 2 * (32 * 128 + 32 * 32 + 20 * 32)
 
 
 CARD = {}  # the card's name and power limit, beside every phase's numbers
@@ -595,9 +616,14 @@ def _two_rank_worker(rank: int, out_dir: str):
 # The alternate trainer paths (ROADMAP item 16)
 # ---------------------------------------------------------------------
 
+# kernel B's timing probes: the attribution bench's; no trainer path
+PROBE_KERNELS = ("fused_rollout_probe_sim_only",
+                 "fused_rollout_probe_policy_only",
+                 "fused_rollout_probe_no_prng", "fused_rollout_probe_no_traj")
 KERNELS = ("fused_step", "fused_rollout", "fused_rollout_tiled", "fused_gae",
            "meter_scan", "obs_moments", "fused_update_phase",
-           "fused_minibatch_grad_prefetch", "fused_minibatch_grad")
+           "fused_minibatch_grad_prefetch", "fused_minibatch_grad",
+           *PROBE_KERNELS)
 # phase, make_train_iteration's path flags (None: the structured
 # trainer), PPOParams changes, the kernels the path must launch
 ALT_PATHS = (
@@ -1146,6 +1172,9 @@ def alt_cli(dev):
 # The bf16 flags (ROADMAP item 16c)
 # ---------------------------------------------------------------------
 
+# kernel E's bf16 instance: its partial and combine launches
+E16_KERNELS = {"obs_moment_partial_bf16_kernel": 1,
+               "obs_moment_combine_kernel": 1}
 POLICY_TOL = 2e-3  # the bf16 policy's logp and value rows against the
 # plain version: the kernel contracts a LayerNorm's sums into FMAs, the
 # plain version does not, and that ulp can move a Dense operand across a
@@ -1232,7 +1261,7 @@ def bf16_paths(cfg, hp, dev, mesh, reset_counts, counts, profiled,
     every = {k for _, _, on in BF16_PATHS for k in on} | {
         "fused_rollout", "fused_rollout_tiled", "fused_gae", "obs_moments",
         "fused_update_phase", "fused_minibatch_grad_prefetch",
-        "fused_minibatch_grad"}
+        "fused_minibatch_grad", *PROBE_KERNELS}
     res = {"launches": {}}
     for phase, flags, on in BF16_PATHS:
         kw = dict(flags)
@@ -2081,6 +2110,137 @@ def main():
     emit({"phase": "bf16_kernels", "kernel": "fused_rollout_bf16_policy",
           "worlds": W, "ticks": T, "noise": "philox",
           "logp_value_tol": POLICY_TOL, "vs_plain": pol16})
+    # the bf16 policy's Dense layers on the tensor cores: HMMA in the SASS
+    # of every PBF instance (and none in the storage-only ones), ptxas's
+    # registers and spills, warps per SM
+    b16_ptx = _build.ptxas_kernels("fused_rollout_bf16")
+    b16_sass = _build.sass_loop_counts("fused_rollout_bf16",
+                                       ops=("HMMA", "LDSM", "LDL", "STL"))
+    hmma = {}
+    for fn, c in b16_sass.items():
+        inst = fn.split("fused_rollout_bf16_kernelI", 1)[-1][:16]
+        pbf = "Lb1EE" in inst
+        hmma[inst] = {"policy_bf16": pbf, "HMMA": c["HMMA_total"],
+                      "LDSM": c["LDSM_total"],
+                      "local_ld_st": c["LDL_total"] + c["STL_total"]}
+        if pbf != (c["HMMA_total"] > 0):
+            raise Fail(f"kernel B bf16 instance {fn}: {c['HMMA_total']} "
+                       "HMMA instructions (the bf16-policy instances run "
+                       "their Dense layers on the tensor cores, the others "
+                       "do not)")
+    if len(hmma) != 12:
+        raise Fail(f"kernel B bf16: {len(hmma)} instances in the SASS")
+    emit({"phase": "bf16_kernels", "kernel": "fused_rollout_bf16_policy",
+          "design": "mma.sync m16n8k16 bf16 (ldmatrix fragments, float32 "
+                    "sums)",
+          "sass_by_instance": hmma,
+          "ptxas": {k: v for k, v in b16_ptx.items() if "Lb1EE" in k},
+          "occupancy": FR.rollout_occupancy(dev, "fused_rollout_bf16")})
+
+    # ---------------------------------------------------------- probes: B
+    # kernel B's timing probes (csrc/fused_rollout_probe.cu) at the main
+    # path's shapes, without and with the frozen policy, each against its
+    # plain version at B's Philox tier: sim_only, policy_only and no_traj
+    # on external noise, no_prng in-kernel (its plain version on the
+    # constants); no_prng also equals the float32 launch on the constants
+    # as external noise, and no_traj's state, obs, moments and partials
+    # the float32 launch's, bit for bit, its trajectory one zero block
+    probe_err = dict.fromkeys(FR.PROBES, 0.0)
+    const = FR.no_prng_noise(T, W, dev)
+    gen_p = torch.Generator(device=dev).manual_seed(13)
+    for use_frozen in (False, True):
+        fm = fmats if use_frozen else None
+        u = torch.rand((T * FR.EXT_NOISE_CHUNK, W), generator=gen_p,
+                       device=dev)
+        row = torch.arange(T * FR.EXT_NOISE_CHUNK, device=dev) % \
+            FR.EXT_NOISE_CHUNK
+        ext = torch.where((row < 8)[:, None], 2.0 * u - 1.0, u)
+        for probe in FR.PROBES:
+            pn = const if probe == "no_prng" else ext
+            k = FR.fused_rollout(cfg, k_sf, k_si, obs0, mats, fm, n_steps=T,
+                                 trainee_idx=1, seed=seed, probe=probe,
+                                 noise=None if probe == "no_prng" else ext,
+                                 moment_partials=True)
+            p = FR.rollout_plain(cfg, k_sf, k_si, obs0, mats, fm, n_steps=T,
+                                 trainee_idx=1, noise=pn, probe=probe)
+            extra = {}
+            if probe in ("no_prng", "no_traj"):
+                f32 = FR.fused_rollout(cfg, k_sf, k_si, obs0, mats, fm,
+                                       n_steps=T, trainee_idx=1, noise=pn,
+                                       moment_partials=True)
+                same = (0, 1, 2, 4, 5) + ((3,) if probe == "no_prng" else ())
+                if not all(torch.equal(k[i], f32[i]) for i in same):
+                    raise Fail(f"probe {probe} frozen={use_frozen}: not the "
+                               "float32 launch's outputs bit for bit")
+                extra["bit_identical_to_f32_launch"] = [
+                    ("sf", "si", "obs", "traj", "moments", "partials")[i]
+                    for i in same]
+                del f32
+            torch.cuda.synchronize()
+            if probe == "no_traj" and (k[3].shape != (1, FR.ROLL_ROWS, W) or
+                                       bool(k[3].any())):
+                raise Fail(f"probe no_traj: trajectory {tuple(k[3].shape)} "
+                           "is not one zero block")
+            frac_p, e_p = philox_tier(f"probe {probe} frozen={use_frozen}",
+                                      k, p)
+            mom_rel = float(((k[4] - p[4]).abs() /
+                             torch.clamp(p[4].abs(), min=1.0)).max())
+            if mom_rel > 1e-5:
+                raise Fail(f"probe {probe}: obs moments {mom_rel}")
+            if probe != "no_traj":
+                extra["fold_partials"] = fold_check(k)
+            probe_err[probe] = max(probe_err[probe], e_p)
+            emit({"phase": "rollout_probes", "probe": probe,
+                  "frozen": use_frozen, "worlds": W, "ticks": T,
+                  "noise": "philox constants" if probe == "no_prng" else
+                  "external", "diverged_world_fraction": frac_p,
+                  "max_abs_err_agreeing_worlds": e_p,
+                  "obs_moment_rel_err": mom_rel, **extra})
+            del k, p
+    probe_ptx = _build.ptxas_kernels("fused_rollout_probe")
+    emit({"phase": "rollout_probes", "ptxas": {
+        f"{probe}{' frozen' if fr else ''}": next(
+            (v for key, v in probe_ptx.items()
+             if f"fused_rollout_probe_kernelILi1ELb{int(fr)}ELi{code}E"
+             in key), None)
+        for probe, code in FR.PROBE_CODES.items() for fr in (False, True)}})
+    errs.update({f"fused_rollout_probe_{k}": v for k, v in probe_err.items()})
+    # the other trainee and a last tile of 32 worlds (96 worlds x 4 ticks,
+    # the frozen policy on, external noise): each probe against its plain
+    # version at parity B's tiers, the bf16 policy at POLICY_TOL (logp,
+    # value) with its actions and state exact
+    we = 96
+    g_e = torch.Generator(device=dev).manual_seed(17)
+    sf_e, si_e = init_rows(cfg, we, g_e, dev)
+    sf_e, si_e, obs_e = FS.fused_step(cfg, sf_e, si_e,
+                                      draw_noise_rows(we, g_e, dev))
+    u = torch.rand((4 * FR.EXT_NOISE_CHUNK, we), generator=g_e, device=dev)
+    row = torch.arange(4 * FR.EXT_NOISE_CHUNK, device=dev) % \
+        FR.EXT_NOISE_CHUNK
+    ext = torch.where((row < 8)[:, None], 2.0 * u - 1.0, u)
+    edge = {}
+    for name, kw in [(pr, {"probe": pr}) for pr in FR.PROBES] + \
+            [("bf16_policy", {"policy_bf16": True})]:
+        e_args = (cfg, sf_e, si_e, obs_e, mats, fmats)
+        k = FR.fused_rollout(*e_args, n_steps=4, trainee_idx=0, noise=ext,
+                             **kw)
+        p = FR.rollout_plain(*e_args, n_steps=4, trainee_idx=0, noise=ext,
+                             **kw)
+        torch.cuda.synchronize()
+        exact = list(range(FR.R_ACT, FR.R_ACT + 6)) + [FR.R_DONE]
+        compare(f"rollout {name} trainee 0 actions",
+                [k[3][:, exact].to(torch.int32), k[1]],
+                [p[3][:, exact].to(torch.int32), p[1]])
+        tol = POLICY_TOL if "policy_bf16" in kw else 1e-4
+        e = compare(f"rollout {name} trainee 0", [k[0], k[2], k[3]],
+                    [p[0], p[2], p[3]], atol=tol)
+        mom = float(((k[4] - p[4]).abs() /
+                     torch.clamp(p[4].abs(), min=1.0)).max())
+        if mom > 1e-5:
+            raise Fail(f"rollout {name} trainee 0: obs moments {mom}")
+        edge[name] = {"max_abs_err": e, "obs_moment_rel_err": mom}
+    emit({"phase": "rollout_probes", "worlds": we, "ticks": 4,
+          "trainee": 0, "frozen": True, "noise": "external", **edge})
 
     # ---------------------------------------------------------- parity C
     carry = torch.stack([
@@ -2676,10 +2836,24 @@ def main():
         raise Fail(f"kernel E bf16: error {e16_exact} of the exact moments, "
                    f"{int(over16.sum())} entries beyond the fold's tier")
     errs["obs_moments_bf16"] = float((ke16 - pe16).abs().max())
+    # its time (16-byte reads, csrc/obs_moments.cu) beside its byte bound
+    e16_ms = kernel_ms(lambda: FG.obs_moments(b16[3]), 20,
+                       E16_KERNELS)
+    e16_bound = bound(T * FR.ROLL_OBS * W * 2 + FR.ROLL_OBS * 8 * 4, 0)[0]
     emit({"phase": "bf16_kernels", "kernel": "obs_moments_bf16", "T": T,
           "worlds": W, "equals_f32_instance_on_upcast": True,
           "max_abs_err": errs["obs_moments_bf16"],
-          "max_rel_err_vs_exact": e16_exact})
+          "max_rel_err_vs_exact": e16_exact, "ms": e16_ms,
+          "bound_ms": e16_bound, "bound_share": e16_bound / e16_ms})
+    # its other launch shapes: chunks of 32 worlds (96 worlds, 4 threads a
+    # CTA) and more ticks than one shared-memory stage holds (T = 40)
+    for te, we in ((40, 1024), (3, 96)):
+        g_e = torch.Generator(device=dev).manual_seed(te)
+        tr = (torch.randn((te, FR.ROLL_ROWS, we), generator=g_e, device=dev)
+              * 3.0 + 1.0).to(BF)
+        if not torch.equal(FG.obs_moments(tr), FG.obs_moments(tr.float())):
+            raise Fail(f"kernel E bf16 at T={te}, W={we}: differs from the "
+                       "float32 instance on the upcast trajectory")
 
     # ---------------------------------------------------------- tiled slice
     # the tiled collect at 1024 worlds x 8 ticks on the card vs the plain
@@ -2711,6 +2885,7 @@ def main():
         FU.launches = dict.fromkeys(FU.launches, 0)
         FU.bf16_launches = dict.fromkeys(FU.bf16_launches, 0)
         FR.bf16_launches = dict.fromkeys(FR.bf16_launches, 0)
+        FR.probe_launches = dict.fromkeys(FR.probe_launches, 0)
 
     def counts():
         return {"fused_step": FS.launches, "fused_rollout": FR.launches,
@@ -2721,7 +2896,9 @@ def main():
                 "fused_rollout_bf16_policy": FR.bf16_launches["policy"],
                 "fused_gae_bf16": FG.bf16_launches,
                 "obs_moments_bf16": FG.bf16_moment_launches,
-                **{f"{k}_bf16": n for k, n in FU.bf16_launches.items()}}
+                **{f"{k}_bf16": n for k, n in FU.bf16_launches.items()},
+                **{f"fused_rollout_probe_{k}": n
+                   for k, n in FR.probe_launches.items()}}
 
     def check_path(phase, tiled, launches):
         """Every kernel of the path launched, none of the other path's."""
@@ -2729,8 +2906,8 @@ def main():
                    "fused_update_phase") + (
             ("fused_rollout_tiled", "obs_moments") if tiled else
             ("fused_rollout",))
-        off_path = ("fused_rollout",) if tiled else \
-            ("fused_rollout_tiled", "obs_moments")
+        off_path = (("fused_rollout",) if tiled else
+                    ("fused_rollout_tiled", "obs_moments")) + PROBE_KERNELS
         if min(launches[k] for k in on_path) < 1:
             raise Fail(f"{phase} skipped a kernel: {launches}")
         if any(launches[k] for k in off_path):
@@ -3252,6 +3429,33 @@ def main():
     emit(bench_line)
     emit({"phase": "bench", "seconds": bench_secs,
           "engines": list(engines.values())})
+
+    # ---------------------------------------------------------- attribution
+    # kernel B's time attribution as a user runs it (the probes' path):
+    # every probe instance, the float32 and both bf16 instances launched,
+    # the launches counted by the subprocess from 0; its line re-emitted
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "madrona_basketball_tpu_torch."
+         "bench_rollout_attr", str(W)], cwd=root, env=env,
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise Fail(f"bench_rollout_attr exited {proc.returncode}: "
+                   f"{proc.stderr[-3000:]}")
+    attr = json.loads(proc.stdout.strip().splitlines()[-1])
+    attr_launches = attr["launches"]
+    if set(attr["variants_ms"]) != {"full", *FR.PROBES, "bf16_mm",
+                                    "bf16_traj"} or \
+            not all(v > 0 for v in attr["variants_ms"].values()) or \
+            len(attr["t_sweep_ms"] or ()) != 4 or \
+            min(attr_launches["probe"].values()) < 1 or \
+            attr_launches["fused_rollout"] < 1 or \
+            min(attr_launches["bf16"].values()) < 1:
+        raise Fail(f"bench_rollout_attr line {attr}")
+    emit({"phase": "rollout_attr", "seconds": time.perf_counter() - t0,
+          "lines": [ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("[attr]")]})
+    emit(attr)
 
     # ---------------------------------------------------------- eval
     # the eval path (infer.py): kernel A a tick with the policy in torch,
@@ -4114,9 +4318,7 @@ def main():
                            {"fused_gae_kernel": 1}),
         "obs_moments_bf16": (
             lambda: FG.obs_moments(t_traj16),
-            lambda: FG.obs_moments_plain(t_traj16), 20, 2,
-            {"obs_moment_partial_kernel": 1,
-             "obs_moment_combine_kernel": 1}),
+            lambda: FG.obs_moments_plain(t_traj16), 20, 2, E16_KERNELS),
         "fused_update_phase_bf16": (
             lambda: FU.fused_update_phase(*d16_args, wb=wb),
             lambda: FU.update_phase_plain(*d16_args, wb=wb), 3, 1,
@@ -4125,6 +4327,15 @@ def main():
             lambda: FU.fused_minibatch_grad_prefetch(*g16_args, wb=wb),
             lambda: FU.minibatch_grad_prefetch_plain(*g16_args, wb=wb), 10,
             2, grad_k16),
+        # kernel B's timing probes (the attribution bench's instances)
+        **{f"fused_rollout_probe_{pr}": (
+            lambda pr=pr: FR.fused_rollout(*r_args, n_steps=T, trainee_idx=1,
+                                           seed=seed, probe=pr),
+            lambda pr=pr: FR.rollout_plain(
+                *r_args, n_steps=T, trainee_idx=1, probe=pr,
+                noise=FR.no_prng_noise(T, W, dev) if pr == "no_prng"
+                else ph_noise), 5, 1, {"fused_rollout_probe_kernel": 1})
+           for pr in FR.PROBES},
     }
     # ms: the kernels' own device time per call; wrapper_ms: CUDA events
     # around back-to-back wrapper calls (median of 5 windows), which also
@@ -4190,8 +4401,10 @@ def main():
         # path's); B's bf16 instances take B's shared memory and threads
         "fused_rollout_bf16_traj": {"ptxas": ptx_of(
             "fused_rollout_bf16", "fused_rollout_bf16_kernelILi1ELb0EtLb0E")},
-        "fused_rollout_bf16_policy": {"ptxas": ptx_of(
-            "fused_rollout_bf16", "fused_rollout_bf16_kernelILi1ELb0EfLb1E")},
+        "fused_rollout_bf16_policy": {
+            "ptxas": ptx_of("fused_rollout_bf16",
+                            "fused_rollout_bf16_kernelILi1ELb0EfLb1E"),
+            "occupancy": FR.rollout_occupancy(dev, "fused_rollout_bf16")},
         "fused_gae_bf16": {"ptxas": ptx_of("fused_gae",
                                            "fused_gae_kernelItE")},
         "fused_update_phase_bf16": {"ptxas": ptx_of(
@@ -4399,6 +4612,11 @@ def main():
     traj16_bytes = T * 128 * W * 2
     per_sample16 = (FU.R_LOGP + 1) * 2 + 3 * 4
     b16_src = "madrona_basketball_tpu_torch/csrc/fused_rollout_bf16.cu"
+    # the bf16 policy's bound: its Dense products at the bf16 tensor-core
+    # rate, the rest of its operations at float32's
+    dense_ops = DENSE_OPS * W * T
+    b16p_ops_ms = (dense_ops / BF16_TC_FLOP_PER_S +
+                   (ops_b16p * W * T - dense_ops) / FP32_FLOP_PER_S) * 1e3
     for name, src, rep_, nbytes, nops, path in (
             ("fused_rollout_bf16_traj", b16_src,
              "madrona_basketball_tpu/ops/fused_rollout.py:239",
@@ -4424,6 +4642,10 @@ def main():
              bytes_g - hp.minibatch_size * (per_sample - per_sample16),
              ops_g_per * hp.minibatch_size, "bf16_dp_update_traj_path")):
         bms, by = bound(nbytes, nops)
+        if name == "fused_rollout_bf16_policy":
+            tb = nbytes / HBM_BYTES_PER_S * 1e3
+            bms, by = (tb, "bytes") if tb >= b16p_ops_ms else \
+                (b16p_ops_ms, "operations")
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep_,
                      "launches": bf16["launches"][path][name],
@@ -4437,6 +4659,30 @@ def main():
                      "bytes": nbytes, "ops": nops,
                      "bound_share": bms / ms[name][0],
                      **design.get(name, {})})
+    # kernel B's probes: their launches those of the attribution bench's
+    # run (rollout_attr), none on a trainer path (main_path's counts);
+    # bytes and the plain version's operations of the work each leaves
+    pr_src = "madrona_basketball_tpu_torch/csrc/fused_rollout_probe.cu"
+    for pr in FR.PROBES:
+        name = f"fused_rollout_probe_{pr}"
+        ops_p = count_ops(FR.rollout_plain, cfg, sf_s, si_s, obs_s, mats_s,
+                          n_steps=1, trainee_idx=1, probe=pr,
+                          noise=FR.philox_noise(0, 0, 1, ws, cpu)) / ws
+        nbytes = bytes_b - (T - 1) * 128 * W * 4 if pr == "no_traj" \
+            else bytes_b
+        bms, by = bound(nbytes, ops_p * W * T)
+        rows.append({"name": name, "route": "cuda", "source": pr_src,
+                     "replaces": "madrona_basketball_tpu/ops/fused_rollout"
+                                 ".py:239 (probe, :285-296)",
+                     "launches": attr_launches["probe"][pr],
+                     "launches_path": "rollout_attr (bench_rollout_attr "
+                                      f"{W})",
+                     "trainer_path_launches": launches[name],
+                     "max_abs_err": errs[name], "ms": ms[name][0],
+                     "wrapper_ms": ms[name][1], "plain_ms": ms[name][2],
+                     "bound_ms": bms, "bound_by": by, "library_ms": None,
+                     "bytes": nbytes, "ops": ops_p * W * T,
+                     "bound_share": bms / ms[name][0]})
     emit({"phase": "kernel_times", "note": "library_ms is torch.var_mean "
           "over ticks and worlds for obs_moments (kernel E) and null "
           "elsewhere: no single PyTorch call computes a sim tick, a "
@@ -4458,7 +4704,11 @@ def main():
           "the bench path; the *_bf16* rows are the bf16 branches "
           "(--bf16-traj, --bf16-policy), their launches those of their "
           "bf16 path's 3 eager iterations (launches_path), their bytes "
-          "the bf16 trajectory's"})
+          "the bf16 trajectory's; fused_rollout_bf16_policy's operations "
+          "bound counts its Dense products at the bf16 tensor-core rate; "
+          "the fused_rollout_probe_* rows are kernel B's timing probes, "
+          "their launches those of the attribution bench (rollout_attr), "
+          "trainer_path_launches main_path's"})
     emit({"kernels": rows})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

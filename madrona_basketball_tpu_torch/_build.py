@@ -35,7 +35,7 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 KERNELS = ("fused_step", "fused_rollout", "fused_gae", "meter_scan",
            "fused_update", "fused_multistep", "fused_rollout_tiled",
-           "obs_moments", "fused_rollout_bf16")
+           "obs_moments", "fused_rollout_bf16", "fused_rollout_probe")
 NVCC_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-lineinfo", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
 

@@ -46,9 +46,6 @@ MBB_BF_HD float bf16_to_f32(uint16_t b) {
 #endif
 }
 
-// x rounded to the nearest bf16 value, as a float32
-MBB_BF_HD float bf16_round(float x) { return bf16_to_f32(f32_to_bf16(x)); }
-
 // A trajectory element of storage type TT (float, or uint16_t for bf16)
 // from a float32 and back.
 template <class TT>

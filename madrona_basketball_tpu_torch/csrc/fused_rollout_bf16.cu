@@ -12,12 +12,35 @@
 // instances here (2 trainees x frozen or not x 3 branches) build in their
 // own nvcc process beside it.
 //
-// Bound: operations, as the float32 instance (the policy and the tick);
-// bf16 storage halves the trajectory write (8 KB per world at T = 32),
-// and costs the float32 copy of the obs rows that the fold reads
-// (rollout_common.cuh).  The bf16 policy rounds operands and runs the
-// same float32 FMAs: no faster on the CUDA cores; it is what a
-// tensor-core policy product would take.
+// Bound.  The bf16 policy's three Dense layers are 2 x (32 x 128 + 32 x
+// 32 + 20 x 32) = 11,520 operations a world-tick (twice that with the
+// frozen policy), 3.02 GFLOP at 8192 worlds x 32 ticks: 3.05 us at the
+// bf16 tensor-core rate (989 TFLOP/s dense); the rest of B (the tick,
+// LayerNorm, sampling, the fold: 0.83 GFLOP of the plain version's 3.85)
+// 12.4 us at float32's 67 TFLOP/s.  Operations: 0.0155 ms.  Bytes: the
+// state and obs read and written, the float32 trajectory (134 MB at 8192
+// x 32) and the fold partials, 166 MB, take 0.050 ms at 3.35 TB/s, so a
+// bf16-policy launch is bound by bytes, and with both flags (99 MB,
+// 0.030 ms) by bytes still.  bf16 storage costs the float32 copy of the
+// obs rows that the fold reads (rollout_common.cuh).
+//
+// Design.  The float32 instance runs each Dense layer as an FMA chain a
+// (unit, world) out of shared memory, one weight broadcast a term; here
+// the layers run on the tensor cores (rollout_common.cuh::dense_mma):
+// the weights sit in shared memory as bf16 tiles (rounded once, in
+// place of their float32 copies), the obs and LayerNorm-ReLU outputs
+// are written as bf16 tiles, and each layer is a 32-unit x 64-world
+// tile product of mma.sync m16n8k16 (bf16 operands, float32 sums), a
+// warp per 16 units x 16 worlds, fragments loaded by ldmatrix, the bias
+// added in the epilogue.  wgmma (64-row tiles, worlds as M) was not
+// taken: a 64-world CTA is one m64 tile, so a warpgroup would hold the
+// whole layer while the other four warps wait, and its operands need
+// the swizzled shared-memory layouts of a descriptor; the products are
+// 3 us of the kernel's time at either instruction.  The sums run in the
+// tensor core's order, not the FMA chain's over ascending k: logp and
+// value stay within 2e-3 of the plain version, and actions equal
+// outside near-tie worlds.  The sim tick (one thread a world) and the
+// trajectory write are unchanged.
 
 #include <cstdint>
 
@@ -91,6 +114,17 @@ extern "C" int mbb_fused_rollout_bf16(SimParams p, float *sf, int *si,
     return launch<float, true>(p, sf, si, obs, pol, fpol, ext, traj,
                                partials, W, T, trainee, use_frozen, k0, k1,
                                tick_base, world_base, stream);
+}
+
+// Resident CTAs per SM, threads per CTA and dynamic shared memory of the
+// bf16-policy instance (float32 storage, trainee 1) without (out[0..2])
+// and with (out[3..5]) the frozen policy.
+extern "C" int mbb_fused_rollout_bf16_occupancy(int *out) {
+    const int err = tile_occupancy<false>(
+        fused_rollout_bf16_kernel<1, false, float, true>, out);
+    if (err != 0) return err;
+    return tile_occupancy<true>(
+        fused_rollout_bf16_kernel<1, true, float, true>, out + 3);
 }
 
 extern "C" const char *mbb_error_string(int err) {

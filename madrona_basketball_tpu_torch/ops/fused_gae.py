@@ -62,7 +62,7 @@ GAE_BLOCK_CAP = 128  # threads (worlds) per CUDA block
 
 
 OBS_MOMENT_TILE_CAP = 1024  # the JAX fold's tile: its pick_gae_block(W)
-OBS_MOMENT_CHUNK_CAP = 256  # kernel E: worlds (threads) per CTA
+OBS_MOMENT_CHUNK_CAP = 256  # kernel E: worlds per CTA (and per partial)
 
 
 def pick_gae_block(W: int, cap: int = GAE_BLOCK_CAP) -> int:
@@ -296,9 +296,11 @@ def obs_moments(traj, used: int = OBS_USED):
     lib = _build.load("obs_moments")
     dev = traj.device
     traj = traj.contiguous()
+    bf16 = traj.dtype == BF16
+    if bf16 and traj.data_ptr() % 16:
+        traj = traj.clone()  # the bf16 instance reads 16-byte vectors
     partials = torch.empty((used, W // chunk, 2), dtype=F32, device=dev)
     out = torch.empty((used, 8), dtype=F32, device=dev)
-    bf16 = traj.dtype == BF16
     entry = lib.mbb_obs_moments_bf16 if bf16 else lib.mbb_obs_moments
     err = entry(_build.ptr(traj), _build.ptr(partials), _build.ptr(out), T,
                 traj.shape[1], W, used, chunk, _build.stream(dev))

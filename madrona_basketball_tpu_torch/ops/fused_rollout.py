@@ -47,7 +47,24 @@ moments stay float32, the moments folding the obs before rounding);
 with `policy_bf16` the three Dense layers take bf16 operands (weights,
 normalized obs, LayerNorm-ReLU outputs) and sum in float32.  On the card
 either runs kernel B's bf16 instances (csrc/fused_rollout_bf16.cu, the
-same tile body); the plain versions round where the kernel rounds.
+same tile body; the bf16 policy's products on the tensor cores, summed
+in their order where the plain version sums over ascending k); the
+plain versions round where the kernel rounds.
+
+The timing probes (the JAX kernel's `probe`, fused_rollout.py:247,
+:285-296; the attribution bench `bench_rollout_attr.py`): each removes
+one cost term of kernel B and breaks the training semantics, so no
+trainer path passes one.  "sim_only" runs neither policy and samples
+nothing (the action, logp and value rows 0; the state's action rows
+stay as `si` holds them); "policy_only" skips the sim tick (state and
+obs stay, the actions the policy writes aside; reward and done 0);
+"no_prng" draws constants in place of in-kernel Philox (sim noise 0.0,
+both policies' uniforms 0.5: `no_prng_noise`), and with external noise
+is the full kernel; "no_traj" writes no trajectory row and returns a
+(1, 128, W) trajectory of zeros, everything else as the full kernel.
+The obs fold runs in every probe.  On the card they run on the float32
+instance, from their own source (csrc/fused_rollout_probe.cu), counted
+in `probe_launches`.
 
 Obs-normalizer moments: every (tick, 32-world group) writes its
 per-feature (mean, M2) of the 103 used obs slots; `combine_obs_moments`
@@ -340,6 +357,31 @@ def _check_traj_dtype(traj_dtype):
                          f"torch.bfloat16, not {traj_dtype}")
 
 
+PROBES = ("sim_only", "policy_only", "no_prng", "no_traj")
+
+
+def _check_probe(probe, traj_dtype=F32, policy_bf16=False):
+    if probe is None:
+        return
+    if probe not in PROBES:
+        raise ValueError(f"probe must be None or one of {PROBES}, not "
+                         f"{probe!r}")
+    if traj_dtype != F32 or policy_bf16:
+        raise ValueError(f"probe={probe!r} runs on kernel B's float32 "
+                         "instance only: a probe with traj_dtype=bfloat16 "
+                         "or policy_bf16 is still to port (ROADMAP queue 2)")
+
+
+def no_prng_noise(n_steps: int, num_worlds: int, device="cuda"):
+    """The draws of the no_prng probe as an external-noise matrix (T *
+    EXT_NOISE_CHUNK, W): every sim-noise row 0.0, both policies'
+    uniforms 0.5 (the JAX kernel's constants, fused_rollout.py:335-339)."""
+    u = torch.full((n_steps, N_LOGITS, num_worlds), 0.5, dtype=F32,
+                   device=device)
+    sim = torch.zeros((N_NOISE_ROWS, num_worlds), dtype=F32, device=device)
+    return pack_rollout_noise([sim] * n_steps, u, u)
+
+
 def _check_rollout_args(sf, si, obs0, n_steps, noise, mats, frozen_mats,
                         use_frozen):
     W = check_rows(sf, si)
@@ -365,24 +407,27 @@ def _check_rollout_args(sf, si, obs0, n_steps, noise, mats, frozen_mats,
 @torch.no_grad()
 def rollout_plain(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
                   n_steps: int, trainee_idx: int, noise: torch.Tensor,
-                  traj_dtype=F32, policy_bf16: bool = False):
+                  traj_dtype=F32, policy_bf16: bool = False, probe=None):
     """The rollout in plain torch on external noise.  Returns
     (sf', si', obs', traj (T, 128, W) of traj_dtype, obs_moments
-    (103, 8)); policy_bf16 takes bf16 policy operands."""
+    (103, 8)); policy_bf16 takes bf16 policy operands, and probe one of
+    PROBES runs that timing probe (no_prng: the full rollout, since the
+    noise is external; no_traj: traj (1, 128, W) of zeros)."""
     return _rollout_plain(cfg, sf, si, obs0, mats, frozen_mats,
                           n_steps=n_steps, trainee_idx=trainee_idx,
                           noise=noise, moments=True, traj_dtype=traj_dtype,
-                          policy_bf16=policy_bf16)
+                          policy_bf16=policy_bf16, probe=probe)
 
 
 def _rollout_plain(cfg: SimConfig, sf, si, obs0, mats, frozen_mats, *,
                    n_steps: int, trainee_idx: int, noise: torch.Tensor,
                    moments: bool, traj_dtype=F32, policy_bf16: bool = False,
-                   partials: bool = False):
+                   partials: bool = False, probe=None):
     use_frozen = frozen_mats is not None
     W = _check_rollout_args(sf, si, obs0, n_steps, noise, mats,
                             frozen_mats, use_frozen)
     _check_traj_dtype(traj_dtype)
+    _check_probe(probe, traj_dtype, policy_bf16)
     mm = BF16 if policy_bf16 else F32
     ti_lo = trainee_idx * OBS
     fi_lo = (1 - trainee_idx) * OBS
@@ -395,18 +440,24 @@ def _rollout_plain(cfg: SimConfig, sf, si, obs0, mats, frozen_mats, *,
     for t in range(n_steps):
         chunk = noise[t * EXT_NOISE_CHUNK:(t + 1) * EXT_NOISE_CHUNK]
         obs_t = obs[ti_lo:ti_lo + OBS]
-        logits, value = policy_forward_rows(obs_t, *mats, mm_dtype=mm)
-        actions, logp = sample_rows(logits, gumbel_from_uniform(
-            chunk[EXT_TRAINEE_U:EXT_TRAINEE_U + N_LOGITS]))
-        for j in range(6):
-            si[ACTION_ROWS[trainee_idx][j]] = actions[j]
-        if use_frozen:
-            f_logits, _ = policy_forward_rows(obs[fi_lo:fi_lo + OBS],
-                                              *frozen_mats, mm_dtype=mm)
-            f_actions, _ = sample_rows(f_logits, gumbel_from_uniform(
-                chunk[EXT_FROZEN_U:EXT_FROZEN_U + N_LOGITS]))
+        if probe == "sim_only":
+            # no policy, no sampling: the tick runs on the actions si holds
+            zero = torch.zeros((W,), dtype=F32, device=sf.device)
+            actions = [zero.to(I32)] * 6
+            logp = value = zero
+        else:
+            logits, value = policy_forward_rows(obs_t, *mats, mm_dtype=mm)
+            actions, logp = sample_rows(logits, gumbel_from_uniform(
+                chunk[EXT_TRAINEE_U:EXT_TRAINEE_U + N_LOGITS]))
             for j in range(6):
-                si[ACTION_ROWS[1 - trainee_idx][j]] = f_actions[j]
+                si[ACTION_ROWS[trainee_idx][j]] = actions[j]
+            if use_frozen:
+                f_logits, _ = policy_forward_rows(obs[fi_lo:fi_lo + OBS],
+                                                  *frozen_mats, mm_dtype=mm)
+                f_actions, _ = sample_rows(f_logits, gumbel_from_uniform(
+                    chunk[EXT_FROZEN_U:EXT_FROZEN_U + N_LOGITS]))
+                for j in range(6):
+                    si[ACTION_ROWS[1 - trainee_idx][j]] = f_actions[j]
         if moments:
             parts.append(obs_moment_partials(obs_t[0:ROLL_OBS]))
         traj[t, 0:ROLL_OBS] = obs_t[0:ROLL_OBS]
@@ -414,9 +465,15 @@ def _rollout_plain(cfg: SimConfig, sf, si, obs0, mats, frozen_mats, *,
             traj[t, R_ACT + j] = actions[j].to(F32)
         traj[t, R_LOGP] = logp
         traj[t, R_VALUE] = value
+        if probe == "policy_only":
+            continue  # no tick: state and obs stay, reward and done 0
         sf, si, obs = step_rows_plain(cfg, sf, si, chunk[0:N_NOISE_ROWS])
         traj[t, R_REW] = sf[rew_row]
         traj[t, R_DONE] = sf[done_row]
+    if probe == "no_traj":
+        traj = torch.zeros((1, ROLL_ROWS, W), dtype=F32, device=sf.device)
+    elif probe == "policy_only":
+        sf, obs = sf.clone(), obs.clone()
     # bf16 storage: every row rounded once, as the kernel stores it (the
     # moments above fold the float32 obs)
     traj = traj.to(traj_dtype)
@@ -433,6 +490,10 @@ def _check_world_base(world_base):
 
 
 launches = 0  # kernel B launches (the wrapper counts, the caller resets)
+# launches of kernel B's probe instances, by probe (the wrapper counts, the
+# caller resets); no trainer path launches one
+probe_launches = dict.fromkeys(PROBES, 0)
+PROBE_CODES = {p: i + 1 for i, p in enumerate(PROBES)}  # csrc's PROBE_*
 # launches of kernel B's bf16 instances, by branch (the wrapper counts, the
 # caller resets): "traj" bf16 storage, "policy" bf16 policy operands; a
 # launch with both flags counts in both
@@ -444,7 +505,7 @@ def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
                   noise: torch.Tensor | None = None, seed: int = 0,
                   tick_base=0, world_base: int = 0,
                   moment_partials: bool = False, traj_dtype=F32,
-                  policy_bf16: bool = False):
+                  policy_bf16: bool = False, probe=None):
     """Kernel B on CUDA tensors, the plain version on CPU tensors.
 
     noise=None draws in-kernel Philox noise from (seed, tick_base), the
@@ -457,16 +518,21 @@ def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
     moment_partials the per-(tick, 32-world group) (mean, M2) partials
     (T, W / 32, 103, 2) they were merged from.  traj_dtype=torch.bfloat16
     stores the trajectory in bf16 and policy_bf16 takes bf16 policy
-    operands (kernel B's bf16 instances on the card)."""
+    operands (kernel B's bf16 instances on the card).  probe, one of
+    PROBES, runs that timing probe (kernel B's probe instances on the
+    card; the no_prng probe's CPU path draws `no_prng_noise`)."""
     global launches
     use_frozen = frozen_mats is not None
     W = _check_rollout_args(sf, si, obs0, n_steps, noise, mats,
                             frozen_mats, use_frozen)
     _check_world_base(world_base)
     _check_traj_dtype(traj_dtype)
+    _check_probe(probe, traj_dtype, policy_bf16)
     bf16 = traj_dtype == BF16 or policy_bf16
     if sf.device.type == "cpu":
-        if noise is None:
+        if noise is None and probe == "no_prng":
+            noise = no_prng_noise(n_steps, W, sf.device)
+        elif noise is None:
             noise = philox_noise(seed, int(tick_base), n_steps, W, sf.device,
                                  world_base)
         with torch.no_grad():
@@ -474,7 +540,7 @@ def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
                 cfg, sf, si, obs0, mats, frozen_mats, n_steps=n_steps,
                 trainee_idx=trainee_idx, noise=noise, moments=True,
                 traj_dtype=traj_dtype, policy_bf16=policy_bf16,
-                partials=moment_partials)
+                partials=moment_partials, probe=probe)
     if sf.device.type != "cuda":
         raise ValueError(f"unsupported device {sf.device}")
     from .. import _build
@@ -484,14 +550,16 @@ def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
                         **{f"mats[{i}]": m for i, m in enumerate(mats)},
                         **{f"frozen_mats[{i}]": m
                            for i, m in enumerate(frozen_mats or ())})
-    name = "fused_rollout_bf16" if bf16 else "fused_rollout"
+    name = "fused_rollout_bf16" if bf16 else \
+        "fused_rollout_probe" if probe else "fused_rollout"
     lib = _build.load(name)
     sf2 = sf.contiguous().clone()
     si2 = si.contiguous().clone()
     obs = obs0.contiguous().clone()
     pol = flat_policy(mats)
     fpol = flat_policy(frozen_mats) if use_frozen else pol
-    traj = torch.empty((n_steps, ROLL_ROWS, W), dtype=traj_dtype, device=dev)
+    traj = torch.empty((1 if probe == "no_traj" else n_steps, ROLL_ROWS, W),
+                       dtype=traj_dtype, device=dev)
     partials = torch.empty((n_steps, W // MOM_GROUP, ROLL_OBS, 2),
                            dtype=F32, device=dev)
     ext = None if noise is None else noise.contiguous()
@@ -505,30 +573,36 @@ def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
     if bf16:
         err = lib.mbb_fused_rollout_bf16(
             *head, int(traj_dtype == BF16), int(policy_bf16), *tail)
+    elif probe:
+        err = lib.mbb_fused_rollout_probe(*head, PROBE_CODES[probe], *tail)
     else:
         err = lib.mbb_fused_rollout(*head, *tail)
     _build.check(err, name)
     if bf16:
         bf16_launches["traj"] += int(traj_dtype == BF16)
         bf16_launches["policy"] += int(policy_bf16)
+    elif probe:
+        probe_launches[probe] += 1
     else:
         launches += 1
     out = (sf2, si2, obs, traj, combine_obs_moments(partials))
     return (*out, partials) if moment_partials else out
 
 
-def rollout_occupancy(dev) -> dict:
+def rollout_occupancy(dev, name: str = "fused_rollout") -> dict:
     """Kernel B's resident CTAs per SM (from
     cudaOccupancyMaxActiveBlocksPerMultiprocessor), threads, warps per SM
-    and dynamic shared memory, without and with the frozen policy."""
+    and dynamic shared memory, without and with the frozen policy: the
+    float32 instance, or with name "fused_rollout_bf16" the bf16-policy
+    instance (float32 storage)."""
     import ctypes
     from .. import _build
     if torch.device(dev).type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    lib = _build.load("fused_rollout")
+    lib = _build.load(name)
     out = (ctypes.c_int * 6)()
-    _build.check(lib.mbb_fused_rollout_occupancy(ctypes.addressof(out)),
-                 "fused_rollout")
+    _build.check(getattr(lib, f"mbb_{name}_occupancy")(
+        ctypes.addressof(out)), name)
     return {name: {"ctas_per_sm": out[i], "threads": out[i + 1],
                    "warps_per_sm": out[i] * out[i + 1] // 32,
                    "dynamic_smem_bytes": out[i + 2]}

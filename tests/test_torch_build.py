@@ -28,11 +28,15 @@ def test_kernel_signatures_parse_from_sources():
         "obs_moments": [P] * 3 + [I] * 5 + [P],
         # kernel B's contract plus traj_bf16, policy_bf16
         "fused_rollout_bf16": [sp] + [P] * 8 + [I] * 6 + [U, U, P, I, P],
+        # kernel B's contract plus the probe
+        "fused_rollout_probe": [sp] + [P] * 8 + [I] * 5 + [U, U, P, I, P],
     }
     # a source's entries besides its kernel's: its bf16 instance (the
     # trajectory as bf16 bits), the resident CTAs per SM (kernel C's at a
     # tick count)
     occupancy = {"fused_rollout": {"mbb_fused_rollout_occupancy": [P]},
+                 "fused_rollout_bf16": {
+                     "mbb_fused_rollout_bf16_occupancy": [P]},
                  "fused_gae": {"mbb_fused_gae_bf16": [P] * 8 + [I] * 7 +
                                [F, F, P],
                                "mbb_fused_gae_occupancy": [I, P]},

@@ -36,7 +36,7 @@ def test_port_modules_import_without_jax():
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.strip().split("\n") + [""] * (
         2 - len(out.stdout.strip().split("\n")))
-    assert int(n_modules) >= 56
+    assert int(n_modules) >= 57
     assert bad == "", f"port pulled in: {bad}"
 
 
