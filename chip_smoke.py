@@ -9,8 +9,9 @@ update kernels D, G and H (fused_update), the K-tick kernel F
 (fused_multistep, both instances), the tiled rollout I
 (fused_rollout_tiled), the obs moments E (obs_moments) and kernel B's
 bf16 instances (fused_rollout_bf16; C, D, E and G keep their bf16
-instances in their own sources) and kernel B's timing probes
-(fused_rollout_probe) - holds each
+instances in their own sources), kernel B's timing probes
+(fused_rollout_probe) and its probe x bf16 instances
+(fused_rollout_probe_bf16, fused_rollout_probe_pbf) - holds each
 against its plain torch version on the card at the flagship shapes
 (plus the shot's going-in test on worlds at its threshold, and the tiled
 collect), then drives the port's training paths: `init_train_state` and
@@ -161,13 +162,20 @@ rows carry ptxas's registers and spills and their warps per SM (what an
 SM could hold; for F and C also what the 8192-world grid places on it);
 kernels A and E also carry the median and spread of 30 profiled launches.
 Kernel B's timing probes (the JAX kernel's `probe`: sim_only,
-policy_only, no_prng, no_traj; csrc/fused_rollout_probe.cu) run at the
-main path's shapes, without and with the frozen policy, against their
-plain versions at B's Philox tier (`rollout_probes`, with each
-instance's registers and spills): no_prng in-kernel also equals the
-float32 launch on its constants as external noise, and no_traj's state,
-obs, moments and partials the float32 launch's, bit for bit, its
-trajectory one zero block.  Their path is the attribution bench,
+policy_only, no_prng, no_traj; csrc/fused_rollout_probe.cu), alone and
+with each bf16 flag (csrc/rollout_probe_bf16.cuh), run at the main
+path's shapes, without and with the frozen policy, against their plain
+versions at B's Philox tier (`rollout_probes`, see `rollout_probes()`,
+with each instance's registers and spills, none spilling): no_prng
+in-kernel also equals the float32 launch on its constants as external
+noise, no_traj's state, obs, moments and partials the float32 launch's,
+bit for bit, its trajectory one zero block; with bf16 storage each is
+the launch of its policy rounded, bit for bit; the bf16 policy holds
+logp and value at POLICY_TOL (no_prng: at most 1 % of worlds
+diverged); then the attribution of the float32 and the bf16-policy
+instances (each probe's device ms, frozen off and on, the probe x bf16
+launches counted there).  The float32 probes' path is the attribution
+bench,
 `python -m madrona_basketball_tpu_torch.bench_rollout_attr 8192` as a
 subprocess after the stepping bench (`rollout_attr`: its lines and JSON
 line re-emitted, every probe, the float32 and both bf16 instances
@@ -616,10 +624,20 @@ def _two_rank_worker(rank: int, out_dir: str):
 # The alternate trainer paths (ROADMAP item 16)
 # ---------------------------------------------------------------------
 
-# kernel B's timing probes: the attribution bench's; no trainer path
+# kernel B's probe x bf16 instances (csrc/rollout_probe_bf16.cuh, built
+# from fused_rollout_probe_bf16.cu and fused_rollout_probe_pbf.cu;
+# ops/fused_rollout.py's PROBE_BF16): bf16 storage ("traj"), the bf16
+# policy ("policy") or both; sim_only runs no policy, so it has a
+# bf16-storage instance only
+PROBE_BF16_KERNELS = tuple(
+    f"fused_rollout_probe_bf16_{p}_{b}"
+    for p in ("sim_only", "policy_only", "no_prng", "no_traj")
+    for b in ("traj", "policy", "both") if p != "sim_only" or b == "traj")
+# kernel B's timing probes: the attribution's; no trainer path
 PROBE_KERNELS = ("fused_rollout_probe_sim_only",
                  "fused_rollout_probe_policy_only",
-                 "fused_rollout_probe_no_prng", "fused_rollout_probe_no_traj")
+                 "fused_rollout_probe_no_prng", "fused_rollout_probe_no_traj",
+                 *PROBE_BF16_KERNELS)
 KERNELS = ("fused_step", "fused_rollout", "fused_rollout_tiled", "fused_gae",
            "meter_scan", "obs_moments", "fused_update_phase",
            "fused_minibatch_grad_prefetch", "fused_minibatch_grad",
@@ -1212,10 +1230,10 @@ BF16_BAND = (-150.0, -112.0)  # the plateau's gate: the JAX record's
 # flagship's
 
 
-def philox_tier(name, k, p, row_tol=None):
+def philox_tier(name, k, p, row_tol=None, max_frac=1e-3):
     """Kernel B's tier over 32 ticks of in-kernel Philox noise against its
-    plain version (k, p: (sf, si, obs, traj, ...)): at most 0.1 % of
-    worlds diverge (integer state or sampled actions); in the others
+    plain version (k, p: (sf, si, obs, traj, ...)): at most max_frac (0.1
+    %) of worlds diverge (integer state or sampled actions); in the others
     every float of sf', obs' and the trajectory within 1e-4 absolute
     (trajectory rows in row_tol {row: tol} at theirs), plus, for a bf16
     trajectory, one bf16 ulp (2**-7 of the value: two values within the
@@ -1227,7 +1245,7 @@ def philox_tier(name, k, p, row_tol=None):
     div = (k[1] != p[1]).any(dim=0) | \
         (kt[:, acts] != pt[:, acts]).any(dim=0).any(dim=0)
     frac = float(div.float().mean())
-    if frac > 1e-3:
+    if frac > max_frac:
         raise Fail(f"{name}: {frac:.4%} of worlds diverged")
     ok = ~div
     err = max(float((k[i][:, ok] - p[i][:, ok]).abs().max()) for i in (0, 2))
@@ -1241,6 +1259,365 @@ def philox_tier(name, k, p, row_tol=None):
         raise Fail(f"{name}: float error {max(err, float(d.max()))} above "
                    "the tier in the worlds that agree")
     return frac, max(err, float(d.max()))
+
+
+def fold_check(k):
+    """Kernel B's fold partials (k[5]) against the plain
+    `obs_moment_partials` of the trajectory's obs rows (the pre-tick
+    obs): within 1e-5 of max(1, |x|); reports whether they are equal
+    bit for bit (the plain version sums in torch's order, the kernel
+    in the warp butterfly's)."""
+    import torch
+    from madrona_basketball_tpu_torch.ops import fused_rollout as FR
+    want = torch.stack([FR.obs_moment_partials(x[0:FR.ROLL_OBS])
+                        for x in k[3]])
+    rel = float(((k[5] - want).abs() /
+                 torch.clamp(want.abs(), min=1.0)).max())
+    if not rel <= 1e-5:
+        raise Fail(f"kernel B fold partials: {rel} of max(1, |x|) "
+                   "from the plain obs_moment_partials")
+    return {"max_rel_err": rel, "bit_identical": torch.equal(k[5], want)}
+
+
+def _ext_noise(gen, n_steps, worlds, dev):
+    """External noise for kernel B: n_steps chunks of uniforms, the sim
+    rows mapped to [-1, 1) as the draws are."""
+    import torch
+    from madrona_basketball_tpu_torch.ops import fused_rollout as FR
+    u = torch.rand((n_steps * FR.EXT_NOISE_CHUNK, worlds), generator=gen,
+                   device=dev)
+    row = torch.arange(n_steps * FR.EXT_NOISE_CHUNK, device=dev) % \
+        FR.EXT_NOISE_CHUNK
+    return torch.where((row < 8)[:, None], 2.0 * u - 1.0, u)
+
+
+def rollout_probes(cfg, dev, sf, si, obs0, mats, fmats, seed):
+    """Kernel B's timing probes at the main path's shapes (W x T, trainee
+    1), without and with the frozen policy: the float32 instances
+    (csrc/fused_rollout_probe.cu) and the probe x bf16 instances
+    (csrc/fused_rollout_probe_bf16.cu with bf16 storage,
+    csrc/fused_rollout_probe_pbf.cu with the bf16 policy only), each
+    against its plain version.
+    sim_only, policy_only and no_traj run on external noise, no_prng on
+    its in-kernel constants (its plain version on `no_prng_noise`).
+      * float32: B's Philox tier; no_prng also equals the float32 launch
+        on the constants as external noise, and no_traj's state, obs,
+        moments and partials the float32 launch's, bit for bit.
+      * bf16 storage: the float32 probe launch's trajectory rounded, its
+        state, obs, moments and partials that launch's, bit for bit; B's
+        Philox tier plus one bf16 ulp against the plain version (whose
+        trajectory is the float32 plain one rounded, checked at frozen
+        off, where it is timed).
+      * bf16 policy: B's Philox tier with logp and value at POLICY_TOL,
+        no_prng's at most 1 % of worlds diverged (its uniforms constant,
+        the logits alone pick the actions, summed by the tensor cores in
+        another order than the plain version's); both flags the
+        bf16-policy launch rounded, bit for bit; sim_only runs no policy,
+        so with policy_bf16 it is the sim_only launch of its storage
+        type, bit for bit.
+      * policy_only leaves sf, obs and si's non-action rows as the input
+        holds them, bit for bit; no_traj returns one (1, 128, W) zero
+        block of the asked dtype.
+    Then each probe and branch on the other trainee and a last tile of 32
+    worlds (96 worlds x 4 ticks, the frozen policy on, external noise),
+    the instances' ptxas registers and spills (none may spill), and the
+    attribution (the probes' path): the device ms (torch.profiler) and
+    wrapper ms (CUDA events) of the full launch and each probe of the
+    float32 and bf16-policy instances, without and with the frozen
+    policy, and of the bf16-storage and both-flag instances without it,
+    on in-kernel Philox (no_prng: its constants), the probe x bf16
+    launches counted from 0 around it.  Returns {"errs", "plain_ms",
+    "times", "launches", "ptxas"}."""
+    import torch
+    from madrona_basketball_tpu_torch import _build
+    from madrona_basketball_tpu_torch.engine import init_rows
+    from madrona_basketball_tpu_torch.engine_fused import draw_noise_rows
+    from madrona_basketball_tpu_torch.ops import fused_rollout as FR
+    from madrona_basketball_tpu_torch.ops import fused_step as FS
+    from madrona_basketball_tpu_torch.ops.layout import ACTION_ROWS
+    BF = torch.bfloat16
+    pol_tol = {FR.R_LOGP: POLICY_TOL, FR.R_VALUE: POLICY_TOL}
+    act_rows = [r for a in range(2) for r in ACTION_ROWS[a]]
+    other = [r for r in range(si.shape[0]) if r not in act_rows]
+    errs = {f"fused_rollout_probe_{p}": 0.0 for p in FR.PROBES}
+    errs.update(dict.fromkeys(PROBE_BF16_KERNELS, 0.0))
+    plain_ms = {}
+
+    def flags(branch):
+        """A probe x bf16 branch's wrapper flags."""
+        return {"traj": {"traj_dtype": BF}, "policy": {"policy_bf16": True},
+                "both": {"traj_dtype": BF, "policy_bf16": True}}[branch]
+
+    def moments(k, p, name):
+        rel = float(((k[4] - p[4]).abs() /
+                     torch.clamp(p[4].abs(), min=1.0)).max())
+        if rel > 1e-5:
+            raise Fail(f"{name}: obs moments {rel}")
+        return rel
+
+    def rounded(f32, bf16):
+        """bf16 equals f32 with its trajectory rounded, bit for bit."""
+        return torch.equal(bf16[3].view(torch.int16),
+                           f32[3].to(BF).view(torch.int16)) and \
+            all(torch.equal(a, b) for a, b in zip(f32[:3] + f32[4:],
+                                                  bf16[:3] + bf16[4:]))
+
+    def timed(fn):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    const = FR.no_prng_noise(T, W, dev)
+    gen_p = torch.Generator(device=dev).manual_seed(13)
+    for use_frozen in (False, True):
+        fm = fmats if use_frozen else None
+        ext = _ext_noise(gen_p, T, W, dev)
+        for probe in FR.PROBES:
+            pn = const if probe == "no_prng" else ext
+            kn = None if probe == "no_prng" else ext
+            tag = f"probe {probe} frozen={use_frozen}"
+
+            def run(**kw):
+                return FR.fused_rollout(cfg, sf, si, obs0, mats, fm,
+                                        n_steps=T, trainee_idx=1, seed=seed,
+                                        probe=probe, noise=kn,
+                                        moment_partials=True, **kw)
+
+            def plain(**kw):
+                return FR.rollout_plain(cfg, sf, si, obs0, mats, fm,
+                                        n_steps=T, trainee_idx=1, noise=pn,
+                                        probe=probe, **kw)
+            k = run()
+            p = plain()
+            extra = {}
+            if probe in ("no_prng", "no_traj"):
+                f32 = FR.fused_rollout(cfg, sf, si, obs0, mats, fm,
+                                       n_steps=T, trainee_idx=1, noise=pn,
+                                       moment_partials=True)
+                same = (0, 1, 2, 4, 5) + ((3,) if probe == "no_prng" else ())
+                if not all(torch.equal(k[i], f32[i]) for i in same):
+                    raise Fail(f"{tag}: not the float32 launch's outputs "
+                               "bit for bit")
+                extra["bit_identical_to_f32_launch"] = [
+                    ("sf", "si", "obs", "traj", "moments", "partials")[i]
+                    for i in same]
+                del f32
+            torch.cuda.synchronize()
+            frac_p, e_p = philox_tier(tag, k, p)
+            mom_rel = moments(k, p, tag)
+            if probe != "no_traj":
+                extra["fold_partials"] = fold_check(k)
+            errs[f"fused_rollout_probe_{probe}"] = max(
+                errs[f"fused_rollout_probe_{probe}"], e_p)
+            # the probe x bf16 instances on the same inputs
+            b16 = {}
+            out = {"float32": k}
+            for branch in ("traj", "policy", "both"):
+                name = f"fused_rollout_probe_bf16_{probe}_{branch}"
+                kb = out[branch] = run(**flags(branch))
+                if probe == "sim_only" and branch != "traj":
+                    # no policy runs: the sim_only launch of the storage
+                    # type, bit for bit
+                    want = out["traj" if branch == "both" else "float32"]
+                    if not all(torch.equal(a, b) for a, b in zip(kb, want)):
+                        raise Fail(f"{tag} {branch}: not the sim_only "
+                                   "launch of its storage type")
+                    b16[branch] = {"equals_sim_only_launch": True}
+                    continue
+                if branch == "policy":
+                    if use_frozen:
+                        pb = plain(**flags(branch))
+                    else:
+                        pb, plain_ms[name] = timed(
+                            lambda: plain(**flags("policy")))
+                    pp = pb
+                else:
+                    # bf16 storage: the launch of its policy rounded, and
+                    # the plain version the float32-storage one rounded
+                    base_k, base_p = (k, p) if branch == "traj" else \
+                        (out["policy"], pp)
+                    if not rounded(base_k, kb):
+                        raise Fail(f"{tag} {branch}: not the launch of its "
+                                   "policy rounded, bit for bit")
+                    if use_frozen:
+                        pb = (*base_p[:3], base_p[3].to(BF), base_p[4])
+                    else:
+                        pb, plain_ms[name] = timed(
+                            lambda: plain(**flags(branch)))
+                        if not rounded(base_p, pb):
+                            raise Fail(f"{tag} {branch}: the plain version "
+                                       "is not that of its policy rounded")
+                pol = branch != "traj"
+                torch.cuda.synchronize()
+                frac_b, e_b = philox_tier(
+                    f"{tag} {branch}", kb, pb, pol_tol if pol else None,
+                    max_frac=1e-2 if pol and probe == "no_prng" else 1e-3)
+                line = {"diverged_world_fraction": frac_b,
+                        "max_abs_err_agreeing_worlds": e_b,
+                        "obs_moment_rel_err": moments(kb, pb,
+                                                      f"{tag} {branch}")}
+                if branch == "policy" and probe != "no_traj":
+                    line["fold_partials"] = fold_check(kb)
+                if branch != "policy":
+                    line["equals_launch_rounded"] = True
+                b16[branch] = line
+                errs[name] = max(errs[name], e_b)
+            for branch, kb in out.items():
+                if probe == "policy_only" and not (
+                        torch.equal(kb[0], sf) and torch.equal(kb[2], obs0)
+                        and torch.equal(kb[1][other], si[other])):
+                    raise Fail(f"{tag} {branch}: sf, obs or si's non-action "
+                               "rows moved")
+                want = BF if branch in ("traj", "both") else torch.float32
+                if probe == "no_traj" and (
+                        kb[3].shape != (1, FR.ROLL_ROWS, W) or
+                        kb[3].dtype != want or bool(kb[3].any())):
+                    raise Fail(f"{tag} {branch}: trajectory "
+                               f"{tuple(kb[3].shape)} {kb[3].dtype} is not "
+                               "one zero block")
+            emit({"phase": "rollout_probes", "probe": probe,
+                  "frozen": use_frozen, "worlds": W, "ticks": T,
+                  "noise": "philox constants" if probe == "no_prng" else
+                  "external", "diverged_world_fraction": frac_p,
+                  "max_abs_err_agreeing_worlds": e_p,
+                  "obs_moment_rel_err": mom_rel, **extra, "bf16": b16})
+            del k, p, out
+    # ptxas: every instance of both libraries, none spilling
+    tt_of = {"traj": ("t", 0), "policy": ("f", 1), "both": ("t", 1)}
+    ptx32 = _build.ptxas_kernels("fused_rollout_probe")
+    ptx16 = {**_build.ptxas_kernels("fused_rollout_probe_bf16"),
+             **_build.ptxas_kernels("fused_rollout_probe_pbf")}
+    ptxas = {}
+    for probe, code in FR.PROBE_CODES.items():
+        for fr in (False, True):
+            ptxas[f"{probe}{' frozen' if fr else ''}"] = next(
+                (v for key, v in ptx32.items()
+                 if f"fused_rollout_probe_kernelILi1ELb{int(fr)}ELi{code}E"
+                 in key), None)
+            for branch, (tt, pbf) in tt_of.items():
+                if f"fused_rollout_probe_bf16_{probe}_{branch}" not in \
+                        PROBE_BF16_KERNELS:
+                    continue
+                ptxas[f"{probe}_{branch}{' frozen' if fr else ''}"] = next(
+                    (v for key, v in ptx16.items()
+                     if f"fused_rollout_probe_bf16_kernelILi1ELb{int(fr)}E"
+                     f"{tt}Lb{pbf}ELi{code}E" in key), None)
+    spills = {k: v for k, v in {**ptx32, **ptx16}.items()
+              if v.get("spill_store_bytes") or v.get("spill_load_bytes")}
+    if len(ptx16) != 4 * len(PROBE_BF16_KERNELS) or spills or \
+            None in ptxas.values():
+        raise Fail(f"kernel B probes: {len(ptx16)} probe x bf16 instances "
+                   f"in the build log, spills {spills}, ptxas {ptxas}")
+    emit({"phase": "rollout_probes", "ptxas": ptxas,
+          "probe_bf16_instances": len(ptx16)})
+    # the other trainee and a last tile of 32 worlds (96 worlds x 4 ticks,
+    # the frozen policy on, external noise): each probe against its plain
+    # version at parity B's tiers (the bf16 policy's logp and value at
+    # POLICY_TOL, its actions and state exact); the bf16-storage launches
+    # the launch of the same policy rounded, bit for bit
+    we = 96
+    g_e = torch.Generator(device=dev).manual_seed(17)
+    sf_e, si_e = init_rows(cfg, we, g_e, dev)
+    sf_e, si_e, obs_e = FS.fused_step(cfg, sf_e, si_e,
+                                      draw_noise_rows(we, g_e, dev))
+    ext = _ext_noise(g_e, 4, we, dev)
+    edge = {}
+    e_args = (cfg, sf_e, si_e, obs_e, mats, fmats)
+    cases = [(pr, {"probe": pr}) for pr in FR.PROBES] + \
+        [("bf16_policy", {"policy_bf16": True})] + \
+        [(f"{pr}_policy", {"probe": pr, "policy_bf16": True})
+         for pr in FR.PROBES if pr != "sim_only"]
+    launched = {}
+    for name, kw in cases:
+        k = launched[name] = FR.fused_rollout(
+            *e_args, n_steps=4, trainee_idx=0, noise=ext, **kw)
+        p = FR.rollout_plain(*e_args, n_steps=4, trainee_idx=0, noise=ext,
+                             **kw)
+        torch.cuda.synchronize()
+        exact = list(range(FR.R_ACT, FR.R_ACT + 6)) + [FR.R_DONE]
+        compare(f"rollout {name} trainee 0 actions",
+                [k[3][:, exact].to(torch.int32), k[1]],
+                [p[3][:, exact].to(torch.int32), p[1]])
+        tol = POLICY_TOL if "policy_bf16" in kw else 1e-4
+        e = compare(f"rollout {name} trainee 0", [k[0], k[2], k[3]],
+                    [p[0], p[2], p[3]], atol=tol)
+        mom = float(((k[4] - p[4]).abs() /
+                     torch.clamp(p[4].abs(), min=1.0)).max())
+        if mom > 1e-5:
+            raise Fail(f"rollout {name} trainee 0: obs moments {mom}")
+        edge[name] = {"max_abs_err": e, "obs_moment_rel_err": mom}
+    for pr in FR.PROBES:
+        for branch in ("traj", "policy", "both"):
+            kw = {"probe": pr, **flags(branch)}
+            k = FR.fused_rollout(*e_args, n_steps=4, trainee_idx=0,
+                                 noise=ext, **kw)
+            if pr == "sim_only":
+                want = launched["sim_only"]
+                ok = rounded(want, k) if branch != "policy" else all(
+                    torch.equal(a, b) for a, b in zip(want, k))
+            elif branch == "policy":
+                continue  # held against its plain version above
+            else:
+                ok = rounded(launched[pr if branch == "traj" else
+                                      f"{pr}_policy"], k)
+            if not ok:
+                raise Fail(f"rollout {pr} {branch} trainee 0: not the "
+                           "launch of its policy rounded, bit for bit")
+        edge[f"{pr}_bf16_storage_equals_rounded_launch"] = True
+    emit({"phase": "rollout_probes", "worlds": we, "ticks": 4,
+          "trainee": 0, "frozen": True, "noise": "external", **edge})
+
+    # the attribution: device ms and wrapper ms of each variant,
+    # in-kernel Philox (no_prng: its constants), the probe x bf16 launches
+    # counted from 0 around it
+    FR.probe_bf16_launches = dict.fromkeys(FR.probe_bf16_launches, 0)
+    times = {}
+    for use_frozen in (False, True):
+        fm = fmats if use_frozen else None
+        for fam in ("float32", "policy") + (
+                () if use_frozen else ("traj", "both")):
+            kw = {} if fam == "float32" else flags(fam)
+            row = times.setdefault(f"frozen={use_frozen}", {})[fam] = {}
+            for pr in (None, *FR.PROBES):
+                if pr is None:
+                    key = "fused_rollout_kernel" if fam == "float32" else \
+                        "fused_rollout_bf16_kernel"
+                elif fam == "float32" or (pr == "sim_only" and
+                                          fam == "policy"):
+                    key = "fused_rollout_probe_kernel"
+                else:
+                    key = "fused_rollout_probe_bf16_kernel"
+
+                def fn(pr=pr, kw=kw):
+                    return FR.fused_rollout(cfg, sf, si, obs0, mats, fm,
+                                            n_steps=T, trainee_idx=1,
+                                            seed=seed, probe=pr, **kw)
+                row[pr or "full"] = {"ms": kernel_ms(fn, 5, {key: 1}),
+                                     "wrapper_ms": cuda_ms(fn, 5, 5)}
+    launches = dict(FR.probe_bf16_launches)
+    attribution = {}
+    for fr, fams in times.items():
+        for fam in ("float32", "policy"):
+            full = fams[fam]["full"]["ms"]
+            attribution[f"{fam} {fr}"] = {
+                "ms": {v: t["ms"] for v, t in fams[fam].items()},
+                "delta_vs_full_ms": {pr: full - fams[fam][pr]["ms"]
+                                     for pr in FR.PROBES},
+                "delta_share": {pr: (full - fams[fam][pr]["ms"]) / full
+                                for pr in FR.PROBES}}
+    emit({"phase": "rollout_probes", "worlds": W, "ticks": T,
+          "noise": "philox (no_prng: constants)", "times": times,
+          "attribution": attribution, "probe_bf16_launches": launches,
+          "note": "ms: torch.profiler device time of the rollout kernel a "
+                  "call; wrapper_ms: CUDA events around back-to-back "
+                  "calls; the deltas: full minus each probe, the term it "
+                  "drops"})
+    return {"errs": errs, "plain_ms": plain_ms, "times": times,
+            "launches": launches, "ptxas": ptxas}
 
 
 def bf16_paths(cfg, hp, dev, mesh, reset_counts, counts, profiled,
@@ -1924,7 +2301,8 @@ def main():
     # ---------------------------------------------------------- build
     b = _build.build()
     emit({"phase": "build", "seconds": round(b["seconds"], 2),
-          "built": b["built"], "ptxas": b["ptxas"]})
+          "built": b["built"], "library_seconds": b["library_seconds"],
+          "ptxas": b["ptxas"]})
 
     cfg = SimConfig()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1969,20 +2347,6 @@ def main():
           "max_abs_err": errs["fused_step"]})
 
     # ---------------------------------------------------------- parity B
-    def fold_check(k):
-        """Kernel B's fold partials (k[5]) against the plain
-        `obs_moment_partials` of the trajectory's obs rows (the pre-tick
-        obs): within 1e-5 of max(1, |x|); reports whether they are equal
-        bit for bit (the plain version sums in torch's order, the kernel
-        in the warp butterfly's)."""
-        want = torch.stack([FR.obs_moment_partials(x[0:FR.ROLL_OBS])
-                            for x in k[3]])
-        rel = float(((k[5] - want).abs() /
-                     torch.clamp(want.abs(), min=1.0)).max())
-        if not rel <= 1e-5:
-            raise Fail(f"kernel B fold partials: {rel} of max(1, |x|) "
-                       "from the plain obs_moment_partials")
-        return {"max_rel_err": rel, "bit_identical": torch.equal(k[5], want)}
     agent = init_agent(gen_cpu, dev)
     frozen = init_agent(gen_cpu, dev)
     agent.obs_rms = rms_update(agent.obs_rms, obs0[128:256].T)
@@ -2138,109 +2502,14 @@ def main():
           "occupancy": FR.rollout_occupancy(dev, "fused_rollout_bf16")})
 
     # ---------------------------------------------------------- probes: B
-    # kernel B's timing probes (csrc/fused_rollout_probe.cu) at the main
-    # path's shapes, without and with the frozen policy, each against its
-    # plain version at B's Philox tier: sim_only, policy_only and no_traj
-    # on external noise, no_prng in-kernel (its plain version on the
-    # constants); no_prng also equals the float32 launch on the constants
-    # as external noise, and no_traj's state, obs, moments and partials
-    # the float32 launch's, bit for bit, its trajectory one zero block
-    probe_err = dict.fromkeys(FR.PROBES, 0.0)
-    const = FR.no_prng_noise(T, W, dev)
-    gen_p = torch.Generator(device=dev).manual_seed(13)
-    for use_frozen in (False, True):
-        fm = fmats if use_frozen else None
-        u = torch.rand((T * FR.EXT_NOISE_CHUNK, W), generator=gen_p,
-                       device=dev)
-        row = torch.arange(T * FR.EXT_NOISE_CHUNK, device=dev) % \
-            FR.EXT_NOISE_CHUNK
-        ext = torch.where((row < 8)[:, None], 2.0 * u - 1.0, u)
-        for probe in FR.PROBES:
-            pn = const if probe == "no_prng" else ext
-            k = FR.fused_rollout(cfg, k_sf, k_si, obs0, mats, fm, n_steps=T,
-                                 trainee_idx=1, seed=seed, probe=probe,
-                                 noise=None if probe == "no_prng" else ext,
-                                 moment_partials=True)
-            p = FR.rollout_plain(cfg, k_sf, k_si, obs0, mats, fm, n_steps=T,
-                                 trainee_idx=1, noise=pn, probe=probe)
-            extra = {}
-            if probe in ("no_prng", "no_traj"):
-                f32 = FR.fused_rollout(cfg, k_sf, k_si, obs0, mats, fm,
-                                       n_steps=T, trainee_idx=1, noise=pn,
-                                       moment_partials=True)
-                same = (0, 1, 2, 4, 5) + ((3,) if probe == "no_prng" else ())
-                if not all(torch.equal(k[i], f32[i]) for i in same):
-                    raise Fail(f"probe {probe} frozen={use_frozen}: not the "
-                               "float32 launch's outputs bit for bit")
-                extra["bit_identical_to_f32_launch"] = [
-                    ("sf", "si", "obs", "traj", "moments", "partials")[i]
-                    for i in same]
-                del f32
-            torch.cuda.synchronize()
-            if probe == "no_traj" and (k[3].shape != (1, FR.ROLL_ROWS, W) or
-                                       bool(k[3].any())):
-                raise Fail(f"probe no_traj: trajectory {tuple(k[3].shape)} "
-                           "is not one zero block")
-            frac_p, e_p = philox_tier(f"probe {probe} frozen={use_frozen}",
-                                      k, p)
-            mom_rel = float(((k[4] - p[4]).abs() /
-                             torch.clamp(p[4].abs(), min=1.0)).max())
-            if mom_rel > 1e-5:
-                raise Fail(f"probe {probe}: obs moments {mom_rel}")
-            if probe != "no_traj":
-                extra["fold_partials"] = fold_check(k)
-            probe_err[probe] = max(probe_err[probe], e_p)
-            emit({"phase": "rollout_probes", "probe": probe,
-                  "frozen": use_frozen, "worlds": W, "ticks": T,
-                  "noise": "philox constants" if probe == "no_prng" else
-                  "external", "diverged_world_fraction": frac_p,
-                  "max_abs_err_agreeing_worlds": e_p,
-                  "obs_moment_rel_err": mom_rel, **extra})
-            del k, p
-    probe_ptx = _build.ptxas_kernels("fused_rollout_probe")
-    emit({"phase": "rollout_probes", "ptxas": {
-        f"{probe}{' frozen' if fr else ''}": next(
-            (v for key, v in probe_ptx.items()
-             if f"fused_rollout_probe_kernelILi1ELb{int(fr)}ELi{code}E"
-             in key), None)
-        for probe, code in FR.PROBE_CODES.items() for fr in (False, True)}})
-    errs.update({f"fused_rollout_probe_{k}": v for k, v in probe_err.items()})
-    # the other trainee and a last tile of 32 worlds (96 worlds x 4 ticks,
-    # the frozen policy on, external noise): each probe against its plain
-    # version at parity B's tiers, the bf16 policy at POLICY_TOL (logp,
-    # value) with its actions and state exact
-    we = 96
-    g_e = torch.Generator(device=dev).manual_seed(17)
-    sf_e, si_e = init_rows(cfg, we, g_e, dev)
-    sf_e, si_e, obs_e = FS.fused_step(cfg, sf_e, si_e,
-                                      draw_noise_rows(we, g_e, dev))
-    u = torch.rand((4 * FR.EXT_NOISE_CHUNK, we), generator=g_e, device=dev)
-    row = torch.arange(4 * FR.EXT_NOISE_CHUNK, device=dev) % \
-        FR.EXT_NOISE_CHUNK
-    ext = torch.where((row < 8)[:, None], 2.0 * u - 1.0, u)
-    edge = {}
-    for name, kw in [(pr, {"probe": pr}) for pr in FR.PROBES] + \
-            [("bf16_policy", {"policy_bf16": True})]:
-        e_args = (cfg, sf_e, si_e, obs_e, mats, fmats)
-        k = FR.fused_rollout(*e_args, n_steps=4, trainee_idx=0, noise=ext,
-                             **kw)
-        p = FR.rollout_plain(*e_args, n_steps=4, trainee_idx=0, noise=ext,
-                             **kw)
-        torch.cuda.synchronize()
-        exact = list(range(FR.R_ACT, FR.R_ACT + 6)) + [FR.R_DONE]
-        compare(f"rollout {name} trainee 0 actions",
-                [k[3][:, exact].to(torch.int32), k[1]],
-                [p[3][:, exact].to(torch.int32), p[1]])
-        tol = POLICY_TOL if "policy_bf16" in kw else 1e-4
-        e = compare(f"rollout {name} trainee 0", [k[0], k[2], k[3]],
-                    [p[0], p[2], p[3]], atol=tol)
-        mom = float(((k[4] - p[4]).abs() /
-                     torch.clamp(p[4].abs(), min=1.0)).max())
-        if mom > 1e-5:
-            raise Fail(f"rollout {name} trainee 0: obs moments {mom}")
-        edge[name] = {"max_abs_err": e, "obs_moment_rel_err": mom}
-    emit({"phase": "rollout_probes", "worlds": we, "ticks": 4,
-          "trainee": 0, "frozen": True, "noise": "external", **edge})
+    # kernel B's timing probes, float32 and probe x bf16 instances, at the
+    # main path's shapes (see rollout_probes)
+    if PROBE_BF16_KERNELS != tuple(f"fused_rollout_probe_bf16_{k}"
+                                   for k in FR.PROBE_BF16):
+        raise Fail(f"PROBE_BF16_KERNELS is not FR.PROBE_BF16: "
+                   f"{FR.PROBE_BF16}")
+    probes = rollout_probes(cfg, dev, k_sf, k_si, obs0, mats, fmats, seed)
+    errs.update(probes["errs"])
 
     # ---------------------------------------------------------- parity C
     carry = torch.stack([
@@ -2886,6 +3155,7 @@ def main():
         FU.bf16_launches = dict.fromkeys(FU.bf16_launches, 0)
         FR.bf16_launches = dict.fromkeys(FR.bf16_launches, 0)
         FR.probe_launches = dict.fromkeys(FR.probe_launches, 0)
+        FR.probe_bf16_launches = dict.fromkeys(FR.probe_bf16_launches, 0)
 
     def counts():
         return {"fused_step": FS.launches, "fused_rollout": FR.launches,
@@ -2898,7 +3168,9 @@ def main():
                 "obs_moments_bf16": FG.bf16_moment_launches,
                 **{f"{k}_bf16": n for k, n in FU.bf16_launches.items()},
                 **{f"fused_rollout_probe_{k}": n
-                   for k, n in FR.probe_launches.items()}}
+                   for k, n in FR.probe_launches.items()},
+                **{f"fused_rollout_probe_bf16_{k}": n
+                   for k, n in FR.probe_bf16_launches.items()}}
 
     def check_path(phase, tiled, launches):
         """Every kernel of the path launched, none of the other path's."""
@@ -4612,11 +4884,16 @@ def main():
     traj16_bytes = T * 128 * W * 2
     per_sample16 = (FU.R_LOGP + 1) * 2 + 3 * 4
     b16_src = "madrona_basketball_tpu_torch/csrc/fused_rollout_bf16.cu"
-    # the bf16 policy's bound: its Dense products at the bf16 tensor-core
-    # rate, the rest of its operations at float32's
     dense_ops = DENSE_OPS * W * T
-    b16p_ops_ms = (dense_ops / BF16_TC_FLOP_PER_S +
-                   (ops_b16p * W * T - dense_ops) / FP32_FLOP_PER_S) * 1e3
+
+    def pbf_bound(nbytes, nops):
+        """The bf16 policy's bound: its Dense products at the bf16
+        tensor-core rate, the rest of its operations at float32's."""
+        tb = nbytes / HBM_BYTES_PER_S * 1e3
+        to = (dense_ops / BF16_TC_FLOP_PER_S +
+              (nops - dense_ops) / FP32_FLOP_PER_S) * 1e3
+        return (tb, "bytes") if tb >= to else (to, "operations")
+
     for name, src, rep_, nbytes, nops, path in (
             ("fused_rollout_bf16_traj", b16_src,
              "madrona_basketball_tpu/ops/fused_rollout.py:239",
@@ -4641,11 +4918,8 @@ def main():
              "madrona_basketball_tpu/ops/fused_update.py:326",
              bytes_g - hp.minibatch_size * (per_sample - per_sample16),
              ops_g_per * hp.minibatch_size, "bf16_dp_update_traj_path")):
-        bms, by = bound(nbytes, nops)
-        if name == "fused_rollout_bf16_policy":
-            tb = nbytes / HBM_BYTES_PER_S * 1e3
-            bms, by = (tb, "bytes") if tb >= b16p_ops_ms else \
-                (b16p_ops_ms, "operations")
+        bms, by = pbf_bound(nbytes, nops) \
+            if name == "fused_rollout_bf16_policy" else bound(nbytes, nops)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep_,
                      "launches": bf16["launches"][path][name],
@@ -4683,6 +4957,44 @@ def main():
                      "bound_ms": bms, "bound_by": by, "library_ms": None,
                      "bytes": nbytes, "ops": ops_p * W * T,
                      "bound_share": bms / ms[name][0]})
+    # kernel B's probe x bf16 instances: their launches those of
+    # rollout_probes' attribution, none on a trainer path; their times the
+    # attribution's (in-kernel Philox, no frozen policy), their plain
+    # versions' the parity runs' (external noise); bytes with the
+    # trajectory's rows at 2 bytes, the plain version's operations with
+    # the bf16 policy's Dense products at the bf16 tensor-core rate
+    csrc = "madrona_basketball_tpu_torch/csrc/"
+    no_traj_bytes = bytes_b - T * 128 * W * 4
+    for key in FR.PROBE_BF16:
+        pr, branch = key.rsplit("_", 1)
+        name = f"fused_rollout_probe_bf16_{key}"
+        t16, pbf = branch != "policy", branch != "traj"
+        ops_p = count_ops(FR.rollout_plain, cfg, sf_s, si_s, obs_s, mats_s,
+                          n_steps=1, trainee_idx=1, probe=pr,
+                          policy_bf16=pbf,
+                          noise=FR.philox_noise(0, 0, 1, ws, cpu)) / ws
+        nbytes = no_traj_bytes + (1 if pr == "no_traj" else T) * 128 * W * \
+            (2 if t16 else 4)
+        nops = ops_p * W * T
+        bms, by = (pbf_bound if pbf else bound)(nbytes, nops)
+        t = probes["times"]["frozen=False"][branch][pr]
+        src = csrc + ("fused_rollout_probe_bf16.cu" if t16 else
+                      "fused_rollout_probe_pbf.cu")
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": "madrona_basketball_tpu/ops/fused_rollout"
+                                 ".py:239 (probe :247 with traj_dtype / "
+                                 "policy_bf16, :296-300)",
+                     "launches": probes["launches"][key],
+                     "launches_path": "rollout_probes (attribution, "
+                                      f"{W} x {T})",
+                     "trainer_path_launches": launches[name],
+                     "max_abs_err": errs[name], "ms": t["ms"],
+                     "wrapper_ms": t["wrapper_ms"],
+                     "plain_ms": probes["plain_ms"][name],
+                     "bound_ms": bms, "bound_by": by, "library_ms": None,
+                     "bytes": nbytes, "ops": nops,
+                     "bound_share": bms / t["ms"],
+                     "ptxas": probes["ptxas"][key]})
     emit({"phase": "kernel_times", "note": "library_ms is torch.var_mean "
           "over ticks and worlds for obs_moments (kernel E) and null "
           "elsewhere: no single PyTorch call computes a sim tick, a "
@@ -4708,7 +5020,10 @@ def main():
           "bound counts its Dense products at the bf16 tensor-core rate; "
           "the fused_rollout_probe_* rows are kernel B's timing probes, "
           "their launches those of the attribution bench (rollout_attr), "
-          "trainer_path_launches main_path's"})
+          "trainer_path_launches main_path's; the "
+          "fused_rollout_probe_bf16_* rows its probe x bf16 instances, "
+          "their launches, ms and wrapper_ms those of rollout_probes' "
+          "attribution, plain_ms its parity runs'"})
     emit({"kernels": rows})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -35,7 +35,8 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 KERNELS = ("fused_step", "fused_rollout", "fused_gae", "meter_scan",
            "fused_update", "fused_multistep", "fused_rollout_tiled",
-           "obs_moments", "fused_rollout_bf16", "fused_rollout_probe")
+           "obs_moments", "fused_rollout_bf16", "fused_rollout_probe",
+           "fused_rollout_probe_bf16", "fused_rollout_probe_pbf")
 NVCC_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-lineinfo", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -108,7 +109,8 @@ def lib_path(name: str) -> Path:
 
 def build(names=KERNELS) -> dict:
     """Compile every missing library, one nvcc per source, all at once.
-    Returns {"seconds": wall time, "built": [...], "ptxas": {name:
+    Returns {"seconds": wall time, "built": [...], "library_seconds":
+    {name: seconds from the start to its nvcc's exit}, "ptxas": {name:
     ptxas_kernels(name)}}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -123,20 +125,25 @@ def build(names=KERNELS) -> dict:
             [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
              str(CSRC / f"{name}.cu")], stdout=log, stderr=subprocess.STDOUT),
             tmp, out, log)
-    failed = []
-    for name, (proc, tmp, out, log) in procs.items():
-        rc = proc.wait()
-        log.close()
-        if rc == 0:
-            os.replace(tmp, out)
-        else:
-            failed.append(name)
+    failed, done = [], {}
+    while len(done) < len(procs):
+        for name, (proc, tmp, out, log) in procs.items():
+            if name in done or proc.poll() is None:
+                continue
+            done[name] = round(time.perf_counter() - t0, 2)
+            log.close()
+            if proc.returncode == 0:
+                os.replace(tmp, out)
+            else:
+                failed.append(name)
+        time.sleep(0.05)
     if failed:
         msgs = [f"--- {n}\n{lib_path(n).with_suffix('.log').read_text()[:4000]}"
                 for n in failed]
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + "\n" +
                            "\n".join(msgs))
     return {"seconds": time.perf_counter() - t0, "built": sorted(procs),
+            "library_seconds": done,
             "ptxas": {n: ptxas_kernels(n) for n in names}}
 
 

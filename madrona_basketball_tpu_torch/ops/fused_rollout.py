@@ -62,9 +62,15 @@ obs stay, the actions the policy writes aside; reward and done 0);
 both policies' uniforms 0.5: `no_prng_noise`), and with external noise
 is the full kernel; "no_traj" writes no trajectory row and returns a
 (1, 128, W) trajectory of zeros, everything else as the full kernel.
-The obs fold runs in every probe.  On the card they run on the float32
-instance, from their own source (csrc/fused_rollout_probe.cu), counted
-in `probe_launches`.
+The obs fold runs in every probe.  Each probe takes the bf16 flags too,
+as the JAX kernel does: a probe with bf16 storage stores the rows it
+writes rounded, and with the bf16 policy runs it on bf16 operands
+(sim_only runs no policy, so there the flag changes nothing).  On the
+card the probes run on the float32 instance from their own source
+(csrc/fused_rollout_probe.cu, counted in `probe_launches`), and with a
+bf16 flag on the bf16 instances from two others, by storage type
+(csrc/fused_rollout_probe_bf16.cu and csrc/fused_rollout_probe_pbf.cu,
+counted in `probe_bf16_launches`).
 
 Obs-normalizer moments: every (tick, 32-world group) writes its
 per-feature (mean, M2) of the 103 used obs slots; `combine_obs_moments`
@@ -360,16 +366,10 @@ def _check_traj_dtype(traj_dtype):
 PROBES = ("sim_only", "policy_only", "no_prng", "no_traj")
 
 
-def _check_probe(probe, traj_dtype=F32, policy_bf16=False):
-    if probe is None:
-        return
-    if probe not in PROBES:
+def _check_probe(probe):
+    if probe is not None and probe not in PROBES:
         raise ValueError(f"probe must be None or one of {PROBES}, not "
                          f"{probe!r}")
-    if traj_dtype != F32 or policy_bf16:
-        raise ValueError(f"probe={probe!r} runs on kernel B's float32 "
-                         "instance only: a probe with traj_dtype=bfloat16 "
-                         "or policy_bf16 is still to port (ROADMAP queue 2)")
 
 
 def no_prng_noise(n_steps: int, num_worlds: int, device="cuda"):
@@ -427,7 +427,7 @@ def _rollout_plain(cfg: SimConfig, sf, si, obs0, mats, frozen_mats, *,
     W = _check_rollout_args(sf, si, obs0, n_steps, noise, mats,
                             frozen_mats, use_frozen)
     _check_traj_dtype(traj_dtype)
-    _check_probe(probe, traj_dtype, policy_bf16)
+    _check_probe(probe)
     mm = BF16 if policy_bf16 else F32
     ti_lo = trainee_idx * OBS
     fi_lo = (1 - trainee_idx) * OBS
@@ -498,6 +498,16 @@ PROBE_CODES = {p: i + 1 for i, p in enumerate(PROBES)}  # csrc's PROBE_*
 # caller resets): "traj" bf16 storage, "policy" bf16 policy operands; a
 # launch with both flags counts in both
 bf16_launches = {"traj": 0, "policy": 0}
+# kernel B's probe x bf16 instances, "{probe}_{branch}" with branch "traj"
+# (bf16 storage), "policy" (bf16 policy) or "both"; sim_only runs no
+# policy, so with policy_bf16 it launches the sim_only instance of its
+# storage type (probe_launches["sim_only"] or "sim_only_traj")
+PROBE_BF16 = tuple(f"{p}_{b}" for p in PROBES
+                   for b in ("traj", "policy", "both")
+                   if p != "sim_only" or b == "traj")
+# their launches (the wrapper counts, the caller resets); no trainer path
+# launches one
+probe_bf16_launches = dict.fromkeys(PROBE_BF16, 0)
 
 
 def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
@@ -520,15 +530,17 @@ def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
     stores the trajectory in bf16 and policy_bf16 takes bf16 policy
     operands (kernel B's bf16 instances on the card).  probe, one of
     PROBES, runs that timing probe (kernel B's probe instances on the
-    card; the no_prng probe's CPU path draws `no_prng_noise`)."""
+    card, with a bf16 flag its probe x bf16 instances; the no_prng
+    probe's CPU path draws `no_prng_noise`)."""
     global launches
     use_frozen = frozen_mats is not None
     W = _check_rollout_args(sf, si, obs0, n_steps, noise, mats,
                             frozen_mats, use_frozen)
     _check_world_base(world_base)
     _check_traj_dtype(traj_dtype)
-    _check_probe(probe, traj_dtype, policy_bf16)
-    bf16 = traj_dtype == BF16 or policy_bf16
+    _check_probe(probe)
+    t16 = traj_dtype == BF16
+    pbf = policy_bf16 and probe != "sim_only"  # sim_only runs no policy
     if sf.device.type == "cpu":
         if noise is None and probe == "no_prng":
             noise = no_prng_noise(n_steps, W, sf.device)
@@ -550,8 +562,15 @@ def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
                         **{f"mats[{i}]": m for i, m in enumerate(mats)},
                         **{f"frozen_mats[{i}]": m
                            for i, m in enumerate(frozen_mats or ())})
-    name = "fused_rollout_bf16" if bf16 else \
-        "fused_rollout_probe" if probe else "fused_rollout"
+    # the library and its entry's flags: the probe x bf16 instances build
+    # in two sources, by storage type
+    if probe:
+        name, flags = ("fused_rollout_probe_bf16", (int(pbf),)) if t16 \
+            else ("fused_rollout_probe_pbf", ()) if pbf \
+            else ("fused_rollout_probe", ())
+    else:
+        name, flags = ("fused_rollout_bf16", (int(t16), int(pbf))) \
+            if t16 or pbf else ("fused_rollout", ())
     lib = _build.load(name)
     sf2 = sf.contiguous().clone()
     si2 = si.contiguous().clone()
@@ -570,19 +589,17 @@ def fused_rollout(cfg: SimConfig, sf, si, obs0, mats, frozen_mats=None, *,
             n_steps, trainee_idx, 1 if use_frozen else 0)
     tail = (seed & MASK32, (seed >> 32) & MASK32, _build.ptr(tb),
             world_base, _build.stream(dev))
-    if bf16:
-        err = lib.mbb_fused_rollout_bf16(
-            *head, int(traj_dtype == BF16), int(policy_bf16), *tail)
-    elif probe:
-        err = lib.mbb_fused_rollout_probe(*head, PROBE_CODES[probe], *tail)
-    else:
-        err = lib.mbb_fused_rollout(*head, *tail)
+    code = (PROBE_CODES[probe],) if probe else ()
+    err = getattr(lib, f"mbb_{name}")(*head, *flags, *code, *tail)
     _build.check(err, name)
-    if bf16:
-        bf16_launches["traj"] += int(traj_dtype == BF16)
-        bf16_launches["policy"] += int(policy_bf16)
+    if probe and (t16 or pbf):
+        branch = "both" if t16 and pbf else "traj" if t16 else "policy"
+        probe_bf16_launches[f"{probe}_{branch}"] += 1
     elif probe:
         probe_launches[probe] += 1
+    elif t16 or pbf:
+        bf16_launches["traj"] += int(t16)
+        bf16_launches["policy"] += int(pbf)
     else:
         launches += 1
     out = (sf2, si2, obs, traj, combine_obs_moments(partials))

@@ -30,6 +30,12 @@ def test_kernel_signatures_parse_from_sources():
         "fused_rollout_bf16": [sp] + [P] * 8 + [I] * 6 + [U, U, P, I, P],
         # kernel B's contract plus the probe
         "fused_rollout_probe": [sp] + [P] * 8 + [I] * 5 + [U, U, P, I, P],
+        # kernel B's contract plus policy_bf16 and the probe (bf16
+        # storage), or the probe (float32 storage, the bf16 policy)
+        "fused_rollout_probe_bf16": [sp] + [P] * 8 + [I] * 6 +
+        [U, U, P, I, P],
+        "fused_rollout_probe_pbf": [sp] + [P] * 8 + [I] * 5 +
+        [U, U, P, I, P],
     }
     # a source's entries besides its kernel's: its bf16 instance (the
     # trajectory as bf16 bits), the resident CTAs per SM (kernel C's at a
@@ -95,6 +101,10 @@ def test_iteration_scalars_are_read_from_device_memory():
     for src, entry, name in (
             ("fused_rollout.cu", "mbb_fused_rollout", "tick_base"),
             ("fused_rollout_tiled.cu", "mbb_fused_rollout_tiled",
+             "tick_base"),
+            ("fused_rollout_probe_bf16.cu", "mbb_fused_rollout_probe_bf16",
+             "tick_base"),
+            ("fused_rollout_probe_pbf.cu", "mbb_fused_rollout_probe_pbf",
              "tick_base"),
             ("fused_update.cu", "mbb_fused_update_phase", "count"),
             ("host_update.cpp", "mbb_host_update_phase", "count")):

@@ -5,9 +5,10 @@ mode, external noise, obs moments on) at 128 worlds x 2 ticks, one
 made from numpy seeds (the worlds by the port's plain init and tick,
 the weights carried over by `agent_from_numpy`):
 sim_only and policy_only here, no_prng and no_traj in
-tests/test_torch_rollout_probes_b.py (xdist splits by file).  Integer
+tests/test_torch_rollout_probes_b.py (xdist splits by file), the probes
+with the bf16 flags in tests/test_torch_rollout_probes_bf16*.py.  Integer
 rows exact, float rows at tests/test_torch_rollout.py's tiers; plus each
-probe's own semantics, and the wrapper's refusals."""
+probe's own semantics, and the wrapper's refusal of an unknown probe."""
 
 import jax
 import jax.numpy as jnp
@@ -32,9 +33,11 @@ NL = TFR.N_LOGITS
 
 def probe_case(kernels):
     """Inputs from numpy seeds and the JAX kernel's outputs for each
-    kernels {name: (probe, noise)} (noise "random": the drawn external
-    noise; "constant": sim rows 0.0, uniforms 0.5), with the port's rows,
-    noises and packed policies.  The worlds: the port's plain init on
+    kernels {name: (probe, noise[, flags])} (noise "random": the drawn
+    external noise; "constant": sim rows 0.0, uniforms 0.5; flags: the
+    kernel's traj_dtype / policy_bf16, a bf16 trajectory returned upcast
+    to float32 and its dtype in "dtypes"), with the port's rows, noises
+    and packed policies.  The worlds: the port's plain init on
     numpy spawn draws and one plain tick (its obs the rollout's first)."""
     jcfg = JSimConfig()
     _, agent = jagent.init_agent(jax.random.PRNGKey(11))
@@ -60,17 +63,21 @@ def probe_case(kernels):
     noises["constant"] = np.asarray(JFR.pack_rollout_noise(
         [jnp.zeros((9, W), jnp.float32)] * T, half, half))
     mats = JFR.pack_policy(agent) + JFR.pack_policy(frozen)
-    want = {}
-    for name, (probe, noise) in kernels.items():
+    want, dtypes = {}, {}
+    for name, (probe, noise, *flags) in kernels.items():
         rk = JFR.make_fused_rollout(jcfg, W, T, trainee_idx=TI,
                                     use_frozen=True, block=128,
                                     interpret=True, external_noise=True,
-                                    obs_moments=True, probe=probe)
-        want[name] = [np.asarray(x) for x in rk(jnp.asarray(noises[noise]),
-                                                 sf, si, obs0, *mats)]
+                                    obs_moments=True, probe=probe,
+                                    **(flags[0] if flags else {}))
+        out = rk(jnp.asarray(noises[noise]), sf, si, obs0, *mats)
+        dtypes[name] = out[3].dtype
+        want[name] = [np.asarray(x.astype(jnp.float32))
+                      if x.dtype == jnp.bfloat16 else np.asarray(x)
+                      for x in out]
     ta = agent_from_numpy(jax.tree.map(np.asarray, agent), "cpu")
     tf = agent_from_numpy(jax.tree.map(np.asarray, frozen), "cpu")
-    return dict(rows=rows, want=want,
+    return dict(rows=rows, want=want, dtypes=dtypes,
                 noise={k: torch.tensor(v) for k, v in noises.items()},
                 mats=TFR.pack_policy(ta), fmats=TFR.pack_policy(tf))
 
@@ -168,13 +175,34 @@ def test_policy_only_runs_no_tick(case):
 
 @pytest.mark.parametrize("kw, match", [
     ({"probe": "no_policy"}, "probe must be None or one of"),
-    ({"probe": "sim_only", "traj_dtype": torch.bfloat16}, "still to port"),
-    ({"probe": "no_traj", "policy_bf16": True}, "still to port"),
+    ({"probe": "sim_only", "traj_dtype": torch.bfloat16}, None),
+    ({"probe": "no_traj", "policy_bf16": True}, None),
 ])
 def test_probe_refusals(case, kw, match):
-    """An unknown name raises (the JAX kernel's assert); a probe with a
-    bf16 flag raises with the reason, on the CPU and before any launch."""
+    """An unknown name raises (the JAX kernel's assert), on the CPU and
+    before any launch.  A probe with a bf16 flag runs, as the JAX kernel
+    does (tests/test_torch_rollout_probes_bf16*.py hold each against the
+    JAX kernel built with the flag): sim_only with bf16 storage returns
+    this file's JAX-checked sim_only run with its trajectory rounded
+    once, and no_traj with the bf16 policy one float32 zero block beside
+    the state, obs and moments of the full bf16-policy run."""
     probe = kw.pop("probe")
+    if match is None:
+        got = run_probe(case, probe, **kw)
+        if probe == "sim_only":
+            f32 = run_probe(case, probe)
+            assert got[3].dtype == torch.bfloat16
+            assert torch.equal(got[3].view(torch.int16),
+                               f32[3].to(torch.bfloat16).view(torch.int16))
+            assert_rollout_tiers((*got[:3], got[3].float(), got[4]),
+                                 case["want"]["sim_only"], traj=False)
+        else:
+            assert got[3].shape == (1, TFR.ROLL_ROWS, W)
+            assert got[3].dtype == torch.float32 and not torch.any(got[3])
+            full = run_probe(case, None, **kw)
+            for i in (0, 1, 2, 4):
+                assert torch.equal(got[i], full[i])
+        return
     with pytest.raises(ValueError, match=match):
         run_probe(case, probe, **kw)
     with pytest.raises(ValueError, match=match):
