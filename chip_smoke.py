@@ -153,8 +153,9 @@ kernel A at 8192 worlds over 100 ticks, 1 thread against all bit for
 bit, host env-steps/s beside the host CPU's model (`native_engine`); the
 cross-check trainer at 512 worlds, 3 iterations, the agent on the card
 (`crosscheck`); PopArt, EMA and RolloutBuffer on the card against the
-CPU within 1e-6, and `utils/profiling.trace` around one interactive
-iteration naming kernel A (`aux_modules`; item 15).  Each kernel's
+CPU within 1e-6, and a `utils/profiling.trace` session around one
+interactive iteration writing its host span and clock calibration
+(`aux_modules`; item 15).  Each kernel's
 own device time comes from torch.profiler, beside the CUDA-event time of
 back-to-back wrapper calls and of its plain version; kernel D's is also
 split into its gradient and reduce launches, and the redesigned kernels'
@@ -2197,8 +2198,8 @@ def crosscheck(dev):
 def aux_modules(dev, trainer):
     """PopArt, the EMA normalizer and RolloutBuffer on CUDA tensors
     against the same calls on the CPU, within 1e-6 (of max(1, |x|));
-    `utils/profiling.trace` around one interactive iteration must write a
-    trace that names kernel A's launch."""
+    a `utils/profiling.trace` session around one interactive iteration
+    must write its host span and a clock calibration."""
     import torch
     from madrona_basketball_tpu_torch.models import moving_avg as EMA
     from madrona_basketball_tpu_torch.models import popart as PA
@@ -2242,16 +2243,20 @@ def aux_modules(dev, trainer):
     for a, b in zip(*out):
         close(a, b)
     with tempfile.TemporaryDirectory() as tmp:
-        with profiling.trace(tmp) as path:
+        path = os.path.join(tmp, "trace.json")
+        with profiling.trace(path, dev):
             with profiling.annotate("interactive_iteration"):
                 trainer.train_iteration()
-        text = Path(path).read_text()
+        trace = json.loads(Path(path).read_text())
         size = Path(path).stat().st_size
-    if "fused_step_kernel" not in text or "interactive_iteration" not in text:
-        raise Fail("aux_modules: the trace does not name kernel A")
+    names = {e["name"] for e in trace["traceEvents"] if e["ph"] == "X"}
+    cal = trace["otherData"]["calibration"]
+    if "interactive_iteration" not in names or cal["pairs"] < 16:
+        raise Fail(f"aux_modules: the trace lacks the host span or the "
+                   f"calibration: {sorted(names)}, {cal}")
     emit({"phase": "aux_modules", "max_rel_err": max(errs),
           "compared": len(errs), "trace_bytes": size,
-          "trace_names_kernel_a": True})
+          "trace_host_span": True, "calibration": cal})
 
 
 def main():
@@ -2287,6 +2292,7 @@ def main():
         make_train_iteration, restore_train_state, save_train_state,
         state_tensors, update_block)
     from madrona_basketball_tpu_torch.utils import checkpoint as CK
+    from madrona_basketball_tpu_torch.utils import profiling
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3210,22 +3216,22 @@ def main():
         times = {k: [] for k in spans + ("collect", "iteration")}
         wall, dones = [], 0.0
         for it in range(3):
-            evs = [torch.cuda.Event(enable_timing=True)]
-
-            def mark(name, evs=evs):
-                e = torch.cuda.Event(enable_timing=True)
-                e.record()
-                evs.append(e)
-
+            # the tracer's eager stamps: start, perms, the phases in
+            # `spans`, writeback (utils/profiling.py)
+            profiling.TRACER.start(dev)
             t0 = time.perf_counter()
-            evs[0].record()
-            state, out = train_iteration(state, mark=mark)
-            torch.cuda.synchronize()
-            wall.append((time.perf_counter() - t0) * 1e3)
-            for name, a, b_ in zip(spans, evs[:-1], evs[1:]):
-                times[name].append(a.elapsed_time(b_))
-            times["collect"].append(evs[0].elapsed_time(evs[-2]))
-            times["iteration"].append(evs[0].elapsed_time(evs[-1]))
+            try:
+                state, out = train_iteration(state)
+                torch.cuda.synchronize()
+                wall.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                rec = profiling.TRACER.stop()
+            (run,) = profiling.sequences(rec["stamps"])
+            at = dict(run)
+            for name, (_, a), (_, b_) in zip(spans, run[1:], run[2:]):
+                times[name].append((b_ - a) * 1e-6)
+            times["collect"].append((at["glue"] - at["start"]) * 1e-6)
+            times["iteration"].append((at["update"] - at["start"]) * 1e-6)
             for key in ("traj", "side", "ustats"):
                 if not bool(torch.isfinite(out[key]).all()):
                     raise Fail(f"{phase}: non-finite {key}")

@@ -36,7 +36,8 @@ BUILD_DIR = Path(__file__).with_name("_build")
 KERNELS = ("fused_step", "fused_rollout", "fused_gae", "meter_scan",
            "fused_update", "fused_multistep", "fused_rollout_tiled",
            "obs_moments", "fused_rollout_bf16", "fused_rollout_probe",
-           "fused_rollout_probe_bf16", "fused_rollout_probe_pbf")
+           "fused_rollout_probe_bf16", "fused_rollout_probe_pbf",
+           "trace_stamp")
 NVCC_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-lineinfo", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -111,7 +112,13 @@ def build(names=KERNELS) -> dict:
     """Compile every missing library, one nvcc per source, all at once.
     Returns {"seconds": wall time, "built": [...], "library_seconds":
     {name: seconds from the start to its nvcc's exit}, "ptxas": {name:
-    ptxas_kernels(name)}}."""
+    ptxas_kernels(name)}}.  A host span of the tracer, "build"."""
+    from .utils.profiling import annotate
+    with annotate("build"):
+        return _build(names)
+
+
+def _build(names) -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}

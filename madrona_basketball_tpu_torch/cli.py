@@ -57,6 +57,14 @@ combinations exit with the JAX trainer's messages, and the structured
 backend ignores both, as the JAX CLI does.  `--rollout-block` (a TPU
 kernel's VMEM tile) is refused for good (`UNPORTED`).
 
+The loop body (dispatch, metric unstack, log readback, save) is
+`ppo/train.py::TrainLoop`, shared with the league.  `--trace-out PATH`
+turns the tracer on for the training run (utils/profiling.py; rank 0
+under a group) and writes one Chrome trace at its end: the loop's host
+spans and the device phases of every iteration on the device's clock,
+the clock's calibration, the graphs' kernel-node counts, the dropped
+records.
+
 `--interactive` (cli.py:248-277 of the JAX CLI) trains through
 `ppo/train_interactive.py::InteractiveTrainer` with the embedded viewer
 (viewer/app.py, pygame): per tick the policy, the controller manager's
@@ -84,13 +92,14 @@ from .ops.fused_rollout import check_tiled_worlds
 from .ppo.hparams import PPOParams
 from .parallel.distributed import init_distributed, init_single_process
 from .parallel.mesh import make_mesh, shard_train_state
-from .ppo.train import auto_chunk, make_train_chunk, unstack_metrics
+from .ppo.train import TrainLoop, auto_chunk
 from .ops.fused_step import _hoop_geometry
 from .ppo.train import init_train_state as init_structured
 from .ppo.train import make_train_iteration as make_structured
 from .ppo.train_fused import (check_paths, init_train_state,
                               make_train_iteration)
 from .utils.checkpoint import checkpoint_path, load_agent, save_agent
+from .utils.profiling import trace
 from .utils.timers import PPOTimer
 from .utils.wandb_logger import WandbLogger
 
@@ -189,6 +198,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "and replayed N times); 0 = auto (largest divisor "
                         "of the log/save cadences <= 50), 1 = one eager "
                         "iteration per dispatch")
+    p.add_argument("--trace-out", type=str, default=None,
+                   help="trace the training run (host spans, device "
+                        "phase stamps, kernel-node counts) and write a "
+                        "Chrome trace to PATH at its end")
     return p
 
 
@@ -402,7 +415,9 @@ def main(argv=None):
     if spawned:
         return None
     try:
-        return _train(args, paths)
+        main_rank = not dist.is_initialized() or dist.get_rank() == 0
+        with trace(args.trace_out if main_rank else None, args.device):
+            return _train(args, paths)
     finally:
         if owns:
             dist.destroy_process_group()
@@ -550,47 +565,36 @@ def _train(args, paths: dict):
                          tensorboard_dir=f"runs/{model_name}",
                          use_wandb=False) \
         if args.tensorboard and is_main else None
-    train_chunk = make_train_chunk(train_iteration, chunk_n) \
-        if chunk_n > 1 else None
     timer = PPOTimer(dev)
+
+    def row(iteration, w0):
+        timer.add_steps(hp.num_envs * hp.num_rollout_steps)
+        if recorder is not None:
+            recorder.maybe_arm(iteration)
+            recorder.feed({k: v.cpu().numpy() for k, v in w0.items()},
+                          iteration)
+
+    def log(m, iteration):
+        timer.end("iter")
+        if is_main:
+            print(f"\nUpdate: {iteration}", end=" ")
+            timer.print()
+            print(f"Mean reward: {m['mean_reward']:.2f}. "
+                  f"Mean episode length: {m['mean_episode_length']:.2f}")
+        if logger is not None:
+            logger.log(m, iteration)
+        timer.reset()
+        timer.start("iter")
+
+    def save(state, iteration):
+        save_agent(state.agent, checkpoint_path(model_name, iteration))
+        print(f"Model {model_name} saved at iteration {iteration}")
+
+    # whole chunks, then the exact tail one iteration per dispatch
+    loop = TrainLoop(train_iteration, chunk_n, log_every, save_every,
+                     row=row, log=log, save=save if is_main else None)
     timer.start("iter")
-    iteration = 0
-    while iteration < args.num_iterations:
-        # whole chunks, then the exact tail one iteration per dispatch
-        if train_chunk is not None and \
-                args.num_iterations - iteration >= chunk_n:
-            n = chunk_n
-            state, stacked = train_chunk(state)
-            metric_list = unstack_metrics(stacked, n)
-        else:
-            n = 1
-            state, out = train_iteration(state)
-            metric_list = [out["metrics"]]
-        timer.add_steps(hp.num_envs * hp.num_rollout_steps * n)
-        for metrics in metric_list:
-            iteration += 1
-            w0 = metrics.pop("world0", None)
-            if recorder is not None:
-                recorder.maybe_arm(iteration)
-                recorder.feed({k: v.cpu().numpy() for k, v in w0.items()},
-                              iteration)
-            if iteration % log_every == 0:
-                timer.end("iter")
-                m = {k: float(v) for k, v in metrics.items()}
-                if is_main:
-                    print(f"\nUpdate: {iteration}", end=" ")
-                    timer.print()
-                    print(f"Mean reward: {m['mean_reward']:.2f}. "
-                          f"Mean episode length: "
-                          f"{m['mean_episode_length']:.2f}")
-                if logger is not None:
-                    logger.log(m, iteration)
-                timer.reset()
-                timer.start("iter")
-            if iteration % save_every == 0 and is_main:
-                save_agent(state.agent, checkpoint_path(model_name,
-                                                        iteration))
-                print(f"Model {model_name} saved at iteration {iteration}")
+    state = loop.run(state, args.num_iterations)
     if viewer_process is not None:
         # the clean exit tears down once and drops the crash-path hook
         atexit.unregister(_teardown_viewer)

@@ -21,7 +21,10 @@ engine's the env's seed.
 
 CLI: python -m madrona_basketball_tpu_torch.infer [...] (the JAX CLI's
 flags and defaults, plus `--device`); `--viewer` evaluates per step with
-the embedded viewer (viewer/app.py) and the human override.
+the embedded viewer (viewer/app.py) and the human override;
+`--trace-out PATH` traces the evaluation (utils/profiling.py: the chunk
+loop's host spans, each chunk's device stamps) and writes one Chrome
+trace at its end.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from .ops.fused_rollout import N_LOGITS, gumbel_from_uniform
 from .ops.fused_step import fused_step
 from .ops.layout import ACTION_NAMES, ACTION_ROWS, F_IDX, I_IDX
 from .utils.checkpoint import AGENT_SUFFIXES, load_agent
+from .utils.profiling import TRACER, annotate, capture, trace
 
 F32 = torch.float32
 I32 = torch.int32
@@ -183,8 +187,13 @@ class EvalChunk:
     and writes the actions into a scratch copy of `si`.  Nothing in
     `step()` reads a value on the host.  `capture()` (on the card)
     records one `step()` as a CUDA graph, after a warm-up tick on a side
-    stream with every generator's state restored after it; `run(budget)`
-    replays it (or, uncaptured, calls `step()`)."""
+    stream with every generator's state restored after it, and counts its
+    kernel nodes (`kernel_nodes`: the tracer's stamps left out, None
+    where they cannot be counted); `run(budget)` replays it (or, uncaptured,
+    calls `step()`); `advance(budget)` is the eval loop's body, the run
+    and its `t_used` fetch.  With the tracer on, `step()` stamps "start",
+    "policies" after each tick's policy forwards, and "end"
+    (utils/profiling.py)."""
 
     def __init__(self, cfg: SimConfig, engine, policy: Policy,
                  frozen: Optional[Policy], trainee_idx: int, K: int,
@@ -208,6 +217,7 @@ class EvalChunk:
         self._zero = {t: torch.zeros((), dtype=t, device=dev)
                       for t in (F32, I32)}
         self.graph = None
+        self.kernel_nodes = None
 
     @property
     def generators(self) -> list:
@@ -223,7 +233,7 @@ class EvalChunk:
         self.si_in[lo:lo + len(ACTION_NAMES)] = actions.T.to(I32)
 
     @torch.no_grad()
-    def tick(self, k: int):
+    def tick(self, k: int, mark=None):
         go = self.budget > k
         if self.num_episodes > 0:
             go = go & (self.counts < self.num_episodes).any()
@@ -232,6 +242,8 @@ class EvalChunk:
         if self.frozen is not None:
             fi = 1 - self.ti
             self._write(fi, self.frozen(_agent_obs(self.obs, fi)))
+        if mark:
+            mark("policies")
         noise = draw_noise_rows(self.sf.shape[1], self.gen, self.sf.device)
         sf, si, obs = fused_step(self.cfg, self.sf, self.si_in, noise)
         for dst, src in ((self.sf, sf), (self.si, si), (self.obs, obs)):
@@ -245,9 +257,14 @@ class EvalChunk:
                             out=self.logs[key][k])
 
     def step(self):
+        mark = TRACER.mark if TRACER.on else None
+        if mark:
+            mark("start")
         self.t_used.zero_()
         for k in range(self.K):
-            self.tick(k)
+            self.tick(k, mark)
+        if mark:
+            mark("end")
 
     def capture(self):
         if not torch.cuda.is_available():
@@ -255,23 +272,20 @@ class EvalChunk:
         dev = self.sf.device
         gens = self.generators
         saved = [g.get_state() for g in gens]
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            # budget 0: every tick is masked, so the buffers keep their
-            # values; only the generators advance, and are restored
-            self.budget.fill_(0)
-            self.tick(0)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        for g, s in zip(gens, saved):
-            g.set_state(s)
-        graph = torch.cuda.CUDAGraph()
-        for g in gens:
-            graph.register_generator_state(g)
-        with torch.cuda.graph(graph):
-            self.step()
-        self.graph = graph
+        with annotate("capture"):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                # budget 0: every tick is masked, so the buffers keep their
+                # values; only the generators advance, and are restored
+                self.budget.fill_(0)
+                self.tick(0)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            for g, s in zip(gens, saved):
+                g.set_state(s)
+            self.graph, self.kernel_nodes = capture(self.step, gens,
+                                                    "eval_chunk")
 
     def run(self, budget: int):
         """Up to `budget` (<= K) ticks: the graph's replay once captured,
@@ -281,6 +295,15 @@ class EvalChunk:
             self.graph.replay()
         else:
             self.step()
+
+    def advance(self, budget: int, index: int = -1) -> int:
+        """The eval loop's body: `run(budget)`, then the loop's one host
+        read a chunk, the ticks used (host spans chunk_dispatch and
+        t_used_fetch, indexed by the chunk `index`)."""
+        with annotate("chunk_dispatch", index):
+            self.run(budget)
+        with annotate("t_used_fetch", index):
+            return int(self.t_used)
 
 
 def make_eval_chunk(env: BasketballEnv, policy: Policy,
@@ -388,11 +411,11 @@ def _infer_chunked(env, policy, frozen_params, logs, num_episodes,
         frozen = make_policy_fn(frozen_params, gen, True)
     chunk = make_eval_chunk(env, policy, frozen, K, num_episodes,
                             logs is not None)
-    step = 0
+    step = n = 0
     while step < max_steps:
         # the exact tail: the last chunk runs max_steps % K ticks
-        chunk.run(min(K, max_steps - step))
-        t_used = int(chunk.t_used)  # one fetch a chunk
+        t_used = chunk.advance(min(K, max_steps - step), n)
+        n += 1
         if logs is not None:
             for k, buf in chunk.logs.items():
                 logs[k].append(_host(buf[:t_used]))
@@ -461,7 +484,15 @@ def main(argv=None):
                         "press H to take over world 0's selected agent")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (kernel A) or cpu (its plain version)")
+    p.add_argument("--trace-out", type=str, default=None,
+                   help="trace the evaluation and write a Chrome trace to "
+                        "PATH at its end")
     args = p.parse_args(argv)
+    with trace(args.trace_out, args.device):
+        _main(p, args)
+
+
+def _main(p, args):
     dev = args.device
     if args.model_name is not None:
         multi_gen_infer(args.model_name, args.num_envs,

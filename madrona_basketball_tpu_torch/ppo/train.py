@@ -20,7 +20,10 @@
     systems.py, and `_world0_log`;
   * `make_train_chunk` / `unstack_metrics` / `auto_chunk`
     (train.py:466-502): n iterations a dispatch, on the card one
-    iteration captured as a CUDA graph and replayed n times.
+    iteration captured as a CUDA graph and replayed n times;
+  * `TrainLoop`: the training loop's body (dispatch, unstack, log
+    readback, save), shared by the CLI and the league, each part a host
+    span of the tracer (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from typing import Sequence
 import torch
 
 from ..models.agent import Agent, get_stats, unnorm_value
+from ..utils.profiling import annotate, capture
 
 F32 = torch.float32
 
@@ -567,8 +571,9 @@ def make_train_chunk(train_iteration, n_iters: int):
     another backend (gloo copies through the host) raises.
     The state's seed is baked into the capture (kernel B's Philox key).
     `chunk.captured` holds, once captured, "static" (the
-    StaticIteration, whose device counters the replays advance) and
-    "graph"."""
+    StaticIteration, whose device counters the replays advance), "graph",
+    and the graph's "kernel_nodes" (the tracer's stamps left out; None
+    where they cannot be counted)."""
     if n_iters < 1:
         raise ValueError(f"n_iters={n_iters} must be >= 1")
     captured = {}
@@ -620,21 +625,19 @@ def _capture(train_iteration, state) -> dict:
         raise RuntimeError("a CUDA chunk needs a CUDA card")
     from .train_fused import state_device
     dev = state_device(state)
-    static = train_iteration.static(state)
-    warm = train_iteration.static(state)
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        warm.reseed(state.seed, state.counter)
-        warm.step()
-    torch.cuda.current_stream(dev).wait_stream(side)
-    del warm
-    graph = torch.cuda.CUDAGraph()
-    for gen in static.generators:
-        graph.register_generator_state(gen)
-    with torch.cuda.graph(graph):
-        static.step()
-    return {"static": static, "graph": graph}
+    with annotate("capture"):
+        static = train_iteration.static(state)
+        warm = train_iteration.static(state)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            warm.reseed(state.seed, state.counter)
+            warm.step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        del warm
+        graph, kernels = capture(static.step, static.generators,
+                                 "train_iteration")
+    return {"static": static, "graph": graph, "kernel_nodes": kernels}
 
 
 def _stack(rows: list) -> dict:
@@ -653,6 +656,65 @@ def unstack_metrics(stacked, n: int) -> list:
         return {k: at(v, j) if isinstance(v, dict) else v[j]
                 for k, v in d.items()}
     return [at(stacked, j) for j in range(n)]
+
+
+class TrainLoop:
+    """The training loop of the CLI and the league, one dispatch at a time.
+
+    `step(state, iteration, left=None) -> (state, iteration)` dispatches a
+    chunk of `chunk_n` iterations (`make_train_chunk`, or `chunk`) when
+    `left` (the iterations still to run; None: any) holds one, else one
+    eager `train_iteration`, and unstacks its metrics.  Then, for each
+    iteration in order, it pops the metrics' "world0" rows and calls
+    `row(iteration, world0)`; at `log_every` it reads every metric back
+    with float() and calls `log(values, iteration)`; at `save_every` it
+    calls `save(state, iteration)` (state: after the whole dispatch).  A
+    hook left None is not called and its readback not made.  The
+    dispatch, unstack, readback and save are the tracer's host spans
+    chunk_dispatch, unstack_metrics, log_readback and save_agent, indexed
+    by the iteration.  `run(state, n)` steps n iterations from 0."""
+
+    def __init__(self, train_iteration, chunk_n: int, log_every: int,
+                 save_every: int, *, row=None, log=None, save=None,
+                 chunk=None):
+        self.train_iteration, self.chunk_n = train_iteration, chunk_n
+        self.log_every, self.save_every = log_every, save_every
+        self.row, self.log, self.save = row, log, save
+        if chunk is None and chunk_n > 1:
+            chunk = make_train_chunk(train_iteration, chunk_n)
+        self.chunk = chunk
+
+    def step(self, state, iteration: int, left=None):
+        whole = self.chunk is not None and (left is None or
+                                            left >= self.chunk_n)
+        with annotate("chunk_dispatch", iteration):
+            if whole:
+                state, stacked = self.chunk(state)
+            else:
+                state, out = self.train_iteration(state)
+        with annotate("unstack_metrics", iteration):
+            rows = unstack_metrics(stacked, self.chunk_n) if whole \
+                else [out["metrics"]]
+        for metrics in rows:
+            iteration += 1
+            world0 = metrics.pop("world0", None)
+            if self.row is not None:
+                self.row(iteration, world0)
+            if self.log is not None and iteration % self.log_every == 0:
+                with annotate("log_readback", iteration):
+                    values = {k: float(v) for k, v in metrics.items()}
+                self.log(values, iteration)
+            if self.save is not None and iteration % self.save_every == 0:
+                with annotate("save_agent", iteration):
+                    self.save(state, iteration)
+        return state, iteration
+
+    def run(self, state, num_iterations: int):
+        iteration = 0
+        while iteration < num_iterations:
+            state, iteration = self.step(state, iteration,
+                                         num_iterations - iteration)
+        return state
 
 
 def auto_chunk(log_every: int, save_every: int, cap: int = 50) -> int:

@@ -107,6 +107,14 @@ addresses, and `step()`, one iteration from those tensors back into
 them that reads tick_base and the Adam count from device counters and
 advances them.  `ppo/train.py::make_train_chunk` captures one `step()`
 in a CUDA graph and replays it.
+
+Phase stamps (utils/profiling.py): `mark(name)` is called after each
+phase - "perms" (when the permutations are drawn, not injected), the
+collect's (reset_pulse, rollout, gae, [obs_moments], glue), "update".
+With the tracer on, `train_iteration` without a `mark` and
+`StaticIteration.step` pass the tracer's stamp, bracketed by "start" and
+"writeback" (the iteration's end), so a captured step holds one stamp
+node per phase boundary; with it off they pass none.
 """
 
 from __future__ import annotations
@@ -137,6 +145,7 @@ from ..ops.layout import (ACTION_NAMES, ACTION_ROWS, F_IDX, I_IDX,
                           N_NOISE_ROWS, N_OBS_ROWS, RESET_ROWS)
 from ..parallel.mesh import DataMesh, all_gather, all_gather_columns, \
     all_reduce_
+from ..utils.profiling import TRACER
 from .hparams import PPOParams
 from .train import (AdamState, EpisodeStats, _stats_step, clip_adam_step,
                     init_adam, init_stats, make_update_fns, meter_scan,
@@ -994,6 +1003,7 @@ def make_train_iteration(cfg: SimConfig, hp: PPOParams, device="cuda",
         mark_ = mark or (lambda name: None)
         if perms is None:
             perms = draw_perms()
+            mark_("perms")
         if tuple(perms.shape) != perm_shape:
             raise ValueError(f"perms must be {perm_shape}")
         state, out = run_collect(state, noise, mark, tick_base)
@@ -1037,8 +1047,15 @@ def make_train_iteration(cfg: SimConfig, hp: PPOParams, device="cuda",
         the epochs' permutations; noise the whole fleet's draws
         (CollectNoise); `mark(name)` is called after each phase (the
         collect's, then "update").  Returns (state', out), `out` as the
-        collect gives it, the metrics at out["metrics"]."""
+        collect gives it, the metrics at out["metrics"].  With no `mark`
+        and the tracer on, the tracer's stamps, "start" to "writeback"."""
         reseed(state.seed, state.counter)
+        if mark is None and TRACER.on:
+            TRACER.mark("start")
+            state, out = run(state, noise, perms, TRACER.mark,
+                             state.counter * T, state.opt.count)
+            TRACER.mark("writeback")
+            return state, out
         return run(state, noise, perms, mark, state.counter * T,
                    state.opt.count)
 
@@ -1144,7 +1161,10 @@ class StaticIteration:
     @torch.no_grad()
     def step(self):
         st = self.state
-        new, out = self._run(st, None, None, None, self.counter * self._T,
+        mark = TRACER.mark if TRACER.on else None
+        if mark:
+            mark("start")
+        new, out = self._run(st, None, None, mark, self.counter * self._T,
                              self.count)
         for dst, src in zip(state_tensors(st), state_tensors(new)):
             if dst is not src:      # the weights are updated in place
@@ -1156,6 +1176,8 @@ class StaticIteration:
         self.world0 = out["metrics"].get("world0")
         self.counter.add_(1)
         self.count.add_(self._n_updates)
+        if mark:
+            mark("writeback")
 
     @torch.no_grad()
     def result(self, state: TrainState, n: int) -> TrainState:

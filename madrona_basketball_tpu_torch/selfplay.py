@@ -17,7 +17,8 @@ draw has an integer seed `league_seed(seed, generation, phase)`, with
 generation -1 for the two initial agents (phase = the agent's index).
 
 CLI: python -m madrona_basketball_tpu_torch.selfplay [...] (the JAX CLI's
-flags, plus `--device`).
+flags, plus `--device` and `--trace-out PATH`: the league traced,
+utils/profiling.py, one Chrome trace written at its end).
 """
 
 from __future__ import annotations
@@ -32,9 +33,10 @@ import torch
 from .config import SimConfig
 from .models.agent import Agent, init_agent
 from .ppo.hparams import PPOParams
-from .ppo.train import auto_chunk, make_train_chunk, unstack_metrics
+from .ppo.train import TrainLoop, auto_chunk
 from .ppo.train_fused import init_train_state, make_train_iteration
 from .utils.checkpoint import checkpoint_path, load_agent, save_agent
+from .utils.profiling import trace
 
 
 def league_seed(seed: int, generation: int, phase: int) -> int:
@@ -56,25 +58,17 @@ def train_generation(cfg: SimConfig, hp: PPOParams, seed: int,
                              agent=copy.deepcopy(trainee), frozen=frozen)
     it = make_train_iteration(cfg, hp, device)
     chunk_n = max(1, min(auto_chunk(log_every, save_every), num_iterations))
-    chunk = make_train_chunk(it, chunk_n) if chunk_n > 1 else None
-    iteration = 0
-    while iteration < num_iterations:
-        if chunk is not None and num_iterations - iteration >= chunk_n:
-            state, stacked = chunk(state)
-            metric_list = unstack_metrics(stacked, chunk_n)
-        else:
-            state, out = it(state)
-            metric_list = [out["metrics"]]
-        for metrics in metric_list:
-            iteration += 1
-            if iteration % log_every == 0:
-                print(f"  [{model_name}] iter {iteration}: "
-                      f"mean_reward={float(metrics['mean_reward']):.3f} "
-                      f"mean_len={float(metrics['mean_episode_length']):.1f}")
-            if iteration % save_every == 0:
-                save_agent(state.agent, checkpoint_path(model_name,
-                                                        iteration))
-    return state.agent
+
+    def log(m, iteration):
+        print(f"  [{model_name}] iter {iteration}: "
+              f"mean_reward={m['mean_reward']:.3f} "
+              f"mean_len={m['mean_episode_length']:.1f}")
+
+    def save(state, iteration):
+        save_agent(state.agent, checkpoint_path(model_name, iteration))
+
+    loop = TrainLoop(it, chunk_n, log_every, save_every, log=log, save=save)
+    return loop.run(state, num_iterations).agent
 
 
 def run_league(num_training_cycles: int = 5, iter_per_agent: int = 5000,
@@ -145,11 +139,16 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the kernels) or cpu (their plain versions)")
+    p.add_argument("--trace-out", type=str, default=None,
+                   help="trace the league and write a Chrome trace to "
+                        "PATH at its end")
     args = p.parse_args(argv)
-    run_league(args.num_training_cycles, args.iter_per_agent, args.num_envs,
-               args.first_trainee_idx, args.model_name_0, args.model_name_1,
-               args.seed, checkpoint_0=args.checkpoint_0,
-               checkpoint_1=args.checkpoint_1, device=args.device)
+    with trace(args.trace_out, args.device):
+        run_league(args.num_training_cycles, args.iter_per_agent,
+                   args.num_envs, args.first_trainee_idx, args.model_name_0,
+                   args.model_name_1, args.seed,
+                   checkpoint_0=args.checkpoint_0,
+                   checkpoint_1=args.checkpoint_1, device=args.device)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 the EMA normalizer (models/moving_avg.py), `RolloutBuffer`
 (ppo/buffers.py) - against the JAX package's functions on the same
 seeded numpy inputs, on the CPU, within 1e-6 (relative to max(1, |x|));
-and `utils/profiling.py`'s trace written on the CPU."""
+and a `utils/profiling.py` session's trace written on the CPU."""
 
 import json
 
@@ -105,9 +105,17 @@ def test_rollout_buffer_matches_jax():
 
 
 def test_profiling_trace_on_the_cpu(tmp_path):
-    with profiling.trace(str(tmp_path / "prof")) as path:
+    """A session on the CPU writes the region as a host span and the
+    stamps between "start" and "end" as device phases (host clock)."""
+    path = tmp_path / "trace.json"
+    with profiling.trace(str(path), "cpu") as tracer:
         with profiling.annotate("mbb_region"):
+            tracer.mark("start")
             torch.ones(64).cumsum(0)
+            tracer.mark("cumsum")
+            tracer.mark("end")
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "mbb_region" for e in events)
+    spans = {(e["tid"], e["name"]) for e in events if e["ph"] == "X"}
+    assert spans == {(0, "mbb_region"), (1, "cumsum"), (1, "end")}
+    assert not profiling.TRACER.on

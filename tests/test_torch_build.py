@@ -36,10 +36,12 @@ def test_kernel_signatures_parse_from_sources():
         [U, U, P, I, P],
         "fused_rollout_probe_pbf": [sp] + [P] * 8 + [I] * 5 +
         [U, U, P, I, P],
+        # the tracer's stamp: ring, cursor, capacity, id, stream
+        "trace_stamp": [P, P, I, I, P],
     }
     # a source's entries besides its kernel's: its bf16 instance (the
     # trajectory as bf16 bits), the resident CTAs per SM (kernel C's at a
-    # tick count)
+    # tick count), the tracer's clock calibration
     occupancy = {"fused_rollout": {"mbb_fused_rollout_occupancy": [P]},
                  "fused_rollout_bf16": {
                      "mbb_fused_rollout_bf16_occupancy": [P]},
@@ -47,7 +49,8 @@ def test_kernel_signatures_parse_from_sources():
                                [F, F, P],
                                "mbb_fused_gae_occupancy": [I, P]},
                  "obs_moments": {"mbb_obs_moments_bf16": [P] * 3 + [I] * 5 +
-                                 [P]}}
+                                 [P]},
+                 "trace_stamp": {"mbb_trace_stamp_calibrate": [P, P, I, P]}}
     # one source, six entries: kernels D, G and H, D's and G's bf16
     # instances, and the occupancy
     update = {
