@@ -11,7 +11,8 @@ update kernels D, G and H (fused_update), the K-tick kernel F
 bf16 instances (fused_rollout_bf16; C, D, E and G keep their bf16
 instances in their own sources), kernel B's timing probes
 (fused_rollout_probe) and its probe x bf16 instances
-(fused_rollout_probe_bf16, fused_rollout_probe_pbf) - holds each
+(fused_rollout_probe_bf16, fused_rollout_probe_pbf) and the eval
+policies' kernel J (eval_policy) - holds each
 against its plain torch version on the card at the flagship shapes
 (plus the shot's going-in test on worlds at its threshold, and the tiled
 collect), then drives the port's training paths: `init_train_state` and
@@ -47,7 +48,10 @@ the CPU at 256 worlds, the env's reset and step (one with a frozen
 policy), and the stepping bench (`python -m
 madrona_basketball_tpu_torch.bench 8192`) as a subprocess, whose JSON
 line is re-emitted; each path's kernel launches are counted from 0
-around that path alone.  The eval path (infer.py) follows: the per-step
+around that path alone.  The eval path (infer.py) follows: kernel J
+against its plain version, its times beside its bound and `act`'s, and
+10 seeds of a 96-tick eval against `act`'s ticks (`eval_policy`, see
+`eval_policy_phase()`); the per-step
 loop and the eval chunk (32 ticks captured as a CUDA graph, the stop
 tested on the device) at 256 worlds of `SimConfig(time_per_period=1.0)`
 must agree bit for bit - counts, every npz array, the final rows - with
@@ -59,18 +63,18 @@ injected noise and Gumbel draws on the card against the plain path on the
 CPU, at the CLI's 10 worlds and at 256 (`eval_card_vs_cpu`); ms a tick
 and eval env-steps/s of both loops through `infer` at the CLI's defaults
 (10 worlds, 5 episodes, log on) and at 8192 worlds x 320 ticks (no stop,
-no log), kernel A's launches counted from 0 around each run, a 32-tick
-window of each (median of 3, the chunked-over-per-step ratio taken from
-these medians), one window profiled, and peak memory (`eval_path`).  The eval CLI runs as a subprocess on the `cli`
+no log), kernel A's and kernel J's launches counted from 0 around each
+run, a 32-tick window of each (median of 3, the chunked-over-per-step
+ratio taken from these medians), one window profiled, and peak memory (`eval_path`).  The eval CLI runs as a subprocess on the `cli`
 phase's checkpoint and with `--model-name` (`infer_cli`: the npz keys,
 shapes and dtypes against NPZ_SCHEMA).  The league's CLI
 (`selfplay.main`, 1 cycle x 100 iterations a generation at 8192 worlds)
 runs in a temp directory in this process, its launches counted from 0,
 its printed lines time-stamped (seconds a generation), its checkpoints
 and reward lines checked, then `multi_gen_infer` over one generation
-against the other's last checkpoint (`selfplay`).  A train state saved
-after 2 flagship iterations and restored continues bit for bit
-(`resume`).  The data-parallel trainer follows, on an in-process NCCL
+against the other's last checkpoint, kernel J launched 34 times a
+checkpoint (`selfplay`).  A train state saved after 2 flagship
+iterations and restored continues bit for bit (`resume`).  The data-parallel trainer follows, on an in-process NCCL
 group of one rank (its collectives run for real): kernels B and I at
 world_base 4096 on 4096 worlds equal the right half of the whole-fleet
 launch bit for bit (`parity_rollout_world_base`, earlier, beside parity
@@ -1849,10 +1853,13 @@ def interactive_path(cfg, hp, dev, reset_counts, counts, profiled):
     viewer must tick once a call after the first reset.  One profiled
     iteration gives the device's busy time (idle share against the
     un-profiled median); one more runs with the frozen opponent
-    (use_frozen: 33 launches, finite metrics).  No pygame is imported.
+    (use_frozen: 33 launches of kernel A and 33 of kernel J, finite
+    metrics; none of J in the 3 counted iterations).  No pygame is
+    imported.
     Returns the trainer and the phase's numbers."""
     import torch
     from madrona_basketball_tpu_torch.models.agent import init_agent
+    from madrona_basketball_tpu_torch.ops import eval_policy as EP
     from madrona_basketball_tpu_torch.ops.layout import ACTION_ROWS
     from madrona_basketball_tpu_torch.ppo.train_interactive import (
         InteractiveTrainer)
@@ -1900,6 +1907,7 @@ def interactive_path(cfg, hp, dev, reset_counts, counts, profiled):
     launched.clear()
     bufs.clear()
     reset_counts()
+    EP.launches = 0
     wall = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1908,10 +1916,11 @@ def interactive_path(cfg, hp, dev, reset_counts, counts, profiled):
     launches = counts()
     spans = {k: v / 3 * 1e3 for k, v in trainer.timer.t.items()}
     peak = torch.cuda.max_memory_allocated(dev)
-    if launches["fused_step"] != 3 * (T + 1) or any(
+    if launches["fused_step"] != 3 * (T + 1) or EP.launches or any(
             n for k, n in launches.items() if k != "fused_step"):
-        raise Fail(f"interactive_path: launches {launches}, want kernel A "
-                   f"{3 * (T + 1)} and no other")
+        raise Fail(f"interactive_path: launches {launches}, kernel J "
+                   f"{EP.launches}, want kernel A {3 * (T + 1)} and no "
+                   f"other (the trainee's policy is `forward`)")
     if not all(bool(torch.isfinite(v).all()) for v in m.values()):
         raise Fail(f"interactive_path: non-finite metrics {m}")
     # the human override: the second iteration's launches 1..T are its
@@ -1957,13 +1966,17 @@ def interactive_path(cfg, hp, dev, reset_counts, counts, profiled):
     frozen = init_agent(torch.Generator().manual_seed(9), dev)
     tr_f = InteractiveTrainer(cfg, hp_f, frozen=frozen, seed=2, device=dev)
     reset_counts()
+    EP.launches = 0
     t0 = time.perf_counter()
     m_f = tr_f.train_iteration()
     f_ms = (time.perf_counter() - t0) * 1e3
-    f_launch = counts()["fused_step"]
-    if f_launch != T + 1 or not all(bool(torch.isfinite(v).all())
-                                    for v in m_f.values()):
-        raise Fail(f"interactive_path frozen: {f_launch} launches, {m_f}")
+    f_launch, f_j = counts()["fused_step"], EP.launches
+    # the frozen opponent is kernel J: one launch at the reset pulse and
+    # one a tick, as kernel A
+    if f_launch != T + 1 or f_j != T + 1 or not all(
+            bool(torch.isfinite(v).all()) for v in m_f.values()):
+        raise Fail(f"interactive_path frozen: {f_launch} launches of A, "
+                   f"{f_j} of J, {m_f}")
     if "pygame" in sys.modules:
         raise Fail("interactive_path: pygame was imported")
     line = {"phase": "interactive_path", "worlds": W, "ticks": T,
@@ -1983,6 +1996,7 @@ def interactive_path(cfg, hp, dev, reset_counts, counts, profiled):
             "top_device_ms": top, "peak_memory_bytes": peak,
             "peak_over_start_bytes": peak - start_bytes,
             "frozen_iteration_ms": f_ms, "frozen_launches": f_launch,
+            "frozen_j_launches": f_j,
             "metrics": {k: float(v) for k, v in m.items()},
             "pygame_imported": False}
     emit(line)
@@ -2078,6 +2092,182 @@ def interactive_card_vs_cpu(cfg, dev):
           "tier": "ints exact but <= 0.1 % of world-ticks, floats 1e-5 of "
                   "max(1, |x|); params 4 x 1e-4 / 16, or 4 x 2 lr on < 1 % "
                   "of entries"})
+
+
+def eval_policy_phase(dev) -> dict:
+    """Kernel J (ops/eval_policy.py): both eval policies' forward and
+    Gumbel-max sampling in one launch.  Against its plain version on the
+    card at 10, 300 and 8192 worlds (both agents, on uniforms, on Gumbel
+    values and the argmax): actions equal wherever a bucket's two best
+    perturbed logits lie more than 1e-4 apart.  At 8192 worlds x 2
+    agents: J's profiled device ms a launch beside its byte bound, the
+    wrapper's ms, the plain version's ms and `act`'s torch ms for the same
+    two agents (with the old tick's action writes).  Then 10 seeds of a
+    96-tick eval (three captured 32-tick chunks, the frozen opponent on)
+    against the same ticks with `act`'s torch policies and kernel A from
+    the same state and generators: the share of worlds whose int rows or
+    episode counts differ, or whose float rows differ by more than 1e-3
+    of their row's scale (the benchmark's `worlds_off_pct`); the chunk's
+    kernel nodes and J launches, and its CUDA-event ms a tick.  Emits
+    the phase line; returns J's kernel-table row."""
+    import torch
+
+    from madrona_basketball_tpu_torch import _build
+    from madrona_basketball_tpu_torch import infer as IF
+    from madrona_basketball_tpu_torch.config import SimConfig
+    from madrona_basketball_tpu_torch.engine_fused import draw_noise_rows
+    from madrona_basketball_tpu_torch.env import BasketballEnv
+    from madrona_basketball_tpu_torch.models.agent import act, init_agent
+    from madrona_basketball_tpu_torch.ops import eval_policy as EP
+    from madrona_basketball_tpu_torch.ops.fused_rollout import (
+        N_LOGITS, OBS, gumbel_from_uniform)
+    from madrona_basketball_tpu_torch.ops.fused_step import fused_step
+    from madrona_basketball_tpu_torch.ops.layout import ACTION_ROWS, F_IDX
+
+    t0 = time.perf_counter()
+    NA = len(ACTION_ROWS[0])
+    cpu = torch.Generator().manual_seed(61)
+
+    def agent(seed):
+        """Weights from the seed, a fitted-looking obs normalizer and the
+        actor head at the backbone's scale (a trained checkpoint's)."""
+        ap = init_agent(torch.Generator().manual_seed(seed), dev)
+        with torch.no_grad():
+            ap.obs_rms.mean.copy_(torch.randn(OBS, generator=cpu))
+            ap.obs_rms.var.copy_(torch.rand(OBS, generator=cpu) * 4 + 0.05)
+            w = ap.net.actor.weight
+            w.copy_(torch.randn(tuple(w.shape), generator=cpu) *
+                    (2.0 / 3.0 / w.shape[1]) ** 0.5)
+        return ap
+
+    agents = [agent(62), agent(63)]
+
+    def clear(noisy, margin=1e-4):
+        out, off = [], 0
+        for n in (2, 8, 3, 2, 2, 2):
+            top = noisy[:, off:off + n].topk(2, dim=-1).values
+            out.append(top[:, 0] - top[:, 1] > margin)
+            off += n
+        return torch.stack(out, dim=1)
+
+    def jobs_at(W, kind):
+        rows = torch.randn((2 * OBS, W), generator=cpu).to(dev) * 2
+        si = torch.zeros((2 * NA, W), dtype=torch.int32, device=dev)
+        out = []
+        for a in range(2):
+            u = torch.rand((W, N_LOGITS), generator=cpu).to(dev)
+            noise = {"uniforms": u, "seam": gumbel_from_uniform(u),
+                     "argmax": None}[kind]
+            out.append(EP.PolicyJob(agents[a], rows[a * OBS:(a + 1) * OBS].T,
+                                    noise, kind == "seam",
+                                    si[a * NA:(a + 1) * NA].T))
+        return out
+
+    parity = []
+    for W_ in (10, 300, W):
+        for kind in ("uniforms", "seam", "argmax"):
+            jobs = jobs_at(W_, kind)
+            EP.eval_policy(jobs)
+            for a, j in enumerate(jobs):
+                logits = EP.policy_logits_plain(j.agent, j.obs)
+                noisy = logits if j.noise is None else logits + (
+                    j.noise if j.gumbel else gumbel_from_uniform(j.noise))
+                want = EP.policy_plain(j.agent, j.obs, j.noise, j.gumbel)
+                ok = clear(noisy)
+                bad = int((j.act[ok] != want[ok]).sum())
+                if bad:
+                    raise Fail(f"eval_policy {W_} worlds {kind} agent {a}: "
+                               f"{bad} clear actions differ from the plain "
+                               "version's")
+                parity.append({"worlds": W_, "noise": kind, "agent": a,
+                               "clear_share": float(ok.float().mean()),
+                               "near_tie_differ": int(
+                                   (j.act[~ok] != want[~ok]).sum())})
+    torch.cuda.synchronize()
+
+    # times at 8192 worlds x 2 agents
+    jobs = jobs_at(W, "uniforms")
+    si_old = torch.zeros((2 * NA, W), dtype=torch.int32, device=dev)
+
+    def torch_policies():
+        for a, j in enumerate(jobs):
+            si_old[a * NA:(a + 1) * NA] = act(
+                j.agent, j.obs, gumbel_from_uniform(j.noise)).T.to(
+                    torch.int32)
+
+    j_ms = kernel_ms(lambda: EP.eval_policy(jobs), 50,
+                     {"eval_policy_kernel": 1})
+    wrapper_ms = cuda_ms(lambda: EP.eval_policy(jobs), 50)
+    plain_ms = cuda_ms(lambda: [EP.policy_plain(j.agent, j.obs, j.noise)
+                                for j in jobs], 3)
+    act_ms = cuda_ms(torch_policies, 20)
+    nbytes = 2 * W * (OBS + N_LOGITS + NA) * 4
+    nops = 2 * W * 2 * (32 * OBS + 32 * 32 + N_LOGITS * 32)
+    bms, by = bound(nbytes, nops)
+
+    # worlds_off_pct of 96 ticks, J's captured chunk against act's ticks
+    cfg = SimConfig()
+    off_pct, nodes, pol_launches, tick_ms = [], None, None, None
+    done_row = F_IDX["a1.done"]
+    for s in range(10):
+        env = BasketballEnv(W, cfg, seed=7000 + s, trainee_agent_idx=1,
+                            device=dev)
+        env.reset()
+        pols = [IF.make_policy_fn(agents[a], IF.generator(100 * s + a, dev))
+                for a in range(2)]
+        chunk = IF.make_eval_chunk(env, pols[0], pols[1], 32, 0, False)
+        gens = [pols[0].gen, pols[1].gen, env.engine.gen]
+        start = [t.clone() for t in (chunk.sf, chunk.si, chunk.obs)]
+        states = [g.get_state() for g in gens]
+        for _ in range(3):
+            chunk.run(32)
+        got = (chunk.sf, chunk.si, chunk.obs, chunk.counts)
+        g_ = []
+        for g, st in zip(gens, states):
+            g2 = torch.Generator(device=dev)
+            g2.set_state(st)
+            g_.append(g2)
+        sf, si, obs = start
+        counts = torch.zeros_like(chunk.counts)
+        with torch.no_grad():
+            for _ in range(96):
+                si_in = si.clone()
+                for a, ap, g in ((1, agents[0], g_[0]), (0, agents[1], g_[1])):
+                    u = torch.rand((W, N_LOGITS), generator=g, device=dev)
+                    lo = ACTION_ROWS[a][0]
+                    si_in[lo:lo + NA] = act(ap, obs[a * OBS:(a + 1) * OBS].T,
+                                            gumbel_from_uniform(u)).T
+                sf, si, obs = fused_step(cfg, sf, si_in,
+                                         draw_noise_rows(W, g_[2], dev))
+                counts = counts + sf[done_row].to(torch.int32)
+        off = (got[1] != si).any(dim=0) | (got[3] != counts)
+        for p_, r_ in ((got[0], sf), (got[2], obs)):
+            scale = r_.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+            off |= ((p_ - r_).abs() / scale).amax(dim=0) > 1e-3
+        off_pct.append(100.0 * float(off.sum()) / W)
+        if s == 0:
+            nodes, pol_launches = chunk.kernel_nodes, chunk.policy_launches
+            tick_ms = cuda_ms(lambda: chunk.run(32), 20, windows=3) / 32
+    if pol_launches != 32 or nodes is None or nodes / 32 > 20:
+        raise Fail(f"eval_policy: the captured chunk holds {pol_launches} "
+                   f"launches of J and {nodes} kernel nodes")
+    row = {"name": "eval_policy", "route": "cuda",
+           "source": "madrona_basketball_tpu_torch/csrc/eval_policy.cu",
+           "replaces": None, "ms": j_ms, "wrapper_ms": wrapper_ms,
+           "plain_ms": plain_ms, "library_ms": act_ms, "bound_ms": bms,
+           "bound_by": by, "bytes": nbytes, "ops": nops,
+           "bound_share": bms / j_ms, "agents": 2, "worlds": W,
+           "ptxas": _build.ptxas_kernels("eval_policy")}
+    emit({"phase": "eval_policy", "seconds": time.perf_counter() - t0,
+          "parity": parity, **row,
+          "library_ms_is": "act's torch policies for both agents with the "
+                           "old tick's action writes",
+          "worlds_off_pct_96_ticks": off_pct,
+          "worlds_off_pct_max": max(off_pct),
+          "chunk_kernel_nodes": nodes, "chunk_policy_launches": pol_launches,
+          "kernel_nodes_per_tick": nodes / 32,
+          "chunk_ms_per_tick": tick_ms})
+    return row
 
 
 def cpu_model() -> str:
@@ -3736,8 +3926,10 @@ def main():
     emit(attr)
 
     # ---------------------------------------------------------- eval
-    # the eval path (infer.py): kernel A a tick with the policy in torch,
-    # per step or as the eval chunk (K ticks captured as a CUDA graph)
+    # the eval path (infer.py): kernel A a tick with the policies in
+    # kernel J, per step or as the eval chunk (K ticks captured as a CUDA
+    # graph)
+    eval_policy_row = eval_policy_phase(dev)
     import contextlib
     import io
 
@@ -3745,6 +3937,7 @@ def main():
 
     from madrona_basketball_tpu_torch import infer as IF
     from madrona_basketball_tpu_torch import selfplay as SP
+    from madrona_basketball_tpu_torch.ops import eval_policy as EP
     ev_tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
     cfg_e = SimConfig(time_per_period=1.0)
     ev_agents = [init_agent(torch.Generator().manual_seed(s), dev)
@@ -3877,9 +4070,9 @@ def main():
 
     # eval_path: ms a tick and eval env-steps/s, per step against the
     # chunk, at the CLI's defaults (10 worlds, log on) and at 8192 worlds
-    # x 320 ticks without stopping or logging; kernel A's launches
-    # counted from 0 around each run
-    eval_launches = {}
+    # x 320 ticks without stopping or logging; kernel A's and kernel J's
+    # launches counted from 0 around each run
+    eval_launches, eval_j_launches = {}, {}
 
     def per_step_ticks(env_, pol, n, log):
         """n ticks of infer's per-step loop body (policy, env step, log
@@ -3900,11 +4093,11 @@ def main():
         row = {"case": label, "worlds": worlds, "num_episodes": n_ep,
                "max_steps": max_steps, "log": log}
         for mode, k in (("per_step", 1), ("chunked", 32)):
-            FS.launches = 0
+            FS.launches = EP.launches = 0
             c_, logs_, eng_, secs_, peak_ = eval_run(
                 f"{label}_{mode}", k, True, n_ep, worlds, cfg_, max_steps,
                 log=log, frozen_on=False)
-            n_a = FS.launches
+            n_a, n_j = FS.launches, EP.launches
             ticks_ = logs_["done"].shape[0] if log else max_steps
             if log:
                 check_npz(os.path.join(ev_tmp, f"{label}_{mode}.npz"),
@@ -3913,7 +4106,14 @@ def main():
             if n_a != want_a:
                 raise Fail(f"eval_path {label} {mode}: kernel A launched "
                            f"{n_a} times, want {want_a}")
+            # the trainee alone: J per step one a tick, chunked one in the
+            # capture's warm-up tick and one for each captured tick
+            want_j = ticks_ if k == 1 else 1 + k
+            if n_j != want_j:
+                raise Fail(f"eval_path {label} {mode}: kernel J launched "
+                           f"{n_j} times, want {want_j}")
             eval_launches[f"{label}_{mode}"] = n_a
+            eval_j_launches[f"{label}_{mode}"] = n_j
             # one profiled window of 32 ticks from a fresh env
             env_ = BasketballEnv(worlds, cfg_, seed=34, trainee_agent_idx=1,
                                  device=dev)
@@ -3946,6 +4146,7 @@ def main():
                 "ticks": ticks_, "seconds": secs_, "ms_per_tick": ms_tick,
                 "eval_env_steps_per_s": worlds * ticks_ / secs_,
                 "episodes": int(c_.sum()), "kernel_a_launches": n_a,
+                "kernel_j_launches": n_j,
                 "peak_memory_bytes": peak_,
                 "window_32_ticks_ms": w_ms, "window_ms_per_tick": w_tick,
                 "window_device_busy_ms": busy_,
@@ -3964,7 +4165,10 @@ def main():
     emit({"phase": "eval_path", "cases": ev_cases,
           "launch_note": "kernel A: per step one a tick plus the reset; "
                          "chunked one for the reset, one in the capture's "
-                         "warm-up tick and 32 at capture, none at replay",
+                         "warm-up tick and 32 at capture, none at replay; "
+                         "kernel J (the trainee alone, no frozen "
+                         "opponent): per step one a tick, chunked one in "
+                         "the warm-up tick and 32 at capture",
           "ms_per_tick_note": "host clock around infer (env set-up "
                               "excluded, the npz write included) over its "
                               "ticks; the windows are 32 ticks of a fresh "
@@ -4027,7 +4231,7 @@ def main():
             raise Fail(f"selfplay: generations {sorted(gens)}")
         # multi-generation eval over one generation, against the other
         # generation's last checkpoint (one episode a world)
-        FS.launches = 0
+        FS.launches = EP.launches = 0
         t0 = time.perf_counter()
         quiet(IF.multi_gen_infer, "model_1_gen_0", num_envs=10,
               frozen_checkpoint="checkpoints/model_0_gen_0/"
@@ -4041,7 +4245,14 @@ def main():
             raise Fail(f"multi_gen_infer wrote {mgi}")
         mgi_ticks = [check_npz(os.path.join("logs/mgi/model_1_gen_0_", f),
                                10) for f in mgi]
-        mgi_launches = FS.launches
+        mgi_launches, mgi_j = FS.launches, EP.launches
+        # each checkpoint: the env's reset runs the frozen opponent (one
+        # launch of J), then the chunk one in its capture's warm-up tick
+        # and 32 at capture, none at replay
+        if mgi_j != len(mgi) * (1 + 1 + 32):
+            raise Fail(f"multi_gen_infer: kernel J launched {mgi_j} times "
+                       f"over {len(mgi)} checkpoints, want "
+                       f"{len(mgi) * (1 + 1 + 32)}")
     finally:
         os.chdir(cwd)
         shutil.rmtree(sp_dir, ignore_errors=True)
@@ -4055,7 +4266,8 @@ def main():
           "multi_gen_infer": {"checkpoints": len(mgi), "worlds": 10,
                               "num_episodes": 1, "frozen": True,
                               "ticks": mgi_ticks, "seconds": mgi_secs,
-                              "kernel_a_launches": mgi_launches}})
+                              "kernel_a_launches": mgi_launches,
+                              "kernel_j_launches": mgi_j}})
 
     # ---------------------------------------------------------- resume
     # a train state saved after 2 iterations and restored continues bit
@@ -4852,6 +5064,16 @@ def main():
     # kernel A's launches on the eval path (eval_path, counted from 0
     # around each run)
     rows[0]["eval_launches"] = eval_launches
+    # kernel J's on the same runs; its row's `launches` is the fleet's
+    # chunked eval (eval_path: one infer call at 8192 worlds)
+    eval_policy_row.update(
+        launches=eval_j_launches["fleet_8192_chunked"],
+        launches_path="eval_path fleet_8192 chunked (one infer call of "
+                      "320 ticks: the capture's warm-up tick and 32 "
+                      "captured ticks, none at replay)",
+        eval_launches=eval_j_launches,
+        interactive_frozen_iteration_launches=inter["frozen_j_launches"],
+        multi_gen_infer_launches=mgi_j)
     # and on the interactive path (interactive_path, counted from 0
     # around 3 iterations; the scripted pause and the frozen opponent's
     # iteration apart)
@@ -5030,6 +5252,7 @@ def main():
           "fused_rollout_probe_bf16_* rows its probe x bf16 instances, "
           "their launches, ms and wrapper_ms those of rollout_probes' "
           "attribution, plain_ms its parity runs'"})
+    rows.append(eval_policy_row)
     emit({"kernels": rows})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

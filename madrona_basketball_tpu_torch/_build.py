@@ -37,7 +37,7 @@ KERNELS = ("fused_step", "fused_rollout", "fused_gae", "meter_scan",
            "fused_update", "fused_multistep", "fused_rollout_tiled",
            "obs_moments", "fused_rollout_bf16", "fused_rollout_probe",
            "fused_rollout_probe_bf16", "fused_rollout_probe_pbf",
-           "trace_stamp")
+           "trace_stamp", "eval_policy")
 NVCC_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-lineinfo", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
 

@@ -8,12 +8,14 @@ package's viewer plays unchanged; `multi_gen_infer` evaluates every
 checkpoint of a model on a fixed seed (scripts/infer.py:154-186).
 
 Two loops, equal bit for bit:
-  * per step (`chunk_size=1`): policy, env step (kernel A on the card),
-    the log row fetched to the host, every tick;
+  * per step (`chunk_size=1`): policy (kernel J on the card, one launch
+    an agent), env step (kernel A on the card), the log row fetched to
+    the host, every tick;
   * the eval chunk (`chunk_size=K > 1`; 0 = 32, the default): K ticks on
     static buffers (`EvalChunk`), on the card captured once as a CUDA
     graph and replayed, with the stop tested on the device before every
-    tick, and the host fetching counts and logs once a chunk.
+    tick, both policies one launch of kernel J a tick, and the host
+    fetching counts and logs once a chunk.
 Both draw, each tick, the trainee's Gumbel noise, the frozen policy's,
 then the env noise, each from its own generator: the trainee's seeded
 `seed`, the frozen policy's `seed + 1` (as `main` builds it), the
@@ -43,6 +45,7 @@ from .controllers import SimpleControllerManager
 from .engine_fused import draw_noise_rows
 from .env import BasketballEnv
 from .models.agent import Agent, act
+from .ops import eval_policy as EP
 from .ops.fused_rollout import N_LOGITS, gumbel_from_uniform
 from .ops.fused_step import fused_step
 from .ops.layout import ACTION_NAMES, ACTION_ROWS, F_IDX, I_IDX
@@ -64,25 +67,55 @@ class Policy:
     sample, or the per-bucket argmax when not stochastic.  The Gumbel
     noise is one (B, 19) uniform draw a call from `gen`
     (`gumbel_from_uniform`), or, with the `gumbel` seam, the next of its
-    (B, 19) draws (an iterator, or a callable returning one)."""
+    (B, 19) Gumbel draws (an iterator, or a callable returning one).
+    On CUDA tensors kernel J (ops/eval_policy.py) runs the forward and
+    the sampling; on CPU tensors `models.agent.act`.  Kernel J takes only
+    the 128 -> 2 x 32 -> 19 agent, so an agent off the CPU must be that
+    one: any other (a checkpoint of another depth or obs width) is
+    refused here, and evaluates on the CPU."""
 
     def __init__(self, agent: Agent, gen: Optional[torch.Generator],
                  stochastic: bool = True, gumbel=None):
+        if agent.obs_rms.mean.device.type != "cpu":
+            EP.check_agent(agent)
         self.agent, self.gen = agent, gen
         self.stochastic, self.gumbel = stochastic, gumbel
 
-    @torch.no_grad()
-    def __call__(self, obs: torch.Tensor) -> torch.Tensor:
-        g = None
+    def job(self, obs: torch.Tensor, out) -> EP.PolicyJob:
+        """This call's draw with `obs` and the (B, 6) int32 actions `out`
+        it is to write: kernel J's share of one agent."""
+        noise = None
         if self.stochastic:
             if self.gumbel is not None:
-                g = torch.as_tensor(_draw(self.gumbel), dtype=F32,
-                                    device=obs.device)
+                noise = torch.as_tensor(_draw(self.gumbel), dtype=F32,
+                                        device=obs.device)
             else:
-                g = gumbel_from_uniform(torch.rand(
-                    (obs.shape[0], N_LOGITS), generator=self.gen,
-                    dtype=F32, device=obs.device))
-        return act(self.agent, obs, g)
+                noise = torch.rand((obs.shape[0], N_LOGITS),
+                                   generator=self.gen, dtype=F32,
+                                   device=obs.device)
+        return EP.PolicyJob(self.agent, obs, noise, self.gumbel is not None,
+                            out)
+
+    @torch.no_grad()
+    def __call__(self, obs: torch.Tensor) -> torch.Tensor:
+        out = torch.empty((obs.shape[0], len(ACTION_NAMES)), dtype=I32,
+                          device=obs.device)
+        run_policies([self.job(obs, out)])
+        return out
+
+
+def run_policies(jobs) -> None:
+    """Each `EP.PolicyJob`'s actions written into its `act`: on CPU
+    tensors `act` on the noise's Gumbel values, a job at a time; on any
+    other device kernel J, one launch for the jobs (ops/eval_policy.py,
+    which refuses a device other than CUDA)."""
+    if jobs[0].obs.device.type != "cpu":
+        EP.eval_policy(jobs)
+        return
+    for j in jobs:
+        g = j.noise if j.gumbel or j.noise is None else \
+            gumbel_from_uniform(j.noise)
+        j.act.copy_(act(j.agent, j.obs, g))
 
 
 def make_policy_fn(ap: Agent, gen: Optional[torch.Generator],
@@ -184,15 +217,17 @@ class EvalChunk:
     zero), and `t_used` counts the go ticks: no tick after the stop
     reaches the state or the log.  Each tick draws the trainee's Gumbel
     noise, the frozen policy's, then the env noise from `engine.gen`,
-    and writes the actions into a scratch copy of `si`.  Nothing in
-    `step()` reads a value on the host.  `capture()` (on the card)
-    records one `step()` as a CUDA graph, after a warm-up tick on a side
-    stream with every generator's state restored after it, and counts its
-    kernel nodes (`kernel_nodes`: the tracer's stamps left out, None
-    where they cannot be counted); `run(budget)` replays it (or, uncaptured,
-    calls `step()`); `advance(budget)` is the eval loop's body, the run
-    and its `t_used` fetch.  With the tracer on, `step()` stamps "start",
-    "policies" after each tick's policy forwards, and "end"
+    and writes the actions into a scratch copy of `si`: on the card both
+    policies' forward and sampling are one launch of kernel J, writing
+    into its action rows.  Nothing in `step()` reads a value on the host.
+    `capture()` (on the card) records one `step()` as a CUDA graph, after
+    a warm-up tick on a side stream with every generator's state restored
+    after it, and counts its kernel nodes (`kernel_nodes`: the tracer's
+    stamps left out, None where they cannot be counted) and kernel J's
+    launches in it (`policy_launches`, K); `run(budget)` replays it (or,
+    uncaptured, calls `step()`); `advance(budget)` is the eval loop's
+    body, the run and its `t_used` fetch.  With the tracer on, `step()`
+    stamps "start", "policies" after each tick's policy work, and "end"
     (utils/profiling.py)."""
 
     def __init__(self, cfg: SimConfig, engine, policy: Policy,
@@ -217,7 +252,7 @@ class EvalChunk:
         self._zero = {t: torch.zeros((), dtype=t, device=dev)
                       for t in (F32, I32)}
         self.graph = None
-        self.kernel_nodes = None
+        self.kernel_nodes = self.policy_launches = None
 
     @property
     def generators(self) -> list:
@@ -228,9 +263,10 @@ class EvalChunk:
                              "injected Gumbel draws need chunk_size=1")
         return [p.gen for p in pols] + [self.gen]
 
-    def _write(self, agent: int, actions: torch.Tensor):
+    def _actions(self, agent: int) -> torch.Tensor:
+        """The agent's (W, 6) action rows of `si_in`, a view."""
         lo = _ACTION_LO[agent]
-        self.si_in[lo:lo + len(ACTION_NAMES)] = actions.T.to(I32)
+        return self.si_in[lo:lo + len(ACTION_NAMES)].T
 
     @torch.no_grad()
     def tick(self, k: int, mark=None):
@@ -238,10 +274,11 @@ class EvalChunk:
         if self.num_episodes > 0:
             go = go & (self.counts < self.num_episodes).any()
         self.si_in.copy_(self.si)
-        self._write(self.ti, self.policy(_agent_obs(self.obs, self.ti)))
+        pols = [(self.ti, self.policy)]
         if self.frozen is not None:
-            fi = 1 - self.ti
-            self._write(fi, self.frozen(_agent_obs(self.obs, fi)))
+            pols.append((1 - self.ti, self.frozen))
+        run_policies([p.job(_agent_obs(self.obs, a), self._actions(a))
+                      for a, p in pols])
         if mark:
             mark("policies")
         noise = draw_noise_rows(self.sf.shape[1], self.gen, self.sf.device)
@@ -284,8 +321,10 @@ class EvalChunk:
             torch.cuda.synchronize(dev)
             for g, s in zip(gens, saved):
                 g.set_state(s)
+            launched = EP.launches
             self.graph, self.kernel_nodes = capture(self.step, gens,
                                                     "eval_chunk")
+            self.policy_launches = EP.launches - launched
 
     def run(self, budget: int):
         """Up to `budget` (<= K) ticks: the graph's replay once captured,

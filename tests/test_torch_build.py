@@ -38,6 +38,9 @@ def test_kernel_signatures_parse_from_sources():
         [U, U, P, I, P],
         # the tracer's stamp: ring, cursor, capacity, id, stream
         "trace_stamp": [P, P, I, I, P],
+        # kernel J: pointers, noise kinds, agents, worlds, obs and action
+        # strides, stream
+        "eval_policy": [P, P] + [I] * 6 + [P],
     }
     # a source's entries besides its kernel's: its bf16 instance (the
     # trajectory as bf16 bits), the resident CTAs per SM (kernel C's at a
