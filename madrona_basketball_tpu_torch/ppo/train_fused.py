@@ -140,6 +140,7 @@ from ..models.normalize import (RMSState, _rms_merge, rms_update_padded,
 from ..ops import fused_gae as FG
 from ..ops import fused_rollout as FR
 from ..ops import fused_update as FU
+from ..ops import rule_phases
 from ..ops.fused_step import fused_step
 from ..ops.layout import (ACTION_NAMES, ACTION_ROWS, F_IDX, I_IDX,
                           N_NOISE_ROWS, N_OBS_ROWS, RESET_ROWS)
@@ -1048,13 +1049,15 @@ def make_train_iteration(cfg: SimConfig, hp: PPOParams, device="cuda",
         (CollectNoise); `mark(name)` is called after each phase (the
         collect's, then "update").  Returns (state', out), `out` as the
         collect gives it, the metrics at out["metrics"].  With no `mark`
-        and the tracer on, the tracer's stamps, "start" to "writeback"."""
+        and the tracer on, the tracer's stamps, "start" to "writeback",
+        then a sample of the rule-phase counter it reports."""
         reseed(state.seed, state.counter)
         if mark is None and TRACER.on:
             TRACER.mark("start")
             state, out = run(state, noise, perms, TRACER.mark,
                              state.counter * T, state.opt.count)
             TRACER.mark("writeback")
+            _sample_rule_phases(state)
             return state, out
         return run(state, noise, perms, mark, state.counter * T,
                    state.opt.count)
@@ -1106,6 +1109,13 @@ def state_tensors(state: TrainState) -> list:
     out += [getattr(state.stats, f.name)
             for f in dataclasses.fields(EpisodeStats)]
     return out + list(state.opt.mu) + list(state.opt.nu)
+
+
+def _sample_rule_phases(state):
+    """The rule-phase counter that the tracer reports, on a rows state's
+    fleet (the structured trainer's state holds no rows: not sampled)."""
+    if hasattr(state, "sf"):
+        rule_phases.COUNTER.sample(state.sf, state.si)
 
 
 def _clone_rms(r: RMSState) -> RMSState:
@@ -1178,6 +1188,7 @@ class StaticIteration:
         self.count.add_(self._n_updates)
         if mark:
             mark("writeback")
+            _sample_rule_phases(st)
 
     @torch.no_grad()
     def result(self, state: TrainState, n: int) -> TrainState:

@@ -41,8 +41,13 @@ block, its records written once at the end as a Chrome trace
   * `capture(fn, generators)`: `fn()` captured as a CUDA graph,
     with its kernel nodes counted from the raw graph through the CUDA
     runtime torch loaded (`cudaGraphGetNodes`, `cudaGraphNodeGetType`);
-    the stamps are not counted.  Tracer on or off, nothing on the hot
-    path.
+    the stamps and the hooks' nodes are not counted.  Tracer on or off,
+    nothing on the hot path.
+  * `TRACER.hooks`: counters that other modules keep on the device and
+    register by name (ops/rule_phases.py).  A hook has `zero(device)`,
+    which a session's start calls, `read(device)`, whose reading the
+    session's records keep under "counters", and `nodes`, the kernel
+    nodes its work has added to captures so far.
 """
 
 from __future__ import annotations
@@ -103,6 +108,7 @@ class Tracer:
         # pointers: the stamp names' ids, each card's (ring, cursor)
         self.names: dict = {}
         self.rings: dict = {}
+        self.hooks: dict = {}   # name -> hook (the module docstring)
 
     def start(self, device="cuda"):
         """Open a session on `device`: its host lists hold CAPACITY spans
@@ -130,6 +136,8 @@ class Tracer:
         else:
             self.host: list = [None] * capacity
             self.n_host = 0
+        for hook in self.hooks.values():
+            hook.zero(dev)
         self.calibration = [self._calibrate()]
         self.on = True
 
@@ -231,6 +239,8 @@ class Tracer:
             "dropped": {"stamps": dropped,
                         "spans": max(0, self.n_spans - self.capacity)},
             "kernel_nodes": self.graphs,
+            "counters": {name: hook.read(self.device)
+                         for name, hook in self.hooks.items()},
         }
 
 
@@ -260,7 +270,8 @@ def trace(path: Optional[str], device="cuda"):
 # start, end, parent slot or -1, index)] on the device's clock, in the
 # order they opened; "calibration" {pairs, width_ns, drift_ns,
 # resolution_ns}; "dropped" {stamps, spans}; "kernel_nodes" {label:
-# {kernels, stamps}} of the graphs captured in the session.
+# {kernels, stamps}} of the graphs captured in the session; "counters"
+# {hook name: its reading}.
 
 def sequences(stamps) -> list:
     """The stamps cut into runs of device work: each from an OPENS stamp
@@ -325,8 +336,8 @@ def export(records: dict, path: str):
     """Write the records as Chrome-trace JSON: host spans on one track,
     device phases (each from the stamp before it to its own stamp within
     a run) on another, both in device-clock us from the first record;
-    the calibration, kernel-node counts, dropped records and the idle
-    attribution under "otherData"."""
+    the calibration, kernel-node counts, dropped records, the hooks'
+    readings and the idle attribution under "otherData"."""
     spans, stamps = records["spans"], records["stamps"]
     t0 = min([s[1] for s in spans] + [t for _, t in stamps] or [0])
     events = [{"ph": "M", "name": "thread_name", "pid": 0, "tid": tid,
@@ -348,6 +359,7 @@ def export(records: dict, path: str):
                                  "calibration": cal,
                                  "kernel_nodes": records["kernel_nodes"],
                                  "dropped": records["dropped"],
+                                 "counters": records.get("counters", {}),
                                  "idle_ns_by_span": idle}}, f)
 
 
@@ -406,18 +418,27 @@ def kernel_nodes(graph) -> Optional[int]:
 def capture(fn, generators=(), label: str = "graph"):
     """`fn()` captured as a CUDA graph on the current stream, the
     generators registered with it.  Returns (graph, kernel nodes or None,
-    the stamps left out); a session keeps the kernel and stamp nodes
-    under `label`."""
+    the stamps and the hooks' nodes left out); a session keeps the kernel
+    and stamp nodes under `label`."""
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     for gen in generators:
         graph.register_generator_state(gen)
-    before = TRACER.stamps
+    before, hooked = TRACER.stamps, _hook_nodes()
     with torch.cuda.graph(graph):
         fn()
     stamps = TRACER.stamps - before
     nodes = kernel_nodes(graph)
     graph.instantiate()
-    kernels = None if nodes is None else nodes - stamps
+    hooked = _hook_nodes() - hooked
+    kernels = None if nodes is None or hooked is None else \
+        nodes - stamps - hooked
     if TRACER.on:
         TRACER.graphs[label] = {"kernels": kernels, "stamps": stamps}
     return graph, kernels
+
+
+def _hook_nodes() -> Optional[int]:
+    """The kernel nodes the tracer's hooks have added to captures so far,
+    or None where a hook cannot count its own."""
+    counts = [hook.nodes for hook in TRACER.hooks.values()]
+    return None if None in counts else sum(counts)
