@@ -11,8 +11,9 @@ update kernels D, G and H (fused_update), the K-tick kernel F
 bf16 instances (fused_rollout_bf16; C, D, E and G keep their bf16
 instances in their own sources), kernel B's timing probes
 (fused_rollout_probe) and its probe x bf16 instances
-(fused_rollout_probe_bf16, fused_rollout_probe_pbf) and the eval
-policies' kernel J (eval_policy) - holds each
+(fused_rollout_probe_bf16, fused_rollout_probe_pbf), kernel D's stage
+probe (fused_update_probe; held bit for bit against D's own gradient
+launch) and the eval policies' kernel J (eval_policy) - holds each
 against its plain torch version on the card at the flagship shapes
 (plus the shot's going-in test on worlds at its threshold, and the tiled
 collect), then drives the port's training paths: `init_train_state` and
@@ -164,8 +165,13 @@ own device time comes from torch.profiler, beside the CUDA-event time of
 back-to-back wrapper calls and of its plain version; kernel D's is also
 split into its gradient and reduce launches, and the redesigned kernels'
 rows carry ptxas's registers and spills and their warps per SM (what an
-SM could hold; for F and C also what the 8192-world grid places on it);
-kernels A and E also carry the median and spread of 30 profiled launches.
+SM could hold; for F and C also what the 8192-world grid places on it;
+for D also its barriers a tile, CTA-wide and warp-wide); kernels A and E
+also carry the median and spread of 30 profiled launches.  Kernel D's
+stage probe (csrc/fused_update_probe.cu) then prints the SM cycles of
+each stage of a tile, work and barrier wait, for warps 0 and 6 of CTA 0
+over one flagship minibatch, after its partial sums have equalled those
+of D's own gradient launch bit for bit (`update_stage_probe`).
 Kernel B's timing probes (the JAX kernel's `probe`: sim_only,
 policy_only, no_prng, no_traj; csrc/fused_rollout_probe.cu), alone and
 with each bf16 flag (csrc/rollout_probe_bf16.cuh), run at the main
@@ -2268,6 +2274,48 @@ def eval_policy_phase(dev) -> dict:
           "kernel_nodes_per_tick": nodes / 32,
           "chunk_ms_per_tick": tick_ms})
     return row
+
+
+def update_stage_probe(hp, idx, traj, side, nrm, ustats, params, wb):
+    """Kernel D's gradient launch over one minibatch with the stage probe
+    (csrc/fused_update_probe.cu): SM cycles of each stage of a tile, its
+    own work and its wait at the barrier after it, for warps 0 and 6 of
+    CTA 0 (medians over the CTA's tiles, three launches), and the probe's
+    registers and spills.  Each launch's partial sums must equal those of
+    D's own gradient launch on the same minibatch bit for bit."""
+    import torch
+    from madrona_basketball_tpu_torch import _build
+    from madrona_basketball_tpu_torch.ops import fused_update as FU
+    FU.probe_launches = 0
+    runs = [FU.stage_probe(hp, idx, traj, side, nrm, ustats, params, wb=wb)
+            for _ in range(3)]
+    d_rows = FU.grad_partials(hp, idx, traj, side, nrm, ustats, params,
+                              wb=wb)
+    torch.cuda.synchronize()
+    differing = [int((r["partials"].view(torch.int32) !=
+                      d_rows.view(torch.int32)).sum()) for r in runs]
+    if any(differing):
+        raise Fail(f"the stage probe's partial sums differ from D's "
+                   f"gradient launch in {differing} of {d_rows.numel()} "
+                   "entries")
+    last = runs[-1]
+    ptx = _build.ptxas_kernels("fused_update_probe")
+    if any(v.get("spill_store_bytes", 0) for v in ptx.values()):
+        raise Fail(f"the stage probe spills: {ptx}")
+    emit({"phase": "update_stage_probe", "warps": last["warps"],
+          "tiles": last["tiles"],
+          "tile_cycles": [r["tile_cycles"] for r in runs],
+          "work": last["work"], "wait": last["wait"],
+          "partials_equal_d": True, "partial_entries": d_rows.numel(),
+          "launches": FU.probe_launches, "ptxas": ptx})
+    print(f"{'stage':<15}" + "".join(f"{'work / wait, warp ' + str(w):>26}"
+                                     for w in last["warps"]))
+    for name in FU.STAGES:
+        print(f"{name:<15}" + "".join(
+            f"{last['work'][name][k]:>16.0f} / {last['wait'][name][k]:>7.0f}"
+            for k in range(2)))
+    print(f"{'tile':<15}" + "".join(f"{c:>26.0f}" for c in
+                                     last["tile_cycles"]), flush=True)
 
 
 def cpu_model() -> str:
@@ -4868,6 +4916,7 @@ def main():
 
     def ptx_of(lib, key):
         return next((v for k, v in ptx[lib].items() if key in k), None)
+    d_occ = FU.occupancy(dev)
     design = {
         "fused_update_phase": {
             "grad_launches_ms": d_split["update_grad_kernel<0, float>"],
@@ -4876,7 +4925,8 @@ def main():
                                      "update_grad_kernelILi0EfE"),
                       "reduce": ptx_of("fused_update",
                                        "update_reduce_kernel")},
-            "occupancy": FU.occupancy(dev)},
+            "occupancy": d_occ,
+            "barriers_per_tile": d_occ["grad"]["barriers_per_tile"]},
         "fused_rollout": {
             "ptxas": ptx_of("fused_rollout", "fused_rollout_kernelILi1ELb0E"),
             "occupancy": FR.rollout_occupancy(dev)},
@@ -4908,7 +4958,15 @@ def main():
         raise Fail(f"kernel F's tick loop: STS {f_sts} (every tick, held), "
                    "system 18's shared stores are not inside the loop or "
                    "obs still go to global memory there")
+    if d_occ["grad"]["warps_per_sm"] != 8:
+        raise Fail(f"kernel D's gradient kernel: {d_occ['grad']}, not one "
+                   "CTA of 8 warps an SM")
+    print(f"kernel D's gradient kernel: {d_occ['grad']['warps_per_sm']} "
+          f"warps an SM, barriers a tile {d_occ['grad']['barriers_per_tile']}",
+          flush=True)
     emit({"phase": "design", **design})
+    update_stage_probe(hp, u_idx, u_traj, u_side, u_nrm, u_ustats, u_params,
+                       wb)
     # library_ms: one PyTorch call computing the same function, where one
     # exists (only kernel E's per-feature moments: torch.var_mean)
     library = {"obs_moments": cuda_ms(

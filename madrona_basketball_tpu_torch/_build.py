@@ -37,7 +37,7 @@ KERNELS = ("fused_step", "fused_rollout", "fused_gae", "meter_scan",
            "fused_update", "fused_multistep", "fused_rollout_tiled",
            "obs_moments", "fused_rollout_bf16", "fused_rollout_probe",
            "fused_rollout_probe_bf16", "fused_rollout_probe_pbf",
-           "trace_stamp", "eval_policy")
+           "trace_stamp", "eval_policy", "fused_update_probe")
 NVCC_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-lineinfo", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -154,10 +154,11 @@ def _build(names) -> dict:
             "ptxas": {n: ptxas_kernels(n) for n in names}}
 
 
-def ptxas_kernels(name: str) -> dict:
+def ptxas_kernels(name: str, path: Path | None = None) -> dict:
     """Per kernel of csrc/<name>.cu (keyed by its mangled name), what
-    ptxas printed: registers, stack frame and spill bytes."""
-    log = lib_path(name).with_suffix(".log")
+    ptxas printed: registers, stack frame and spill bytes (from the build
+    log beside the built library, or beside the library at `path`)."""
+    log = (lib_path(name) if path is None else path).with_suffix(".log")
     out, cur = {}, None
     for ln in (log.read_text().splitlines() if log.exists() else ()):
         m = re.search(r"Function properties for (\S+)", ln)

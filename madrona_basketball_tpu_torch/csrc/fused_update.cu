@@ -13,14 +13,16 @@
 //     per SM) of NT = 256 threads; tile u (S = 64 samples of one wb-wide
 //     block at one tick, or 64 feat rows) goes to CTA u % G.  The tile is
 //     a chain of small matrix products over its samples, register-blocked
-//     from shared memory, with the row-wise work (LayerNorm, softmax, the
-//     loss) spread over 4 threads a sample: update_tile.cuh, which the
-//     host build (host_update.cpp) runs too.  Each thread keeps its share
-//     of the 5216 weight-gradient sums in registers across the CTA's
-//     tiles and writes the CTA's row of `partials` once at the end.  A
-//     tile's 113 input rows (obs, actions, logp, side) are 64 contiguous
-//     worlds each: cp.async copies them 16 bytes at a time into one of two
-//     buffers while the previous tile computes.
+//     from shared memory, and row-wise work (LayerNorm, softmax, the loss)
+//     over 4 lanes a sample: update_tile.cuh, which the host build
+//     (host_update.cpp) runs too.  Warp w owns samples 8 w .. 8 w + 7 of
+//     every tile, from the arrival of its columns of the tile's 113 input
+//     rows (bulk copies of whole rows, update_grad.cuh) to the end of the
+//     backward pass, so those stages end in warp-wide barriers; the
+//     weight gradient, which sums over all 64 samples, sits between the
+//     tile's only two CTA-wide barriers.  Each thread keeps its share of the 5216 weight-gradient
+//     sums in registers across the CTA's tiles and writes the CTA's row of
+//     `partials` once at the end.
 //   * update_reduce_kernel: 163 CTAs of 1024 threads, each owning 32
 //     parameters; 32 threads a parameter sum the partial rows (row c by
 //     thread c % 32, in row order), then add the 32 chunk sums in order.
@@ -47,12 +49,9 @@
 // The bf16 branches of D and G (make_fused_update_phase /
 // make_fused_minibatch_grad_prefetch(traj_dtype=bfloat16), fused_update.py
 // :460, :616-618 and :328, :391-394; --bf16-traj): the trajectory's 110
-// rows (obs, actions, logp) are bf16 bits (TT = uint16_t).  cp.async
-// copies them, 16 bytes (8 values) at a time, into one of two bf16
-// staging tiles beside the input buffers (2 x 14 KB more shared memory:
-// 204 KB, still one CTA a SM); after the copy lands, the CTA upcasts the
-// staging tile into the float32 input buffer (one more barrier) and runs
-// the float32 stages.  So D and G in bf16 equal their float32 selves on
+// rows (obs, actions, logp) are bf16 bits (TT = uint16_t), staged in
+// shared memory and upcast by each warp for its own columns
+// (update_grad.cuh).  So D and G in bf16 equal their float32 selves on
 // the upcast trajectory bit for bit.  The side rows, weights and Adam
 // moments stay float32; H keeps its float32 feat matrix.
 //
@@ -64,164 +63,12 @@
 
 #include <cuda_runtime.h>
 
-#include "bf16.cuh"
-#include "update_tile.cuh"
+#include "update_grad.cuh"
 
 using namespace mbb::update;
 
 namespace {
 
-constexpr size_t SMEM_BYTES = (size_t)SM_FLOATS * sizeof(float);
-// the bf16 instances: a trajectory tile's rows 0..R_LOGP (obs | actions |
-// logp), S bf16 values a row, staged twice after the float32 layout
-constexpr int TRAJ_ROWS = R_LOGP + 1;  // 110
-constexpr int STAGE_FLOATS = TRAJ_ROWS * S / 2;
-constexpr size_t SMEM_BYTES_BF16 =
-    (size_t)(SM_FLOATS + 2 * STAGE_FLOATS) * sizeof(float);
-static_assert(SM_FLOATS % 4 == 0 && (S * 2) % 16 == 0,
-              "16-byte aligned staging rows");
-
-template <class TT>
-constexpr size_t smem_bytes() {
-    return sizeof(TT) == sizeof(float) ? SMEM_BYTES : SMEM_BYTES_BF16;
-}
-
-__device__ __forceinline__ void cp_async16(void *dst, const void *src) {
-    const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
-                 "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(float *dst, const float *src) {
-    const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a),
-                 "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// where tile u of a minibatch lies: its samples' first world column of
-// traj / side at its tick, and how many samples it holds
-template <class TT>
-struct TilePos {
-    const TT *tc;
-    const float *sc;
-    int w, n;
-};
-
-template <class TT>
-__device__ __forceinline__ TilePos<TT> tile_pos(const int *idx,
-                                                const TT *traj,
-                                                const float *side, int rows,
-                                                int W, int wb, int u) {
-    const int tpb = (wb + S - 1) / S, wblk = W / wb;
-    const int b = idx[u / tpb], sub = u % tpb;
-    const int t = b / wblk;
-    const int w = (b % wblk) * wb + sub * S;
-    TilePos<TT> p;
-    p.tc = traj + (size_t)t * rows * W + w;
-    p.sc = side + (size_t)t * SIDE_ROWS * W + w;
-    p.w = w;
-    p.n = min(S, wb - sub * S);
-    return p;
-}
-
-// source row of input-buffer row r (r != D, the ones row)
-__device__ __forceinline__ const float *in_row(const TilePos<float> &p,
-                                               int r, int W) {
-    if (r < D) return p.tc + (size_t)r * W;
-    if (r < EX_V) return p.tc + (size_t)(R_ACT + r - EX_ACT) * W;
-    return p.sc + (size_t)(r - EX_V) * W;
-}
-
-// the tile's 113 rows into `in`, asynchronously (samples >= n zeroed)
-__device__ void load_tile(float *in, uint16_t *, const TilePos<float> &p,
-                          int W, int tid) {
-    const bool fast = p.n == S && (W & 3) == 0 && (p.w & 3) == 0;
-    if (fast) {
-        for (int i = tid; i < (IN_ROWS - 1) * (S / 4); i += NT) {
-            const int rr = i / (S / 4), q = i % (S / 4);
-            const int r = rr < D ? rr : rr + 1;
-            cp_async16(in + r * SP + 4 * q, in_row(p, r, W) + 4 * q);
-        }
-    } else {
-        for (int i = tid; i < (IN_ROWS - 1) * S; i += NT) {
-            const int rr = i / S, s = i % S;
-            const int r = rr < D ? rr : rr + 1;
-            if (s < p.n) cp_async4(in + r * SP + s, in_row(p, r, W) + s);
-            else in[r * SP + s] = 0.0f;
-        }
-    }
-}
-
-// bf16: the tile's trajectory rows 0..R_LOGP into the staging tile `stage`
-// (TRAJ_ROWS x S bf16 bits) and its 3 side rows into `in`, asynchronously
-// where the tile is whole and 16-byte aligned; else the bits by plain
-// loads (samples >= n zeroed) and the side rows 4 bytes at a time
-__device__ void load_tile(float *in, uint16_t *stage,
-                          const TilePos<uint16_t> &p, int W, int tid) {
-    if (p.n == S && (W & 7) == 0 && (p.w & 7) == 0) {
-        for (int i = tid; i < TRAJ_ROWS * (S / 8); i += NT) {
-            const int r = i / (S / 8), q = i % (S / 8);
-            cp_async16(stage + r * S + 8 * q, p.tc + (size_t)r * W + 8 * q);
-        }
-        for (int i = tid; i < 3 * (S / 4); i += NT) {
-            const int k = i / (S / 4), q = i % (S / 4);
-            cp_async16(in + (EX_V + k) * SP + 4 * q,
-                       p.sc + (size_t)k * W + 4 * q);
-        }
-    } else {
-        for (int i = tid; i < TRAJ_ROWS * S; i += NT) {
-            const int r = i / S, s = i % S;
-            stage[r * S + s] =
-                s < p.n ? p.tc[(size_t)r * W + s] : (uint16_t)0;
-        }
-        for (int i = tid; i < 3 * S; i += NT) {
-            const int k = i / S, s = i % S;
-            if (s < p.n)
-                cp_async4(in + (EX_V + k) * SP + s, p.sc + (size_t)k * W + s);
-            else
-                in[(EX_V + k) * SP + s] = 0.0f;
-        }
-    }
-}
-
-// the staging tile's bf16 rows upcast into the input buffer's trajectory
-// rows (all but the ones row and the side rows), two values a thread step
-__device__ __forceinline__ void upcast_stage(float *in,
-                                             const uint16_t *stage,
-                                             int tid) {
-    for (int i = tid; i < TRAJ_ROWS * (S / 2); i += NT) {
-        const int r = i / (S / 2), q = i % (S / 2);
-        const uint32_t v = reinterpret_cast<const uint32_t *>(stage + r * S)[q];
-        reinterpret_cast<float2 *>(in + (r < D ? r : r + 1) * SP)[q] =
-            make_float2(mbb::bf16_to_f32((uint16_t)(v & 0xffffu)),
-                        mbb::bf16_to_f32((uint16_t)(v >> 16)));
-    }
-}
-
-// MODE 1: rows r0.. of a row-major (mb, F) feat matrix (obs | actions |
-// logp | value_n | advantage | return_n), transposed into `in`
-__device__ void load_feat(float *in, const float *feat, int F, int r0,
-                          int n, int tid) {
-    constexpr int NC = D + NEXTRA;
-    for (int i = tid; i < S * NC; i += NT) {
-        const int s = i / NC, c = i % NC;
-        in[(c < D ? c : c + 1) * SP + s] =
-            s < n ? feat[(size_t)(r0 + s) * F + c] : 0.0f;
-    }
-}
-
-// MODE 0: tiles of permuted (tick, world-block) blocks of traj / side;
-// MODE 1: tiles of consecutive rows of a row-major (mb, F) feat matrix.
-// TT: the trajectory's element type (MODE 0), float or bf16 bits.
 template <int MODE, class TT>
 __global__ void __launch_bounds__(NT, 1)
 update_grad_kernel(const int *__restrict__ idx,
@@ -233,60 +80,9 @@ update_grad_kernel(const int *__restrict__ idx,
                    const float *__restrict__ params,
                    float *__restrict__ partials, int rows, int W, int wb,
                    int n_tiles, int F, int mb, LossHp hp) {
-    extern __shared__ float4 smem4[];
-    float *sm = reinterpret_cast<float *>(smem4);
-    const int tid = threadIdx.x;
-    float *bufs[2] = {sm + SI_IN, sm + SI_IN + IN_ROWS * SP};
-    constexpr bool F32T = sizeof(TT) == sizeof(float);
-    uint16_t *stg[2] = {
-        reinterpret_cast<uint16_t *>(sm + SM_FLOATS),
-        reinterpret_cast<uint16_t *>(sm + SM_FLOATS + STAGE_FLOATS)};
-    load_weights(sm, params, nrm, tid);
-    GradAcc acc;
-    zero_acc(acc);
-    if (MODE == 0 && blockIdx.x < n_tiles) {
-        load_tile(bufs[0], stg[0],
-                  tile_pos(idx, traj, side, rows, W, wb, blockIdx.x), W,
-                  tid);
-        cp_async_commit();
-    }
-    int it = 0;
-    for (int u = blockIdx.x; u < n_tiles; u += gridDim.x, ++it) {
-        float *in = bufs[it & 1];
-        int n;
-        if (MODE == 0) {
-            n = tile_pos(idx, traj, side, rows, W, wb, u).n;
-            const int un = u + gridDim.x;
-            if (un < n_tiles) {
-                // the other buffer's tile finished at the last barrier
-                load_tile(bufs[(it + 1) & 1], stg[(it + 1) & 1],
-                          tile_pos(idx, traj, side, rows, W, wb, un), W,
-                          tid);
-                cp_async_commit();
-                cp_async_wait<1>();
-            } else {
-                cp_async_wait<0>();
-            }
-        } else {
-            n = min(S, mb - u * S);
-            load_feat(in, feat, F, u * S, n, tid);
-        }
-        __syncthreads();
-        if (MODE == 0 && !F32T) {
-            upcast_stage(in, stg[it & 1], tid);
-            __syncthreads();
-        }
-#pragma unroll
-        for (int st = 0; st < N_STAGES; ++st) {
-            tile_stage(st, sm, in, n, MODE == 0 ? ustats : nullptr, hp, acc,
-                       tid);
-            __syncthreads();
-        }
-    }
-    float *out = partials + (size_t)blockIdx.x * P;
-    write_partials(sm, acc, out, tid, 0);
-    __syncthreads();
-    write_partials(sm, acc, out, tid, 1);
+    grad_tiles<MODE, TT, false>(idx, traj, side, feat, nrm, ustats, params,
+                                partials, rows, W, wb, n_tiles, F, mb, hp,
+                                nullptr, 0);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -355,20 +151,7 @@ update_reduce_kernel(const float *__restrict__ partials, int nparts,
 
 template <int MODE, class TT = float>
 cudaError_t set_smem() {
-    return cudaFuncSetAttribute(update_grad_kernel<MODE, TT>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem_bytes<TT>());
-}
-
-LossHp loss_hp(float clip, float vf_coef, float ent_coef, int clip_vloss,
-               int mb) {
-    LossHp hp;
-    hp.clip = clip;
-    hp.vf_coef = vf_coef;
-    hp.ent_coef = ent_coef;
-    hp.inv_mb = 1.0f / (float)mb;
-    hp.clip_vloss = clip_vloss;
-    return hp;
+    return set_grad_smem(update_grad_kernel<MODE, TT>, smem_bytes<TT>());
 }
 
 // the reduce's scratch after the max_parts partial rows
@@ -522,7 +305,8 @@ extern "C" int mbb_fused_minibatch_grad(
 
 // Resident CTAs per SM of the gradient and the reduce kernels
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and their threads and
-// dynamic shared memory: out[0..5].
+// dynamic shared memory: out[0..5]; the gradient kernel's barriers a
+// tile: CTA-wide, warp-wide, warp-wide in the bf16 instances: out[6..8].
 extern "C" int mbb_update_occupancy(int *out) {
     cudaError_t err = set_smem<0>();
     if (err != cudaSuccess) return (int)err;
@@ -535,6 +319,9 @@ extern "C" int mbb_update_occupancy(int *out) {
     out[3] = RED_NT;
     out[4] = (int)SMEM_BYTES;
     out[5] = 0;
+    out[6] = CTA_BARRIERS;
+    out[7] = WARP_BARRIERS;
+    out[8] = WARP_BARRIERS_BF16;
     return (int)err;
 }
 

@@ -170,6 +170,66 @@ void grad_prefetch(const int *idx, const void *traj, bool bf16,
 
 }  // namespace
 
+// The warp that owns each float of shared memory in stages 0..15 (the
+// activation tiles, the per-sample scratch and the first input buffer,
+// where column s belongs to warp s / SW): owner[i] its warp, -1 for a
+// padding column of those rows, -2 for the rest (weights, normalizer, the
+// second input buffer).
+extern "C" void mbb_host_sample_owner(int *owner) {
+    for (int i = 0; i < SM_FLOATS; ++i) {
+        int c;
+        if (i >= SA_H1 && i < SS_PART)
+            c = (i - SA_H1) % SP;
+        else if (i >= SS_PART && i < SS_END)
+            c = (i - SS_PART) % S;
+        else if (i >= SI_IN && i < SI_IN + IN_ROWS * SP)
+            c = (i - SI_IN) % SP;
+        else
+            c = -1;
+        owner[i] = c < 0 ? -2 : (c < S ? c / SW : -1);
+    }
+}
+
+// Stages 0..WGRAD_STAGE-1 of one tile: shared memory (SM_FLOATS) zeroed,
+// the weights and normalizer loaded, the raw tile (IN_ROWS x S, row D
+// ignored) in the first input buffer; then each stage for every thread in
+// turn, or, where keep >= 0, only for warp keep's 32 threads, with every
+// float outside its samples in the activation, scratch and input rows
+// (mbb_host_sample_owner) set to `fill` first.  sm: shared memory after
+// the stages.
+extern "C" void mbb_host_warp_stages(const float *params, const float *nrm,
+                                     const float *ustats, const float *tile,
+                                     int n, float clip, float vf_coef,
+                                     float ent_coef, int clip_vloss, int mb,
+                                     int keep, float fill, float *sm) {
+    std::vector<int> owner(SM_FLOATS);
+    mbb_host_sample_owner(owner.data());
+    for (int i = 0; i < SM_FLOATS; ++i) sm[i] = 0.0f;
+    for (int tid = 0; tid < NT; ++tid) load_weights(sm, params, nrm, tid);
+    for (int r = 0; r < IN_ROWS; ++r)
+        for (int s = 0; s < S; ++s) sm[SI_IN + r * SP + s] = tile[r * S + s];
+    if (keep >= 0)
+        for (int i = 0; i < SM_FLOATS; ++i)
+            if (owner[i] != keep && owner[i] != -2) sm[i] = fill;
+    const LossHp hp = loss_hp(clip, vf_coef, ent_coef, clip_vloss, mb);
+    GradAcc acc;
+    zero_acc(acc);
+    const int t0 = keep >= 0 ? 32 * keep : 0, t1 = keep >= 0 ? t0 + 32 : NT;
+    for (int st = 0; st < WGRAD_STAGE; ++st)
+        for (int tid = t0; tid < t1; ++tid)
+            tile_stage(st, sm, sm + SI_IN, n, ustats, hp, acc, tid);
+}
+
+// The tile's layout and the gradient kernel's barriers a tile: out[0..3]
+// SM_FLOATS, IN_ROWS, S, SW; out[4..6] CTA-wide, warp-wide, and
+// warp-wide in the bf16 instances; out[7] N_STAGES.
+extern "C" void mbb_host_update_layout(int *out) {
+    const int v[8] = {SM_FLOATS,     IN_ROWS,       S,
+                      SW,            CTA_BARRIERS,  WARP_BARRIERS,
+                      WARP_BARRIERS_BF16, N_STAGES};
+    for (int i = 0; i < 8; ++i) out[i] = v[i];
+}
+
 // Kernel D's arguments without the stream and the scratch.
 extern "C" void mbb_host_update_phase(
     const int *idx, const int *count, const float *traj, const float *side,

@@ -6,23 +6,37 @@
 // shared memory feature-major, row f at f * SP (SP = S + 4: a row is a
 // whole number of 16-byte quads and the quad stride 17 is odd, so rows
 // that differ by 1..7 start in different quad banks).  A CTA of NT = 256
-// threads runs the tile as N_STAGES stages separated by barriers; a stage
-// never reads what another thread writes in the same stage, so the host
-// build runs each stage for thread 0, 1, ... in turn and gets the card's
-// bits up to libm and FMA contraction.
+// threads (8 warps) runs the tile as N_STAGES stages.  Warp w owns the
+// tile's samples 8 w .. 8 w + 7 from their load to the end of the
+// backward pass: stages 0..15 read and write only the warp's own sample
+// columns, so a warp-wide barrier ends each; only the weight gradient
+// (stage 16) reads every sample, between two CTA-wide barriers
+// (CTA_BARRIERS, WARP_BARRIERS).  Every stage reads what it needs before
+// it stores (a shared-memory store between two reads keeps the compiler
+// from issuing the reads together: they may alias).  A stage never reads what another thread
+// writes in the same stage, so the host build runs each stage for thread
+// 0, 1, ... in turn and gets the card's bits up to libm and FMA
+// contraction.
 //
 //   prep        normalize the obs rows (clamp +-5), a ones row for the
 //               first layer's bias, the side rows from ustats
 //   fwd1/fwd2   Z = W X + b as a register-blocked tile product, each
 //               output one FMA chain over k (the plain product's order):
-//               a thread 4 units x 2 samples, one float4 of weights and
-//               one float2 of activations per k (8 FMAs)
-//   ln stats    4 threads per sample, 8 units each, partial sums in
-//   ln apply    shared memory, combined in quarter order -> hhat, ReLU
+//               a lane 4 units x 2 samples, one float4 of weights and one
+//               float2 of activations per k (8 FMAs); a warp's lanes 8
+//               unit groups x its 4 sample pairs
+//   ln stats    lane 4 s + q of a warp: quarter q (units 8q..8q+7) of
+//   ln apply    the warp's sample s; partial sums in shared memory,
+//               combined in quarter order -> hhat, ReLU.  A quarter walks
+//               its units rotated by 2q (qunit), so the warp's four
+//               quarters of a sample hit four bank octets; the sums still
+//               run in unit order (load_quarter)
 //   heads       the 19 logits + value
-//   loss1/2     4 threads per sample split the 6 action buckets: softmax
-//               shifted by the global max, log p, entropy, then the PPO
-//               cotangents (the selected log-prob summed in bucket order)
+//   loss1/2     the four lanes of a sample split its 6 action buckets:
+//               softmax shifted by the global max, log p, entropy (the
+//               sums in bucket order); then its 19 logits, 5 a lane, for
+//               the PPO cotangents (the selected log-prob summed in
+//               bucket order)
 //   bwd         dA2 = Wh^T dO, the LayerNorm / ReLU backward as above,
 //               dA1 = W2^T dZ2
 //   wgrad       the weight gradients dW1 = dZ1 X^T (its ones row gives
@@ -42,9 +56,13 @@
 
 #if defined(__CUDACC__)
 #define MBU_HD __device__ __forceinline__
+#define MBU_HHD __host__ __device__ __forceinline__
+#define MBU_UNROLL _Pragma("unroll")
 #else
 #include <cmath>
 #define MBU_HD inline
+#define MBU_HHD inline
+#define MBU_UNROLL
 #endif
 
 namespace mbb {
@@ -67,6 +85,8 @@ constexpr int P = OB + H * NBCOL;   // 5216
 
 constexpr int S = 64;               // samples per tile
 constexpr int NT = 256;             // threads per CTA
+constexpr int NW = NT / 32;         // warps per CTA
+constexpr int SW = S / NW;          // samples a warp owns: 8
 constexpr int SP = S + 4;           // row stride of every activation tile
 constexpr int DX = D + 1;           // obs rows + the ones row
 constexpr int NEXTRA = NB + 4;      // actions | logp | value | adv | ret
@@ -86,10 +106,11 @@ MBU_HD constexpr int bucket_n(int b) {
 MBU_HD constexpr int bucket_base(int b) {
     return b == 0 ? 0 : (b == 1 ? 2 : (b == 2 ? 10 : 11 + 2 * (b - 2)));
 }
-// the buckets of quarter q of a sample's threads: {1}, {0, 2}, {3, 4}, {5}
+// the buckets of quarter q of a sample's lanes, the larger first: {1},
+// {2, 0}, {3, 4}, {5}
 MBU_HD constexpr int quarter_bucket(int q, int i) {
     return q == 0 ? (i == 0 ? 1 : -1)
-         : q == 1 ? (i == 0 ? 0 : 2)
+         : q == 1 ? (i == 0 ? 2 : 0)
          : q == 2 ? 3 + i
                   : (i == 0 ? 5 : -1);
 }
@@ -240,27 +261,71 @@ MBU_HD void zero_acc(GradAcc &a) {
     a.col = 0.0f;
 }
 
-// ---- stage 0: normalize the tile in buffer `in` (raw rows loaded, the
-// samples >= n zero-filled)
+// ---- the thread map of stages 0..15: warp w's samples SW w .. SW w + 7;
+// in the row-wise stages lane 4 s + q is quarter q of the warp's sample s
+MBU_HD int warp_sample0(int tid) { return SW * (tid >> 5); }
+MBU_HD int row_sample(int tid) { return warp_sample0(tid) + ((tid & 31) >> 2); }
+MBU_HD int row_quarter(int tid) { return tid & 3; }
+
+// the unit quarter q visits at step t: its 8 units rotated by 2q, so that
+// at every step the four quarters of a sample read rows 4 apart mod 8,
+// in four different bank octets (row u starts at bank 4u mod 32)
+MBU_HD int qunit(int q, int t) { return 8 * q + ((t + 2 * q) & 7); }
+
+// v[j] = p[(8q + j) * SP], j = 0..7: loaded in qunit order, then rotated
+// back (by 2 where q is odd, by 4 where q >= 2) with selects
+MBU_HD void unrotate(float (&r)[8], int q) {
+    float t[8];
+    for (int j = 0; j < 8; ++j) t[j] = (q & 1) ? r[(j + 6) & 7] : r[j];
+    for (int j = 0; j < 8; ++j) r[j] = (q & 2) ? t[(j + 4) & 7] : t[j];
+}
+
+MBU_HD void load_quarter(const float *p, int q, float (&v)[8]) {
+    for (int t = 0; t < 8; ++t) v[t] = p[qunit(q, t) * SP];
+    unrotate(v, q);
+}
+
+// ---- stage 0: normalize the warp's columns of the tile in buffer `in`
+// (raw rows loaded, the samples >= n zero-filled); lane 8 g + c takes
+// sample c at rows 8 (j / 2) + 2 g + j % 2, so a step's four rows sit in
+// four bank octets
+MBU_HD int prep_row(int j, int g) { return 8 * (j >> 1) + 2 * g + (j & 1); }
+
 MBU_HD void stage_prep(float *sm, float *in, int n, const float *ustats,
                        int tid) {
     const float *mean = sm + SW_NRM, *rstd = sm + SW_NRM + D;
-    for (int i = tid; i < D * S; i += NT) {
-        const int k = i / S, s = i % S;
-        float *x = in + k * SP + s;
-        *x = s < n ? clampf((*x - mean[k]) * rstd[k], -5.0f, 5.0f) : 0.0f;
+    const int lane = tid & 31, g = lane >> 3;
+    const int s = warp_sample0(tid) + (lane & 7);
+    constexpr int NJ = 2 * ((D + 7) / 8);   // 26 steps of 4 rows: 0..103
+    float x[NJ], m[NJ], r[NJ];
+    MBU_UNROLL
+    for (int j = 0; j < NJ; ++j) {
+        const int k = prep_row(j, g);
+        x[j] = m[j] = r[j] = 0.0f;
+        if (k < D) {
+            x[j] = in[k * SP + s];
+            m[j] = mean[k];
+            r[j] = rstd[k];
+        }
     }
-    if (tid < S) {
-        const int s = tid;
+    MBU_UNROLL
+    for (int j = 0; j < NJ; ++j) {
+        const int k = prep_row(j, g);
+        if (k < D)
+            in[k * SP + s] =
+                s < n ? clampf((x[j] - m[j]) * r[j], -5.0f, 5.0f) : 0.0f;
+    }
+    if (g == 0) {
         in[D * SP + s] = s < n ? 1.0f : 0.0f;
         if (ustats != nullptr && s < n) {
             const float vm = ustats[0], vr = ustats[1];
             const float am = ustats[2], ar = ustats[3];
             float *v = in + EX_V * SP + s, *a = in + EX_ADV * SP + s,
                   *r = in + EX_RET * SP + s;
-            *v = clampf((*v - vm) * vr, -5.0f, 5.0f);
-            *a = (*a - am) * ar;
-            *r = clampf((*r - vm) * vr, -5.0f, 5.0f);
+            const float v0 = *v, a0 = *a, r0 = *r;
+            *v = clampf((v0 - vm) * vr, -5.0f, 5.0f);
+            *a = (a0 - am) * ar;
+            *r = clampf((r0 - vm) * vr, -5.0f, 5.0f);
         }
     }
 }
@@ -272,20 +337,20 @@ MBU_HD void stage_prep(float *sm, float *in, int n, const float *ustats,
 // z's absolute rounding into the error of a unit near its mean, where the
 // ReLU decides; keeping the plain chain keeps those decisions equal.  A
 // thread owns 4 consecutive outputs m x 2 consecutive samples (one float4
-// of weights, one float2 of activations, 8 FMAs per k); a warp covers 2
-// output groups x 16 sample pairs (weights broadcast, activations one
-// 128-byte row segment).
+// of weights, one float2 of activations, 8 FMAs per k); a warp covers its
+// own 4 sample pairs x all 8 output groups (each k: 8 float4 of weights
+// in one 128-byte row segment, 4 float2 of activations broadcast).
 template <int K, int M>
 MBU_HD void tile_product(const float *wk, const float *x, float *y,
                          const float *bias, int bc, int tid) {
-    const int warp = tid >> 5, lane = tid & 31;
-    const int ug = (warp & 3) * 2 + (lane >> 4);     // 0..7
-    const int sg = (warp >> 2) * 16 + (lane & 15);   // 0..31
+    const int lane = tid & 31;
+    const int ug = lane >> 2;                        // 0..7
+    const int sg = warp_sample0(tid) / 2 + (lane & 3);  // 0..31
     if (4 * ug >= M) return;
     float acc[4][2];
     for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = 0.0f;
 #if defined(__CUDACC__)
-#pragma unroll 4
+#pragma unroll 8
 #endif
     for (int k = 0; k < K; ++k) {
         const F4 w = ld4(wk + k * M + 4 * ug);
@@ -306,7 +371,7 @@ MBU_HD void tile_product(const float *wk, const float *x, float *y,
     }
 }
 
-// ---- LayerNorm forward: 4 threads a sample, units 8q..8q+7.  Every
+// ---- LayerNorm forward: 4 lanes a sample, units 8q..8q+7.  Every
 // product rounds on its own and the sums run in this unit order, as the
 // plain version's (fused_update.py `_ln_fwd`: z * z, mu * mu and hhat * g
 // each rounded): hhat = (z - mean) * rstd turns an ulp of the layer's
@@ -314,12 +379,13 @@ MBU_HD void tile_product(const float *wk, const float *x, float *y,
 // so an FMA in layer 1's output, or in the statistics, moves layer 2's
 // ReLU sides by far more than the last bit.
 MBU_HD void stage_ln_stats(float *sm, const float *z, int tid) {
-    const int s = tid & (S - 1), q = tid / S;
+    const int s = row_sample(tid), q = row_quarter(tid);
+    float v[8];
+    load_quarter(z + s, q, v);
     float s1 = 0.0f, s2 = 0.0f;
-    for (int u = 8 * q; u < 8 * q + 8; ++u) {
-        const float v = z[u * SP + s];
-        s1 += v;
-        s2 += mul_rn(v, v);
+    for (int j = 0; j < 8; ++j) {
+        s1 += v[j];
+        s2 += mul_rn(v[j], v[j]);
     }
     sm[SS_PART + (2 * q) * S + s] = s1;
     sm[SS_PART + (2 * q + 1) * S + s] = s2;
@@ -334,69 +400,165 @@ MBU_HD void quarter_sums(const float *sm, int s, float &a, float &b) {
     }
 }
 
+// the quarter's 8 units of column p (rows at stride SP) and of bias
+// columns c0, c1 (or only c0 where b is null), in qunit order
+MBU_HD void load_units(const float *sm, const float *p, int q, int c0,
+                       float (&x)[8], float (&g)[8], float *b) {
+    const float *bias = sm + SW_B;
+    for (int t = 0; t < 8; ++t) {
+        const int u = qunit(q, t);
+        x[t] = p[u * SP];
+        g[t] = bias[u * NBCOL + c0];
+        if (b != nullptr) b[t] = bias[u * NBCOL + c0 + 1];
+    }
+}
+
 // z -> hhat in place, a = relu(hhat * scale + bias); rstd per sample
 MBU_HD void stage_ln_apply(float *sm, float *h, float *a, int sc,
                            float *rstd_out, int tid) {
-    const int s = tid & (S - 1), q = tid / S;
+    const int s = row_sample(tid), q = row_quarter(tid);
     float s1, s2;
     quarter_sums(sm, s, s1, s2);
+    float zv[8], gv[8], bv[8];
+    load_units(sm, h + s, q, sc, zv, gv, bv);
     const float mu = s1 * (1.0f / H), mu2 = s2 * (1.0f / H);
     const float rstd = rsqrt_(fmaxf(mu2 - mul_rn(mu, mu), 0.0f) + LN_EPS);
-    const float *bias = sm + SW_B;
-    for (int u = 8 * q; u < 8 * q + 8; ++u) {
-        const float hh = (h[u * SP + s] - mu) * rstd;
+    for (int t = 0; t < 8; ++t) {
+        const int u = qunit(q, t);
+        const float hh = (zv[t] - mu) * rstd;
         h[u * SP + s] = hh;
-        a[u * SP + s] = fmaxf(
-            mul_rn(hh, bias[u * NBCOL + sc]) + bias[u * NBCOL + sc + 1],
-            0.0f);
+        a[u * SP + s] = fmaxf(mul_rn(hh, gv[t]) + bv[t], 0.0f);
     }
     if (q == 0) rstd_out[s] = rstd;
 }
 
-// ---- loss, part 1: per bucket softmax shifted by the global max over the
-// logits: probabilities, log p, -entropy, selected log p
+// ---- the loss.  The four lanes of a sample split its 6 action buckets
+// (quarter_bucket) for part 1, whose sums run in bucket order (the
+// denominators, the entropies), and its 19 logits as slots i = q + 4 j
+// (j = 0..4) for part 2's cotangents.  Each value is the expression the
+// plain version computes, over the same operands in the same order.
+constexpr int N_SLOTS = (NL + 3) / 4;   // logit slots a lane: 5
+
+MBU_HD int slot_logit(int q, int j) { return q + 4 * j; }
+
+MBU_HD int bucket_of(int i) {
+    return i < 2 ? 0 : (i < 10 ? 1 : (i < 13 ? 2 : (i < 15 ? 3
+                                                   : (i < 17 ? 4 : 5))));
+}
+
+// a lane's buckets: bucket A (quarter_bucket(q, 0)) of up to 8 logits,
+// and bucket B (quarter_bucket(q, 1)) of up to 2, or none (n_b 0)
+constexpr int NB_A = 8, NB_B = 2;
+
+struct LaneBuckets {
+    int a, base_a, n_a, b, base_b, n_b;
+};
+
+MBU_HD LaneBuckets lane_buckets(int q) {
+    LaneBuckets k;
+    k.a = quarter_bucket(q, 0);
+    k.base_a = bucket_base(k.a);
+    k.n_a = bucket_n(k.a);
+    k.b = quarter_bucket(q, 1);
+    k.base_b = k.b < 0 ? 0 : bucket_base(k.b);
+    k.n_b = k.b < 0 ? 0 : bucket_n(k.b);
+    return k;
+}
+
+// ---- loss, part 1 in one stage: each lane its buckets (lane_buckets),
+// straight-line with the absent logits predicated off: the global max
+// over the logits, e = exp(logit - max), the bucket's sum of e (in
+// order), log-normalizer log(sum) + max, p = e / sum, log p = logit -
+// log-normalizer, the -entropy sum of p log p (in order) and the selected
+// log p
 MBU_HD void stage_loss1(float *sm, const float *in, int tid) {
-    const int s = tid & (S - 1), q = tid / S;
+    const int s = row_sample(tid), q = row_quarter(tid);
     const float *o = sm + SA_DO;
-    float M = o[s];
-    for (int i = 1; i < NL; ++i) M = fmaxf(M, o[i * SP + s]);
-    for (int bi = 0; bi < 2; ++bi) {
-        const int b = quarter_bucket(q, bi);
-        if (b < 0) continue;
-        const int base = bucket_base(b), nb = bucket_n(b);
-        const float target = (float)base + in[(EX_ACT + b) * SP + s];
-        float Sb = 0.0f;
-        for (int r = 0; r < nb; ++r) {
-            const float e = expf(o[(base + r) * SP + s] - M);
-            sm[SS_P + (base + r) * S + s] = e;
-            Sb += e;
+    const LaneBuckets k = lane_buckets(q);
+    // every logit for the max, and the lane's buckets' logits again (a
+    // register array takes no index known only at run time)
+    float ov[NL], oa[NB_A], ob[NB_B];
+    for (int i = 0; i < NL; ++i) ov[i] = o[i * SP + s];
+    for (int r = 0; r < NB_A; ++r)
+        oa[r] = r < k.n_a ? o[(k.base_a + r) * SP + s] : 0.0f;
+    for (int r = 0; r < NB_B; ++r)
+        ob[r] = r < k.n_b ? o[(k.base_b + r) * SP + s] : 0.0f;
+    const float ta = (float)k.base_a + in[(EX_ACT + k.a) * SP + s];
+    const float tb = k.n_b > 0
+        ? (float)k.base_b + in[(EX_ACT + k.b) * SP + s] : -1.0f;
+    float M = ov[0];
+    for (int i = 1; i < NL; ++i) M = fmaxf(M, ov[i]);
+    float ea[NB_A], eb[NB_B], sa = 0.0f, sb = 0.0f;
+    for (int r = 0; r < NB_A; ++r) {
+        ea[r] = expf(oa[r] - M);
+        if (r < k.n_a) sa += ea[r];
+    }
+    for (int r = 0; r < NB_B; ++r) {
+        eb[r] = expf(ob[r] - M);
+        if (r < k.n_b) sb += eb[r];
+    }
+    const float za = logf(sa) + M, zb = logf(k.n_b > 0 ? sb : 1.0f) + M;
+    float ha = 0.0f, lpa = 0.0f, hb = 0.0f, lpb = 0.0f;
+    float pa[NB_A], la[NB_A], pb[NB_B], lb[NB_B];
+    for (int r = 0; r < NB_A; ++r) {
+        pa[r] = ea[r] / sa;
+        la[r] = oa[r] - za;
+        if (r < k.n_a) {
+            if ((float)(k.base_a + r) == ta) lpa = la[r];
+            ha += pa[r] * la[r];
         }
-        const float logz = logf(Sb) + M;
-        float hb = 0.0f, lpt = 0.0f;
-        for (int r = 0; r < nb; ++r) {
-            const int i = base + r;
-            const float p = sm[SS_P + i * S + s] / Sb;
-            const float l = o[i * SP + s] - logz;
-            sm[SS_P + i * S + s] = p;
-            sm[SS_LNP + i * S + s] = l;
-            if ((float)i == target) lpt = l;
-            hb += p * l;
+    }
+    for (int r = 0; r < NB_B; ++r) {
+        pb[r] = eb[r] / (k.n_b > 0 ? sb : 1.0f);
+        lb[r] = ob[r] - zb;
+        if (r < k.n_b) {
+            if ((float)(k.base_b + r) == tb) lpb = lb[r];
+            hb += pb[r] * lb[r];
         }
-        sm[SS_HB + b * S + s] = -hb;
-        sm[SS_LPB + b * S + s] = lpt;
+    }
+    for (int r = 0; r < NB_A; ++r)
+        if (r < k.n_a) {
+            sm[SS_P + (k.base_a + r) * S + s] = pa[r];
+            sm[SS_LNP + (k.base_a + r) * S + s] = la[r];
+        }
+    for (int r = 0; r < NB_B; ++r)
+        if (r < k.n_b) {
+            sm[SS_P + (k.base_b + r) * S + s] = pb[r];
+            sm[SS_LNP + (k.base_b + r) * S + s] = lb[r];
+        }
+    sm[SS_HB + k.a * S + s] = -ha;
+    sm[SS_LPB + k.a * S + s] = lpa;
+    if (k.n_b > 0) {
+        sm[SS_HB + k.b * S + s] = -hb;
+        sm[SS_LPB + k.b * S + s] = lpb;
     }
 }
 
 // ---- loss, part 2: the clipped-surrogate, value and entropy cotangents
-// into SA_DO (zero for the samples >= n; ties route to the first operand)
+// into SA_DO for the lane's slots (zero for the samples >= n; ties route
+// to the first operand)
 MBU_HD void stage_loss2(float *sm, const float *in, int n, LossHp hp,
                         int tid) {
-    const int s = tid & (S - 1), q = tid / S;
+    const int s = row_sample(tid), q = row_quarter(tid);
     float *o = sm + SA_DO;
     const bool valid = s < n;
-    float logp_new = 0.0f;
-    for (int b = 0; b < NB; ++b) logp_new += sm[SS_LPB + b * S + s];
+    float lpb[NB];
+    for (int b = 0; b < NB; ++b) lpb[b] = sm[SS_LPB + b * S + s];
     const float lp_old = in[EX_LP * SP + s], adv = in[EX_ADV * SP + s];
+    float tv[N_SLOTS], hv[N_SLOTS], pv[N_SLOTS], lv[N_SLOTS];
+    for (int j = 0; j < N_SLOTS; ++j) {
+        const int i = slot_logit(q, j);
+        tv[j] = hv[j] = pv[j] = lv[j] = 0.0f;
+        if (i < NL) {
+            const int b = bucket_of(i);
+            tv[j] = (float)bucket_base(b) + in[(EX_ACT + b) * SP + s];
+            hv[j] = sm[SS_HB + b * S + s];
+            pv[j] = sm[SS_P + i * S + s];
+            lv[j] = sm[SS_LNP + i * S + s];
+        }
+    }
+    float logp_new = 0.0f;
+    for (int b = 0; b < NB; ++b) logp_new += lpb[b];
     const float c = hp.clip;
     const float ratio = expf(logp_new - lp_old);
     const float surr1 = -adv * ratio;
@@ -405,24 +567,21 @@ MBU_HD void stage_loss2(float *sm, const float *in, int n, LossHp hp,
     const float dratio = (surr1 >= surr2) ? -adv : (inb ? -adv : 0.0f);
     const float dlogp = dratio * ratio * hp.inv_mb;
     const float ec = hp.ent_coef * hp.inv_mb;
-    for (int bi = 0; bi < 2; ++bi) {
-        const int b = quarter_bucket(q, bi);
-        if (b < 0) continue;
-        const int base = bucket_base(b), nb = bucket_n(b);
-        const float target = (float)base + in[(EX_ACT + b) * SP + s];
-        const float HB = sm[SS_HB + b * S + s];
-        for (int r = 0; r < nb; ++r) {
-            const int i = base + r;
-            const float p = sm[SS_P + i * S + s];
-            const float oh = ((float)i == target) ? 1.0f : 0.0f;
-            const float g =
-                dlogp * (oh - p) + (ec * p) * (sm[SS_LNP + i * S + s] + HB);
-            o[i * SP + s] = valid ? g : 0.0f;
-        }
+    float value = 0.0f, v_old = 0.0f, ret = 0.0f;
+    if (q == 3) {
+        value = o[NL * SP + s];
+        v_old = in[EX_V * SP + s];
+        ret = in[EX_RET * SP + s];
+    }
+    for (int j = 0; j < N_SLOTS; ++j) {
+        const int i = slot_logit(q, j);
+        if (i >= NL) continue;
+        const float p = pv[j];
+        const float oh = ((float)i == tv[j]) ? 1.0f : 0.0f;
+        const float g = dlogp * (oh - p) + (ec * p) * (lv[j] + hv[j]);
+        o[i * SP + s] = valid ? g : 0.0f;
     }
     if (q == 3) {
-        const float value = o[NL * SP + s];
-        const float v_old = in[EX_V * SP + s], ret = in[EX_RET * SP + s];
         float dvalue;
         if (hp.clip_vloss) {
             const float vf = (value - ret) * (value - ret);
@@ -440,21 +599,27 @@ MBU_HD void stage_loss2(float *sm, const float *in, int n, LossHp hp,
 }
 
 // ---- LayerNorm + ReLU backward: da (in dy) -> dy = da where the ReLU
-// passed, partial sums of dhhat and dhhat * hhat
+// passed (in qunit order), partial sums of dhhat and dhhat * hhat (in
+// unit order)
 MBU_HD void stage_ln_bwd_stats(float *sm, float *dy, const float *h, int sc,
                                int tid) {
-    const int s = tid & (S - 1), q = tid / S;
-    const float *bias = sm + SW_B;
+    const int s = row_sample(tid), q = row_quarter(tid);
+    float hv[8], gv[8], bv[8], dv[8];
+    load_units(sm, h + s, q, sc, hv, gv, bv);
+    for (int t = 0; t < 8; ++t) dv[t] = dy[qunit(q, t) * SP + s];
+    for (int t = 0; t < 8; ++t) {
+        const float y = mul_rn(hv[t], gv[t]) + bv[t];
+        dv[t] = (y > 0.0f) ? dv[t] : 0.0f;
+        dy[qunit(q, t) * SP + s] = dv[t];
+    }
+    unrotate(hv, q);
+    unrotate(gv, q);
+    unrotate(dv, q);
     float m1 = 0.0f, m2 = 0.0f;
-    for (int u = 8 * q; u < 8 * q + 8; ++u) {
-        const float hh = h[u * SP + s];
-        const float g = bias[u * NBCOL + sc];
-        const float y = mul_rn(hh, g) + bias[u * NBCOL + sc + 1];
-        const float d = (y > 0.0f) ? dy[u * SP + s] : 0.0f;
-        dy[u * SP + s] = d;
-        const float dh = d * g;
+    for (int j = 0; j < 8; ++j) {
+        const float dh = dv[j] * gv[j];
         m1 += dh;
-        m2 += dh * hh;
+        m2 += dh * hv[j];
     }
     sm[SS_PART + (2 * q) * S + s] = m1;
     sm[SS_PART + (2 * q + 1) * S + s] = m2;
@@ -463,16 +628,18 @@ MBU_HD void stage_ln_bwd_stats(float *sm, float *dy, const float *h, int sc,
 MBU_HD void stage_ln_bwd_apply(float *sm, const float *dy, const float *h,
                                float *dz, int sc, const float *rstd_in,
                                int tid) {
-    const int s = tid & (S - 1), q = tid / S;
+    const int s = row_sample(tid), q = row_quarter(tid);
     float m1, m2;
     quarter_sums(sm, s, m1, m2);
+    const float rstd = rstd_in[s];
+    float dv[8], gv[8], hv[8];
+    load_units(sm, dy + s, q, sc, dv, gv, nullptr);
+    for (int t = 0; t < 8; ++t) hv[t] = h[qunit(q, t) * SP + s];
     m1 *= (1.0f / H);
     m2 *= (1.0f / H);
-    const float rstd = rstd_in[s];
-    const float *bias = sm + SW_B;
-    for (int u = 8 * q; u < 8 * q + 8; ++u) {
-        const float dh = dy[u * SP + s] * bias[u * NBCOL + sc];
-        dz[u * SP + s] = rstd * (dh - m1 - h[u * SP + s] * m2);
+    for (int t = 0; t < 8; ++t) {
+        const float dh = dv[t] * gv[t];
+        dz[qunit(q, t) * SP + s] = rstd * (dh - m1 - hv[t] * m2);
     }
 }
 
@@ -629,9 +796,33 @@ MBU_HD void write_partials(float *sm, const GradAcc &acc, float *out,
 }
 
 // ---- one tile: the stages after the input buffer is loaded; the caller
-// puts a barrier after each (the host build runs each stage for every
-// thread in turn)
+// puts a barrier after each, CTA-wide where cta_barrier_after (the host
+// build runs each stage for every thread in turn)
 constexpr int N_STAGES = 17;
+constexpr int WGRAD_STAGE = N_STAGES - 1;
+
+// the barrier after stage st: CTA-wide after the last warp-scoped stage
+// (every warp's samples ready for the weight gradient) and after the
+// weight gradient (the next tile overwrites what it read), warp-wide after
+// the others
+MBU_HHD constexpr bool cta_barrier_after(int st) {
+    return st >= WGRAD_STAGE - 1;
+}
+
+constexpr int count_cta_barriers() {
+    int n = 0;
+    for (int st = 0; st < N_STAGES; ++st) n += cta_barrier_after(st) ? 1 : 0;
+    return n;
+}
+
+// barriers a tile: CTA-wide; warp-wide (the 15 after stages 0..14 and the
+// arrival of the warp's input columns; the bf16 instances one more after
+// the upcast of its staging columns)
+constexpr int CTA_BARRIERS = count_cta_barriers();
+constexpr int WARP_BARRIERS = N_STAGES - CTA_BARRIERS + 1;
+constexpr int WARP_BARRIERS_BF16 = WARP_BARRIERS + 1;
+static_assert(CTA_BARRIERS == 2 && WARP_BARRIERS == 16,
+              "two CTA-wide barriers a tile, around the weight gradient");
 
 MBU_HD void tile_stage(int stage, float *sm, float *in, int n,
                        const float *ustats, LossHp hp, GradAcc &acc,
@@ -677,7 +868,7 @@ MBU_HD void tile_stage(int stage, float *sm, float *in, int n,
         stage_ln_bwd_apply(sm, sm + SA_DY1, sm + SA_H1, sm + SA_DZ1, 1,
                            sm + SS_RSTD1, tid);
         break;
-    default: stage_wgrad(sm, in, acc, tid); break;
+    default: stage_wgrad(sm, in, acc, tid); break;   // WGRAD_STAGE
     }
 }
 

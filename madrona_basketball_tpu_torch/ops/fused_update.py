@@ -47,7 +47,9 @@ float32, and H keeps its float32 feat matrix.
 
 `update_phase_kinks` is D's plain version with a report of the samples
 at a kink of the loss and of what they can change over the phase: the
-allowance chip_smoke.py adds to D's parity tier.
+allowance chip_smoke.py adds to D's parity tier.  `stage_probe` runs D's
+gradient launch once with clock stamps at every stage boundary
+(csrc/fused_update_probe.cu), and `occupancy` reports its barriers a tile.
 """
 
 from __future__ import annotations
@@ -77,6 +79,7 @@ N_BCOL = 8
 R_ACT = D                         # trajectory rows: obs | 6 actions | logp
 R_LOGP = D + NB
 FEAT_COLS = D + NB + 4            # obs | actions | logp | v_n | adv | ret_n
+TILE = 64                         # samples a tile of the kernels
 SHAPES = ((H, D), (H, H), (N_OUT, H), (H, N_BCOL))
 N_PARAMS = sum(r * c for r, c in SHAPES)  # 5216
 
@@ -542,6 +545,14 @@ bf16_launches = {"fused_update_phase": 0,
                  "fused_minibatch_grad_prefetch": 0}
 device_launches = 0  # D's device launches (D1 + D2 per minibatch), both
 #                      instances
+probe_launches = 0  # launches of D's stage probe (`stage_probe`)
+
+# the tile's stages in csrc/update_tile.cuh's order, after the arrival of
+# its input rows (the stage probe's attribution)
+STAGES = ("arrival", "prep", "fwd1", "ln1_stats", "ln1_apply", "fwd2",
+          "ln2_stats", "ln2_apply", "heads", "loss1", "loss2", "bwd_heads",
+          "ln2_bwd_stats", "ln2_bwd_apply", "bwd2", "ln1_bwd_stats",
+          "ln1_bwd_apply", "wgrad")
 
 
 def _flat(mats):
@@ -586,15 +597,19 @@ def _partials(dev):
 def occupancy(dev) -> dict:
     """Resident CTAs per SM of the gradient and reduce kernels
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), with their threads,
-    warps per SM and dynamic shared memory."""
+    warps per SM and dynamic shared memory, and the gradient kernel's
+    barriers a tile (CTA-wide; warp-wide, and in the bf16 instances)."""
     import ctypes
     _b, lib = _lib(torch.empty(0, device=dev))
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 9)()
     _b.check(lib.mbb_update_occupancy(ctypes.addressof(out)), "fused_update")
-    return {name: {"ctas_per_sm": out[i], "threads": out[2 + i],
-                   "warps_per_sm": out[i] * out[2 + i] // 32,
-                   "dynamic_smem_bytes": out[4 + i]}
-            for i, name in enumerate(("grad", "reduce"))}
+    occ = {name: {"ctas_per_sm": out[i], "threads": out[2 + i],
+                  "warps_per_sm": out[i] * out[2 + i] // 32,
+                  "dynamic_smem_bytes": out[4 + i]}
+           for i, name in enumerate(("grad", "reduce"))}
+    occ["grad"]["barriers_per_tile"] = {
+        "cta": out[6], "warp": out[7], "warp_bf16": out[8]}
+    return occ
 
 
 def fused_minibatch_grad(hp, feat, nrm, w1t, w2t, wht, bias):
@@ -697,3 +712,93 @@ def fused_update_phase(hp, idx, count, traj, side, nrm, ustats, params,
     (bf16_launches if bf16 else launches)["fused_update_phase"] += 1
     device_launches += 2 * n_mb
     return _split(p), _split(m), _split(v)
+
+
+def stage_probe(hp, idx, traj, side, nrm, ustats, params, *,
+                wb: int) -> dict:
+    """Kernel D's gradient launch over the first minibatch of `idx` (a
+    float32 trajectory on the card, raw side rows) with the stage probe's
+    clock stamps (csrc/fused_update_probe.cu): for each stamped warp of
+    CTA 0 and each of STAGES, the SM cycles of its own work and of its
+    wait at the barrier after it, as medians over the CTA's tiles, and
+    the median cycles of a whole tile, and the launch's partial sums (one
+    row per CTA, as `grad_partials` has D's).  Returns {"warps", "tiles",
+    "tile_cycles", "work", "wait", "partials"} (work / wait: {stage: [per
+    warp]})."""
+    global probe_launches
+    if traj.device.type != "cuda" or traj.dtype != F32:
+        raise ValueError("the stage probe runs on a float32 CUDA trajectory")
+    _check_mats(params)
+    from .. import _build as _b
+    _b.check_device(traj.device, idx=idx, side=side, nrm=nrm, ustats=ustats,
+                    **{f"params[{i}]": m for i, m in enumerate(params)})
+    lib = _b.load("fused_update_probe")
+    _, rows, W = traj.shape
+    dev = traj.device
+    bpm = hp.minibatch_size // wb
+    n_tiles = bpm * -(-wb // TILE)
+    grid = min(n_tiles, grad_ctas(dev))
+    max_tiles = -(-n_tiles // grid)
+    import ctypes
+    lay = (ctypes.c_int * 4)()
+    _b.check(lib.mbb_fused_update_probe_layout(ctypes.addressof(lay)),
+             "fused_update_probe")
+    slots, n_stages, warps = lay[0], lay[1], (lay[2], lay[3])
+    if n_stages + 1 != len(STAGES):
+        raise ValueError(f"the probe has {n_stages} stages, STAGES "
+                         f"{len(STAGES) - 1}")
+    stamps = torch.zeros((2, max_tiles, slots), dtype=torch.int64,
+                         device=dev)
+    idx, traj, side, nrm, ustats = (x.contiguous() for x in
+                                    (idx, traj, side, nrm, ustats))
+    parts = _partials(dev)
+    err = lib.mbb_fused_update_probe(
+        _b.ptr(idx), _b.ptr(traj), _b.ptr(side), _b.ptr(nrm), _b.ptr(ustats),
+        _b.ptr(_flat(params)), _b.ptr(parts), _b.ptr(stamps),
+        grad_ctas(dev), max_tiles, rows, W, wb, bpm, *_loss_args(hp),
+        _b.stream(dev))
+    _b.check(err, "fused_update_probe")
+    probe_launches += 1
+    st = stamps.cpu().numpy()
+    # slots: 0 tile start, 1 loads waited for, 2 past the arrival's
+    # barrier, 3 + 2 s stage s done, 4 + 2 s past its barrier
+    done = [1] + [3 + 2 * s for s in range(n_stages)]
+    work = {name: [float(np.median(st[k, :, d] - st[k, :, d - 1]))
+                   for k in range(2)] for name, d in zip(STAGES, done)}
+    wait = {name: [float(np.median(st[k, :, d + 1] - st[k, :, d]))
+                   for k in range(2)] for name, d in zip(STAGES, done)}
+    tile = [float(np.median(st[k, 1:, 0] - st[k, :-1, 0]))
+            for k in range(2)] if max_tiles > 1 else [None, None]
+    return {"warps": list(warps), "tiles": max_tiles, "tile_cycles": tile,
+            "work": work, "wait": wait, "partials": parts[:grid]}
+
+
+def grad_partials(hp, idx, traj, side, nrm, ustats, params, *,
+                  wb: int) -> torch.Tensor:
+    """Kernel D's own gradient launch over the first minibatch of `idx`
+    (a float32 trajectory on the card): the CTAs' rows of partial sums,
+    which the stage probe's launch has to equal bit for bit.  Runs D's
+    phase for that one minibatch on copies of `params` (the Adam step's
+    result is dropped) and counts no launch."""
+    if traj.device.type != "cuda" or traj.dtype != F32:
+        raise ValueError("grad_partials runs on a float32 CUDA trajectory")
+    _check_mats(params)
+    _b, lib = _lib(traj, idx=idx, side=side, nrm=nrm, ustats=ustats,
+                   **{f"params[{i}]": m for i, m in enumerate(params)})
+    _, rows, W = traj.shape
+    dev = traj.device
+    bpm = hp.minibatch_size // wb
+    grid = min(bpm * -(-wb // TILE), grad_ctas(dev))
+    idx, traj, side, nrm, ustats = (x.contiguous() for x in
+                                    (idx[:bpm], traj, side, nrm, ustats))
+    p = _flat(params)
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    cnt, parts = _b.device_int(0, dev), _partials(dev)
+    err = lib.mbb_fused_update_phase(
+        _b.ptr(idx), _b.ptr(cnt), _b.ptr(traj),
+        _b.ptr(side), _b.ptr(nrm), _b.ptr(ustats), _b.ptr(p), _b.ptr(m),
+        _b.ptr(v), _b.ptr(parts), grad_ctas(dev), rows, W, wb, bpm, 1,
+        *_loss_args(hp), float(hp.learning_rate), float(hp.max_grad_norm),
+        _b.stream(dev))
+    _b.check(err, "fused_update")
+    return parts[:grid]

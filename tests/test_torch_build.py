@@ -41,6 +41,9 @@ def test_kernel_signatures_parse_from_sources():
         # kernel J: pointers, noise kinds, agents, worlds, obs and action
         # strides, stream
         "eval_policy": [P, P] + [I] * 6 + [P],
+        # kernel D's stage probe: D's inputs, partials, stamps, max_parts,
+        # max_tiles, rows, W, wb, bpm, the loss's scalars, stream
+        "fused_update_probe": [P] * 8 + [I] * 6 + [F] * 3 + [I, P],
     }
     # a source's entries besides its kernel's: its bf16 instance (the
     # trajectory as bf16 bits), the resident CTAs per SM (kernel C's at a
@@ -53,7 +56,9 @@ def test_kernel_signatures_parse_from_sources():
                                "mbb_fused_gae_occupancy": [I, P]},
                  "obs_moments": {"mbb_obs_moments_bf16": [P] * 3 + [I] * 5 +
                                  [P]},
-                 "trace_stamp": {"mbb_trace_stamp_calibrate": [P, P, I, P]}}
+                 "trace_stamp": {"mbb_trace_stamp_calibrate": [P, P, I, P]},
+                 "fused_update_probe": {
+                     "mbb_fused_update_probe_layout": [P]}}
     # one source, six entries: kernels D, G and H, D's and G's bf16
     # instances, and the occupancy
     update = {

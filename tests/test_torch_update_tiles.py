@@ -43,7 +43,8 @@ def host():
                     str(_build.CSRC / "host_update.cpp")], check=True)
     lib = ctypes.CDLL(str(out))
     for entry in ("mbb_host_update_phase", "mbb_host_minibatch_grad_prefetch",
-                  "mbb_host_minibatch_grad"):
+                  "mbb_host_minibatch_grad", "mbb_host_sample_owner",
+                  "mbb_host_warp_stages", "mbb_host_update_layout"):
         getattr(lib, entry).argtypes = _build.c_signature(
             _build.CSRC / "host_update.cpp", entry)
     return lib
@@ -231,3 +232,53 @@ def test_host_phase_reads_the_adam_count_from_memory(host):
             lim = 1e-4 if name == "params" else 1e-4 * float(w.abs().max())
             assert not bool(((g - w).abs() > lim + a).any()), \
                 f"{name}[{i}]: {float((g - w).abs().max())}"
+
+
+@pytest.mark.parametrize("n", [64, 37])
+def test_warp_stages_touch_only_their_own_samples(host, n):
+    """Stages 0..15 of one tile (n valid samples) in the host build, run
+    by one warp's 32 threads alone, with every float outside its 8 sample
+    columns of the activation, scratch and input rows poisoned (NaN, and a
+    huge finite value): the warp's columns come out bit for bit as in the
+    unpoisoned run of all 256 threads, and the poison is left as it was,
+    for each of the 8 warps.  So a warp computes its own samples from its
+    own samples, and those stages can end in warp-wide barriers; the
+    gradient kernel has 2 CTA-wide barriers a tile (16 warp-wide, 17 with
+    the bf16 upcast)."""
+    lay = (ctypes.c_int * 8)()
+    host.mbb_host_update_layout(lay)
+    sm_floats, in_rows, S, SW, cta, warp, warp16, n_stages = lay
+    assert (cta, warp, warp16) == (2, 16, 17)
+    assert len(FU.STAGES) == n_stages + 1   # the stage probe's names
+    assert S == 64 and SW * 8 == S and in_rows == FU.FEAT_COLS + 1
+    hp = PPOParams(num_envs=W, num_rollout_steps=T)
+    rng, nrm, params, traj, side, ustats = _inputs(15)
+    t, w0 = 2, 64
+    tile = torch.zeros((in_rows, S))
+    tile[:FU.D] = traj[t, :FU.D, w0:w0 + S]
+    tile[FU.D + 1:FU.D + 2 + FU.NB] = traj[t, FU.R_ACT:FU.R_LOGP + 1,
+                                           w0:w0 + S]
+    tile[FU.D + 2 + FU.NB:] = side[t, :3, w0:w0 + S]
+    owner = np.zeros(sm_floats, dtype=np.int32)
+    host.mbb_host_sample_owner(owner.ctypes.data)
+    flat = FU._flat(params)
+
+    def run(keep, fill):
+        sm = torch.zeros(sm_floats)
+        host.mbb_host_warp_stages(
+            flat.data_ptr(), nrm.data_ptr(), ustats.data_ptr(),
+            tile.data_ptr(), n, *_args(hp), hp.minibatch_size, keep, fill,
+            sm.data_ptr())
+        return sm.numpy().view(np.int32)
+    base = run(-1, 0.0)
+    assert np.isfinite(base.view(np.float32)[owner >= 0]).all()
+    for w in range(8):
+        own = owner == w
+        assert own.sum() > 0
+        rest = (owner >= -1) & ~own
+        for fill in (float("nan"), -3e38):
+            got = run(w, fill)
+            assert np.array_equal(got[own], base[own]), (w, fill)
+            poison = np.array([fill], dtype=np.float32).view(np.int32)
+            assert (got[rest] == poison).all(), (w, fill)
+
