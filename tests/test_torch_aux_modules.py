@@ -19,6 +19,7 @@ from madrona_basketball_tpu_torch.models import moving_avg as E
 from madrona_basketball_tpu_torch.models import popart as P
 from madrona_basketball_tpu_torch.ppo import buffers as B
 from madrona_basketball_tpu_torch.utils import profiling
+from tests import torch_threads  # noqa: F401
 
 TOL = 1e-6
 

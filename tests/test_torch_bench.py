@@ -21,6 +21,7 @@ from madrona_basketball_tpu_torch.config import SimConfig
 from madrona_basketball_tpu_torch.engine_fused import FusedEngine
 from madrona_basketball_tpu_torch.env import BasketballEnv
 from madrona_basketball_tpu_torch.ops import fused_step as FS
+from tests import torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -29,7 +30,7 @@ def _bench(*args):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     return subprocess.run(
         [sys.executable, "-m", "madrona_basketball_tpu_torch.bench", *args],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=30)
 
 
 def test_bench_cpu_prints_one_json_line():

@@ -41,6 +41,7 @@ from madrona_basketball_tpu_torch.ops import fused_update as FU
 from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
 from madrona_basketball_tpu_torch.utils.jax_params import (adam_from_numpy,
                                                            agent_from_numpy)
+from tests import torch_threads  # noqa: F401
 
 BF16 = torch.bfloat16
 F32 = torch.float32
@@ -224,7 +225,7 @@ def _host(name, entries):
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared",
                     "-fPIC", "-o", str(out), str(_build.CSRC / f"{name}.cpp")],
-                   check=True)
+                   check=True, timeout=120)
     lib = ctypes.CDLL(str(out))
     src = _build.CSRC / f"{name}.cpp"
     for entry in entries:

@@ -15,6 +15,7 @@ import torch.distributed as dist
 from madrona_basketball_tpu_torch import cli
 from madrona_basketball_tpu_torch.utils import checkpoint as ckpt
 from tests import torch_dist_workers as DW
+from tests import torch_threads  # noqa: F401
 
 ARGV = ["--device", "cpu", "--num-rollout-steps", "4", "--num-iterations",
         "2", "--log-every-n-iterations", "1",

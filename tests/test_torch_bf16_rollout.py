@@ -18,6 +18,8 @@ ticks, one 128-world block, trainee 1) on identical injected noise.
     margin lies within that tolerance: those are counted and printed
     (run with -s), and must stay under 1 %."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +37,8 @@ from madrona_basketball_tpu_torch.config import SimConfig
 from madrona_basketball_tpu_torch.constants import ACTION_BUCKETS
 from madrona_basketball_tpu_torch.ops import fused_rollout as TFR
 from madrona_basketball_tpu_torch.utils.jax_params import agent_from_numpy
+from tests import torch_threads  # noqa: F401
+from tests.torch_once import once_per_run
 
 W, T, TI = 128, 2, 1
 NL = TFR.N_LOGITS
@@ -42,11 +46,10 @@ BF16 = torch.bfloat16
 POLICY_TOL = 2e-3
 
 
-@pytest.fixture(scope="module")
-def case():
-    """The inputs, the JAX kernel's outputs with bf16 storage and with
-    the bf16 policy (two interpret-mode compiles), and the port's
-    agent."""
+def _jax_inputs():
+    """The inputs from numpy seeds and the JAX init and reset tick: both
+    agents, the rows after the tick and the packed external noise, as
+    numpy."""
     jcfg = JSimConfig()
     _, agent = jagent.init_agent(jax.random.PRNGKey(11))
     _, frozen = jagent.init_agent(jax.random.PRNGKey(12))
@@ -64,25 +67,44 @@ def case():
     noise = np.asarray(JFR.pack_rollout_noise(
         [jnp.asarray(c) for c in chunks], jnp.asarray(t_u),
         jnp.asarray(f_u)))
-    mats = JFR.pack_policy(agent) + JFR.pack_policy(frozen)
-    want = {}
-    for name, kw, frz in (("traj", dict(traj_dtype=jnp.bfloat16), False),
-                          ("policy", dict(policy_bf16=True), True)):
-        rk = JFR.make_fused_rollout(jcfg, W, T, trainee_idx=TI,
-                                    use_frozen=frz, block=128,
-                                    interpret=True, external_noise=True,
-                                    obs_moments=True, **kw)
-        out = rk(jnp.asarray(noise), sf, si, obs0,
-                 *(mats if frz else mats[:5]))
-        want[name] = [np.asarray(x.astype(jnp.float32))
-                      if x.dtype == jnp.bfloat16 else np.asarray(x)
-                      for x in out]
-        if name == "traj":
-            assert out[3].dtype == jnp.bfloat16
-    ta = agent_from_numpy(jax.tree.map(np.asarray, agent), "cpu")
-    tf = agent_from_numpy(jax.tree.map(np.asarray, frozen), "cpu")
-    rows = tuple(torch.tensor(np.asarray(x)) for x in (sf, si, obs0))
-    return dict(rows=rows, noise=torch.tensor(noise), want=want,
+    return dict(agent=jax.tree.map(np.asarray, agent),
+                frozen=jax.tree.map(np.asarray, frozen),
+                rows=[np.asarray(x) for x in (sf, si, obs0)], noise=noise)
+
+
+def _jax_kernel(j, name):
+    """The JAX kernel's outputs with bf16 storage ("traj", trainee only)
+    or the bf16 policy ("policy", the frozen opponent on): one
+    interpret-mode compile each."""
+    kw, frz = {"traj": (dict(traj_dtype=jnp.bfloat16), False),
+               "policy": (dict(policy_bf16=True), True)}[name]
+    mats = JFR.pack_policy(j["agent"]) + JFR.pack_policy(j["frozen"])
+    rk = JFR.make_fused_rollout(JSimConfig(), W, T, trainee_idx=TI,
+                                use_frozen=frz, block=128, interpret=True,
+                                external_noise=True, obs_moments=True, **kw)
+    out = rk(jnp.asarray(j["noise"]), *(jnp.asarray(x) for x in j["rows"]),
+             *(mats if frz else mats[:5]))
+    return out[3].dtype, [np.asarray(x.astype(jnp.float32))
+                          if x.dtype == jnp.bfloat16 else np.asarray(x)
+                          for x in out]
+
+
+@pytest.fixture(scope="module")
+def case(tmp_path_factory):
+    """The inputs, the JAX kernel's outputs with bf16 storage and with
+    the bf16 policy (each once a run, tests/torch_once.py), and the
+    port's agent."""
+    j = once_per_run(tmp_path_factory, "bf16_rollout_inputs",
+                     {(W, T): _jax_inputs})[(W, T)]
+    got = once_per_run(tmp_path_factory, "bf16_rollout", {
+        (W, T, TI, n): functools.partial(_jax_kernel, j, n)
+        for n in ("traj", "policy")})
+    assert got[(W, T, TI, "traj")][0] == jnp.bfloat16
+    ta = agent_from_numpy(j["agent"], "cpu")
+    tf = agent_from_numpy(j["frozen"], "cpu")
+    rows = tuple(torch.tensor(x) for x in j["rows"])
+    return dict(rows=rows, noise=torch.tensor(j["noise"]),
+                want={n: got[(W, T, TI, n)][1] for n in ("traj", "policy")},
                 mats=TFR.pack_policy(ta), fmats=TFR.pack_policy(tf))
 
 

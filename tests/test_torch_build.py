@@ -12,6 +12,7 @@ import pytest
 from madrona_basketball_tpu_torch import _build
 from madrona_basketball_tpu_torch.config import SimConfig
 from madrona_basketball_tpu_torch.ops import fused_step as FS
+from tests import torch_threads  # noqa: F401
 
 P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 

@@ -31,6 +31,7 @@ from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
 from madrona_basketball_tpu_torch.ppo.train_fused import (
     METRICS, init_train_state, make_train_iteration, perm_seed, pulse_seed,
     state_tensors)
+from tests import torch_threads  # noqa: F401
 
 N = 3
 # (worlds, ticks): the tiled rollout needs a multiple of 1024 worlds

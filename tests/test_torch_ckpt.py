@@ -35,6 +35,7 @@ from madrona_basketball_tpu_torch.utils import checkpoint as ckpt
 from madrona_basketball_tpu_torch.utils import flax_msgpack as FM
 from madrona_basketball_tpu_torch.utils.jax_params import (agent_from_numpy,
                                                            agent_to_numpy)
+from tests import torch_threads  # noqa: F401
 from tests.test_torch_infer_chunk import _one_thread  # noqa: F401
 
 VALUES = [0, 1, 127, 128, 255, 256, 65535, 65536, 2 ** 32, 2 ** 63,
@@ -192,7 +193,7 @@ def test_codec_needs_no_msgpack_package():
              "print(sorted(m for m in sys.modules "
              "if m.split('.')[0] in ('msgpack', 'flax', 'jax')))")
     out = subprocess.run([sys.executable, "-c", probe], cwd=root,
-                         capture_output=True, text=True, timeout=120,
+                         capture_output=True, text=True, timeout=30,
                          env=dict(os.environ, PYTHONPATH=str(root)))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"

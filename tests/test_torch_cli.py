@@ -30,6 +30,7 @@ from madrona_basketball_tpu_torch.ppo.train_fused import (BF16_POLICY_NEEDS,
                                                           BF16_TRAJ_NEEDS)
 from madrona_basketball_tpu_torch.utils import checkpoint as ckpt
 from madrona_basketball_tpu_torch.utils.jax_params import agent_from_numpy
+from tests import torch_threads  # noqa: F401
 
 # 32 worlds: the rollout wrapper takes whole warps of worlds
 SMALL = ["--device", "cpu", "--num-envs", "32", "--num-rollout-steps", "8",

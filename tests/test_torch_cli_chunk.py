@@ -14,6 +14,7 @@ import torch
 from madrona_basketball_tpu_torch import cli
 from madrona_basketball_tpu_torch.ppo.train_fused import state_tensors
 from madrona_basketball_tpu_torch.utils import checkpoint as ckpt
+from tests import torch_threads  # noqa: F401
 
 ARGS = ["--device", "cpu", "--num-envs", "32", "--num-rollout-steps", "4",
         "--num-iterations", "5", "--log-every-n-iterations", "2",

@@ -36,6 +36,7 @@ from madrona_basketball_tpu_torch.ppo.train_fused import (CollectNoise,
                                                           make_collect)
 from madrona_basketball_tpu_torch.utils.jax_params import (agent_from_numpy,
                                                            rows_from_numpy)
+from tests import torch_threads  # noqa: F401
 
 W, T, TI, ITERS = 256, 6, 1, 2
 OBS = C.OBS_SIZE

@@ -8,6 +8,7 @@ checks the JAX forward produces the same logits/values."""
 
 import numpy as np
 import pytest
+from tests import torch_threads  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -30,6 +30,7 @@ from madrona_basketball_tpu_torch.controllers import (HumanController,
 from madrona_basketball_tpu_torch.env import BasketballEnv
 from madrona_basketball_tpu_torch.ops.layout import I_IDX
 from madrona_basketball_tpu_torch.utils.jax_params import agent_from_numpy
+from tests import torch_threads  # noqa: F401
 
 
 class _Keys:

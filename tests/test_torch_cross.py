@@ -19,6 +19,7 @@ from madrona_basketball_tpu.crosscheck.torch_ppo import (
     TorchAgent, compute_advantages_torch, update_policy_torch)
 from madrona_basketball_tpu.utils.torch_compat import (
     agent_params_from_torch_state_dict)
+from tests import torch_threads  # noqa: F401
 
 F32 = jnp.float32
 

@@ -32,6 +32,7 @@ from madrona_basketball_tpu_torch.native import load_host_step
 from madrona_basketball_tpu_torch.ops import fused_step as FS
 from madrona_basketball_tpu_torch.ops.layout import (ACTION_ROWS, F_IDX,
                                                      RESET_ROWS)
+from tests import torch_threads  # noqa: F401
 
 W, TICKS = 256, 40
 

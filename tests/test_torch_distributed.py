@@ -20,6 +20,7 @@ from madrona_basketball_tpu_torch.parallel.distributed import (
     backend_for, init_distributed)
 from madrona_basketball_tpu_torch.utils import checkpoint as ckpt
 from tests import torch_dist_workers as DW
+from tests import torch_threads  # noqa: F401
 
 ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
 

@@ -42,6 +42,7 @@ from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
 from madrona_basketball_tpu_torch.ppo.train import clip_adam_step
 from madrona_basketball_tpu_torch.ppo.train_fused import make_train_iteration
 from tests import torch_dist_workers as DW
+from tests import torch_threads  # noqa: F401
 
 D = FR.ROLL_OBS
 ONE = {"W": 64, "T": 4, "iters": 2, "dp": True}

@@ -31,6 +31,7 @@ from madrona_basketball_tpu_torch.engine import init_rows
 from madrona_basketball_tpu_torch.engine_fused import FusedEngine
 from madrona_basketball_tpu_torch.export import export_tensors
 from madrona_basketball_tpu_torch.ops.fused_step import pack_multistep_noise
+from tests import torch_threads  # noqa: F401
 from tests.test_torch_init import _jax_reset_u
 
 W = 32

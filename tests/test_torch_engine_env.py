@@ -20,6 +20,7 @@ from madrona_basketball_tpu.ops import layout as JL
 
 from madrona_basketball_tpu_torch.config import SimConfig
 from madrona_basketball_tpu_torch.env import BasketballEnv
+from tests import torch_threads  # noqa: F401
 from tests.test_fused import _compare_states
 from tests.test_torch_engine import _BUCKETS, W, _actions, _init_from_jax
 

@@ -26,6 +26,7 @@ from madrona_basketball_tpu_torch.env import BasketballEnv
 from madrona_basketball_tpu_torch.models.agent import _actor, act, init_agent
 from madrona_basketball_tpu_torch.ops import eval_policy as EP
 from madrona_basketball_tpu_torch.ops.fused_rollout import gumbel_from_uniform
+from tests import torch_threads  # noqa: F401
 
 NL = sum(C.ACTION_BUCKETS)
 NA = len(C.ACTION_BUCKETS)

@@ -56,6 +56,7 @@ from madrona_basketball_tpu_torch.ppo.train_fused import (
 from madrona_basketball_tpu_torch.utils import profiling as P
 
 from .full_game_rows import CLOCK, INBOUND, stage
+from tests import torch_threads  # noqa: F401
 
 CFG = GAME_MODES["full"]
 W = 64

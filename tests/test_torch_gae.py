@@ -20,6 +20,7 @@ from madrona_basketball_tpu.ppo.train import _stats_step as j_stats_step
 from madrona_basketball_tpu_torch.ops import fused_gae as TFG
 from madrona_basketball_tpu_torch.ops.gae import compute_gae
 from madrona_basketball_tpu_torch.ppo import train as TT
+from tests import torch_threads  # noqa: F401
 
 T, W, ROWS = 8, 256, 16
 RV, RR, RD = 3, 5, 7

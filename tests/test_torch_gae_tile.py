@@ -17,6 +17,7 @@ import torch
 
 from madrona_basketball_tpu_torch import _build
 from madrona_basketball_tpu_torch.ops import fused_gae as FG
+from tests import torch_threads  # noqa: F401
 
 T, ROWS = 8, 16
 R_VALUE, R_REW, R_DONE = 12, 13, 14
@@ -31,7 +32,8 @@ def host_gae():
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([gxx, "-O1", "-std=c++17", "-ffp-contract=off", "-shared",
                     "-fPIC", "-o", str(out),
-                    str(_build.CSRC / "host_gae.cpp")], check=True)
+                    str(_build.CSRC / "host_gae.cpp")], check=True,
+                   timeout=120)
     import ctypes
     lib = ctypes.CDLL(str(out))
     lib.mbb_host_gae.argtypes = _build.c_signature(

@@ -18,6 +18,7 @@ from madrona_basketball_tpu.config import SimConfig as JSimConfig
 from madrona_basketball_tpu_torch.config import SimConfig
 from madrona_basketball_tpu_torch.native import NativeEngine
 from madrona_basketball_tpu_torch.ops import layout as L
+from tests import torch_threads  # noqa: F401
 
 try:
     from madrona_basketball_tpu.native import NativeEngine as JNativeEngine

@@ -32,6 +32,7 @@ from madrona_basketball_tpu_torch.engine import init_rows
 from madrona_basketball_tpu_torch.env import BasketballEnv
 from madrona_basketball_tpu_torch.infer import infer, make_policy_fn
 from madrona_basketball_tpu_torch.utils.jax_params import agent_from_numpy
+from tests import torch_threads  # noqa: F401
 from tests.test_torch_init import _jax_reset_u
 from tests.test_torch_infer_chunk import _one_thread  # noqa: F401
 

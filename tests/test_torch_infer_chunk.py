@@ -18,6 +18,7 @@ from madrona_basketball_tpu_torch.env import BasketballEnv
 from madrona_basketball_tpu_torch.infer import (EvalChunk, generator, infer,
                                                 make_policy_fn)
 from madrona_basketball_tpu_torch.models.agent import init_agent
+from tests import torch_threads  # noqa: F401
 
 CFG = SimConfig(time_per_period=1.0)
 W = 3

@@ -20,6 +20,7 @@ from madrona_basketball_tpu_torch.infer import (LOG_ROWS, infer, log_row,
                                                 main, multi_gen_infer)
 from madrona_basketball_tpu_torch.models.agent import init_agent
 from madrona_basketball_tpu_torch.utils.checkpoint import save_agent
+from tests import torch_threads  # noqa: F401
 from tests.test_torch_infer_chunk import _one_thread  # noqa: F401
 
 os.environ.setdefault("SDL_VIDEODRIVER", "dummy")

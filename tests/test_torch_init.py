@@ -19,6 +19,7 @@ from madrona_basketball_tpu.ops import layout as JL
 from madrona_basketball_tpu_torch.config import GAME_MODES
 from madrona_basketball_tpu_torch.engine import init_rows
 from madrona_basketball_tpu_torch.ops.layout import F_IDX
+from tests import torch_threads  # noqa: F401
 
 _KW = {"tag": {}, "1v1": {"tag_mode": False},
        "full": {"one_on_one": False, "tag_mode": False}}

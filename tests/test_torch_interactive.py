@@ -44,6 +44,7 @@ from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
 from madrona_basketball_tpu_torch.ppo.train_interactive import (
     InteractiveTrainer)
 from madrona_basketball_tpu_torch.utils.jax_params import agent_from_numpy
+from tests import torch_threads  # noqa: F401
 from tests.test_torch_infer_chunk import _one_thread  # noqa: F401
 from tests.test_torch_init import _jax_reset_u
 

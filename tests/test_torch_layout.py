@@ -23,6 +23,7 @@ from madrona_basketball_tpu_torch.ops import fused_rollout as TFR
 from madrona_basketball_tpu_torch.ops import fused_step as TFS
 from madrona_basketball_tpu_torch.ops import layout as TL
 from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
+from tests import torch_threads  # noqa: F401
 
 CSRC = Path(TFS.__file__).resolve().parent.parent / "csrc"
 

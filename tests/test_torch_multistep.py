@@ -28,6 +28,7 @@ from madrona_basketball_tpu_torch.config import SimConfig
 from madrona_basketball_tpu_torch.ops import fused_rollout as FR
 from madrona_basketball_tpu_torch.ops import fused_step as FS
 from madrona_basketball_tpu_torch.ops.layout import ACTION_ROWS, RESET_ROWS
+from tests import torch_threads  # noqa: F401
 from tests.test_torch_step import _stage
 
 W, K = 128, 3

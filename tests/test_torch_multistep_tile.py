@@ -16,6 +16,7 @@ from madrona_basketball_tpu_torch.engine import init_rows
 from madrona_basketball_tpu_torch.ops import fused_step as FS
 from madrona_basketball_tpu_torch.ops.layout import (ACTION_ROWS, F_IDX,
                                                      RESET_ROWS)
+from tests import torch_threads  # noqa: F401
 from tests.test_torch_device_body import host_step  # noqa: F401 (fixture)
 
 K = 8

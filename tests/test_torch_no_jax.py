@@ -12,6 +12,7 @@ import sys
 from pathlib import Path
 
 import madrona_basketball_tpu_torch as port
+from tests import torch_threads  # noqa: F401
 
 ROOT = Path(port.__file__).resolve().parent.parent
 
@@ -32,7 +33,7 @@ print(",".join(bad))
 def test_port_modules_import_without_jax():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=30)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.strip().split("\n") + [""] * (
         2 - len(out.stdout.strip().split("\n")))

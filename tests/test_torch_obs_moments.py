@@ -20,6 +20,7 @@ from madrona_basketball_tpu.ops import fused_gae as JFG
 from madrona_basketball_tpu_torch.models.normalize import (
     RMSState, rms_update_padded_moments)
 from madrona_basketball_tpu_torch.ops import fused_gae as TFG
+from tests import torch_threads  # noqa: F401
 
 T, ROWS, W, USED, FULL = 4, 128, 2048, 103, 128
 

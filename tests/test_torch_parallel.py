@@ -27,6 +27,7 @@ from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
 from madrona_basketball_tpu_torch.ppo.train_fused import (
     make_train_iteration, shard_worlds)
 from tests import torch_dist_workers as DW
+from tests import torch_threads  # noqa: F401
 
 SPEC = {"W": 64, "T": 4, "frozen": True, "iters": 2, "perm_shape": (4, 4)}
 

@@ -21,6 +21,7 @@ from madrona_basketball_tpu_torch.models import agent as tagent
 from madrona_basketball_tpu_torch.models import normalize as tnorm
 from madrona_basketball_tpu_torch.ops import fused_rollout as TFR
 from madrona_basketball_tpu_torch.utils.jax_params import agent_from_numpy
+from tests import torch_threads  # noqa: F401
 
 B = 96
 NL = sum(C.ACTION_BUCKETS)

@@ -20,6 +20,7 @@ from madrona_basketball_tpu_torch.crosscheck import torch_ppo as P
 from madrona_basketball_tpu_torch.models.agent import init_agent
 from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
 from madrona_basketball_tpu_torch.utils.checkpoint import state_dict
+from tests import torch_threads  # noqa: F401
 
 
 def _pair(seed):

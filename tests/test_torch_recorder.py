@@ -19,6 +19,7 @@ from madrona_basketball_tpu_torch import cli
 from madrona_basketball_tpu_torch.config import SimConfig
 from madrona_basketball_tpu_torch.ppo import train_fused as TF
 from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
+from tests import torch_threads  # noqa: F401
 
 SCHEMA = {"agent_pos": ((2, 3), "float32"), "ball_pos": ((1, 3), "float32"),
           "ball_vel": ((1, 3), "float32"), "orientation": ((2, 4), "float32"),

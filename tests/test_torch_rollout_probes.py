@@ -10,6 +10,8 @@ with the bf16 flags in tests/test_torch_rollout_probes_bf16*.py.  Integer
 rows exact, float rows at tests/test_torch_rollout.py's tiers; plus each
 probe's own semantics, and the wrapper's refusal of an unknown probe."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,22 +28,41 @@ from madrona_basketball_tpu_torch.ops import fused_rollout as TFR
 from madrona_basketball_tpu_torch.ops.fused_step import step_rows_plain
 from madrona_basketball_tpu_torch.ops.layout import ACTION_ROWS
 from madrona_basketball_tpu_torch.utils.jax_params import agent_from_numpy
+from tests import torch_threads  # noqa: F401
+from tests.torch_once import once_per_run
 
 W, T, TI = 128, 2, 1
 NL = TFR.N_LOGITS
 
 
-def probe_case(kernels):
+def _jax_inputs(chunks, t_u, f_u):
+    """The JAX side's inputs: both agents (the JAX init), the packed
+    external noises and policies, as numpy."""
+    _, agent = jagent.init_agent(jax.random.PRNGKey(11))
+    _, frozen = jagent.init_agent(jax.random.PRNGKey(12))
+    noises = {"random": np.asarray(JFR.pack_rollout_noise(
+        [jnp.asarray(c) for c in chunks], jnp.asarray(t_u),
+        jnp.asarray(f_u)))}
+    half = jnp.full((T, NL, W), 0.5, jnp.float32)
+    noises["constant"] = np.asarray(JFR.pack_rollout_noise(
+        [jnp.zeros((9, W), jnp.float32)] * T, half, half))
+    mats = JFR.pack_policy(agent) + JFR.pack_policy(frozen)
+    return dict(agent=jax.tree.map(np.asarray, agent),
+                frozen=jax.tree.map(np.asarray, frozen), noises=noises,
+                mats=[np.asarray(m) for m in mats])
+
+
+def probe_case(tmp_path_factory, kernels):
     """Inputs from numpy seeds and the JAX kernel's outputs for each
     kernels {name: (probe, noise[, flags])} (noise "random": the drawn
     external noise; "constant": sim rows 0.0, uniforms 0.5; flags: the
     kernel's traj_dtype / policy_bf16, a bf16 trajectory returned upcast
     to float32 and its dtype in "dtypes"), with the port's rows, noises
     and packed policies.  The worlds: the port's plain init on
-    numpy spawn draws and one plain tick (its obs the rollout's first)."""
+    numpy spawn draws and one plain tick (its obs the rollout's first).
+    The JAX inputs, and each kernel's outputs keyed by its probe, noise
+    and flags, are computed once a run (tests/torch_once.py)."""
     jcfg = JSimConfig()
-    _, agent = jagent.init_agent(jax.random.PRNGKey(11))
-    _, frozen = jagent.init_agent(jax.random.PRNGKey(12))
     rng = np.random.RandomState(21)
 
     def sim_noise():
@@ -56,30 +77,33 @@ def probe_case(kernels):
     chunks = [sim_noise() for _ in range(T)]
     t_u = rng.uniform(0, 1, (T, NL, W)).astype(np.float32)
     f_u = rng.uniform(0, 1, (T, NL, W)).astype(np.float32)
-    noises = {"random": np.asarray(JFR.pack_rollout_noise(
-        [jnp.asarray(c) for c in chunks], jnp.asarray(t_u),
-        jnp.asarray(f_u)))}
-    half = jnp.full((T, NL, W), 0.5, jnp.float32)
-    noises["constant"] = np.asarray(JFR.pack_rollout_noise(
-        [jnp.zeros((9, W), jnp.float32)] * T, half, half))
-    mats = JFR.pack_policy(agent) + JFR.pack_policy(frozen)
-    want, dtypes = {}, {}
-    for name, (probe, noise, *flags) in kernels.items():
+    key = (W, T, 11, 12, 21)
+    j = once_per_run(tmp_path_factory, "rollout_probe_inputs", {
+        key: functools.partial(_jax_inputs, chunks, t_u, f_u)})[key]
+    mats = [jnp.asarray(m) for m in j["mats"]]
+
+    def kernel(probe, noise, flags):
         rk = JFR.make_fused_rollout(jcfg, W, T, trainee_idx=TI,
                                     use_frozen=True, block=128,
                                     interpret=True, external_noise=True,
-                                    obs_moments=True, probe=probe,
-                                    **(flags[0] if flags else {}))
-        out = rk(jnp.asarray(noises[noise]), sf, si, obs0, *mats)
-        dtypes[name] = out[3].dtype
-        want[name] = [np.asarray(x.astype(jnp.float32))
-                      if x.dtype == jnp.bfloat16 else np.asarray(x)
-                      for x in out]
-    ta = agent_from_numpy(jax.tree.map(np.asarray, agent), "cpu")
-    tf = agent_from_numpy(jax.tree.map(np.asarray, frozen), "cpu")
+                                    obs_moments=True, probe=probe, **flags)
+        out = rk(jnp.asarray(j["noises"][noise]), sf, si, obs0, *mats)
+        return out[3].dtype, [np.asarray(x.astype(jnp.float32))
+                              if x.dtype == jnp.bfloat16 else np.asarray(x)
+                              for x in out]
+
+    keys, computes = {}, {}
+    for name, (probe, noise, *flags) in kernels.items():
+        flags = flags[0] if flags else {}
+        keys[name] = (W, T, TI, probe, noise, tuple(sorted(flags.items())))
+        computes[keys[name]] = functools.partial(kernel, probe, noise, flags)
+    got = once_per_run(tmp_path_factory, "rollout_probe", computes)
+    want = {name: got[k][1] for name, k in keys.items()}
+    dtypes = {name: got[k][0] for name, k in keys.items()}
     return dict(rows=rows, want=want, dtypes=dtypes,
-                noise={k: torch.tensor(v) for k, v in noises.items()},
-                mats=TFR.pack_policy(ta), fmats=TFR.pack_policy(tf))
+                noise={k: torch.tensor(v) for k, v in j["noises"].items()},
+                mats=TFR.pack_policy(agent_from_numpy(j["agent"], "cpu")),
+                fmats=TFR.pack_policy(agent_from_numpy(j["frozen"], "cpu")))
 
 
 def run_probe(c, probe, noise="random", **kw):
@@ -127,8 +151,9 @@ def assert_traj_tiers(traj_t, traj_k):
 
 
 @pytest.fixture(scope="module")
-def case():
-    return probe_case({p: (p, "random") for p in ("sim_only",
+def case(tmp_path_factory):
+    return probe_case(tmp_path_factory,
+                      {p: (p, "random") for p in ("sim_only",
                                                   "policy_only")})
 
 

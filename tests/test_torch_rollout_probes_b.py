@@ -23,13 +23,14 @@ import torch
 
 from madrona_basketball_tpu_torch import bench_rollout_attr as BA
 from madrona_basketball_tpu_torch.ops import fused_rollout as TFR
+from tests import torch_threads  # noqa: F401
 from tests.test_torch_rollout_probes import (T, W, assert_rollout_tiers,
                                              probe_case, run_probe)
 
 
 @pytest.fixture(scope="module")
-def case():
-    return probe_case({"constant": (None, "constant")})
+def case(tmp_path_factory):
+    return probe_case(tmp_path_factory, {"constant": (None, "constant")})
 
 
 def test_no_prng_plain_matches_the_jax_kernel_on_constants(case):

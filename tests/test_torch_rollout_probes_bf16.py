@@ -37,6 +37,7 @@ from madrona_basketball_tpu_torch.config import SimConfig
 from madrona_basketball_tpu_torch.constants import ACTION_BUCKETS
 from madrona_basketball_tpu_torch.ops import fused_rollout as TFR
 from madrona_basketball_tpu_torch.ops.layout import ACTION_ROWS
+from tests import torch_threads  # noqa: F401
 from tests.test_torch_rollout_probes import (NL, T, TI, W,
                                              assert_rollout_tiers,
                                              probe_case, run_probe)
@@ -134,10 +135,11 @@ def assert_bf16_policy_tier(c, got, want, probe, noise):
 
 
 @pytest.fixture(scope="module")
-def case():
+def case(tmp_path_factory):
     """Four interpret-mode compiles: sim_only with bf16 storage,
     policy_only with each flag."""
     return probe_case(
+        tmp_path_factory,
         {"sim_only_traj": ("sim_only", "random", JAX_FLAGS["traj"]),
          **{f"policy_only_{b}": ("policy_only", "random", JAX_FLAGS[b])
             for b in ("traj", "policy", "both")}})

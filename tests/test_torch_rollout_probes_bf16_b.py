@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from madrona_basketball_tpu_torch.ops import fused_rollout as TFR
+from tests import torch_threads  # noqa: F401
 from tests.test_torch_rollout_probes import T, W, probe_case, run_probe
 from tests.test_torch_rollout_probes_bf16 import (BF16, FLAGS, JAX_FLAGS,
                                                   assert_bf16_policy_tier,
@@ -26,10 +27,11 @@ from tests.test_torch_rollout_probes_bf16 import (BF16, FLAGS, JAX_FLAGS,
 
 
 @pytest.fixture(scope="module")
-def case():
+def case(tmp_path_factory):
     """Four interpret-mode compiles: no_prng on the constants and no_traj
     on drawn noise, each with bf16 storage and with the bf16 policy."""
     return probe_case(
+        tmp_path_factory,
         {**{f"no_prng_{b}": ("no_prng", "constant", JAX_FLAGS[b])
             for b in ("traj", "policy")},
          **{f"no_traj_{b}": ("no_traj", "random", JAX_FLAGS[b])

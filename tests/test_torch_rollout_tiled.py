@@ -25,6 +25,7 @@ from madrona_basketball_tpu.ops.fused_step import fused_step_xla
 from madrona_basketball_tpu_torch.config import SimConfig
 from madrona_basketball_tpu_torch.ops import fused_rollout as TFR
 from madrona_basketball_tpu_torch.utils.jax_params import agent_from_numpy
+from tests import torch_threads  # noqa: F401
 
 W, T, TI = 1024, 2, 1
 NL = TFR.N_LOGITS

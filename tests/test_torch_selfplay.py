@@ -22,6 +22,7 @@ from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
 from madrona_basketball_tpu_torch.ppo.train_fused import (
     init_train_state, make_train_iteration, state_tensors)
 from madrona_basketball_tpu_torch.utils import checkpoint as ckpt
+from tests import torch_threads  # noqa: F401
 from tests.test_torch_infer_chunk import _one_thread  # noqa: F401
 
 

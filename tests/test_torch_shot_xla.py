@@ -42,6 +42,8 @@ from madrona_basketball_tpu_torch.config import GAME_MODES
 from madrona_basketball_tpu_torch.engine import init_rows
 from madrona_basketball_tpu_torch.ops import fused_step as FS
 from madrona_basketball_tpu_torch.ops.layout import F_IDX
+from tests import torch_threads  # noqa: F401
+from tests.torch_once import once_per_run
 
 W = 512
 DECISION_ROWS = [F_IDX[n] for n in ("sbaskets", "t0score", "t1score")]
@@ -55,7 +57,9 @@ def _torch_fn(jfn):
 
 
 @pytest.fixture(scope="module")
-def threshold_worlds():
+def threshold_worlds(tmp_path_factory):
+    """The threshold worlds and their tick by `fused_step_xla` (once a
+    run, tests/torch_once.py)."""
     cfg = GAME_MODES["1v1"]
     g = torch.Generator().manual_seed(8)
     sf, si = init_rows(cfg, W, g, "cpu")
@@ -66,9 +70,14 @@ def threshold_worlds():
         mp.setattr(torch, "sqrt", sqrt)
         mp.setattr(torch, "rsqrt", lambda x: 1.0 / sqrt(x))
         sf, si, noise, margin = FS.shot_margin_inputs(cfg, sf, si, g)
-    want = fused_step_xla(JSimConfig(one_on_one=True, tag_mode=False),
-                          *(jnp.asarray(x.numpy()) for x in (sf, si, noise)))
-    return cfg, sf, si, noise, margin.numpy(), [np.asarray(x) for x in want]
+
+    def xla_tick():
+        return [np.asarray(x) for x in fused_step_xla(
+            JSimConfig(one_on_one=True, tag_mode=False),
+            *(jnp.asarray(x.numpy()) for x in (sf, si, noise)))]
+    want = once_per_run(tmp_path_factory, "shot_xla",
+                        {(W, 8, "1v1"): xla_tick})[(W, 8, "1v1")]
+    return cfg, sf, si, noise, margin.numpy(), want
 
 
 @pytest.mark.parametrize("xla_fns,margin_ulps,max_share", [

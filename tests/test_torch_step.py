@@ -23,6 +23,7 @@ from madrona_basketball_tpu_torch.config import GAME_MODES
 from madrona_basketball_tpu_torch.ops.fused_step import (fused_step,
                                                          step_rows_plain)
 from madrona_basketball_tpu_torch.ops.layout import F_IDX, I_IDX
+from tests import torch_threads  # noqa: F401
 
 W, TICKS = 128, 8
 _KW = {"tag": {}, "1v1": {"tag_mode": False},

@@ -45,6 +45,7 @@ from madrona_basketball_tpu_torch.engine_fused import draw_noise_rows
 from madrona_basketball_tpu_torch.ops import layout as L
 from madrona_basketball_tpu_torch.ops.fused_step import step_rows_plain
 from madrona_basketball_tpu_torch.state import tree_select
+from tests import torch_threads  # noqa: F401
 
 W = 64
 RTOL = ATOL = 2e-5

@@ -16,6 +16,7 @@ from tensorboard.backend.event_processing.event_accumulator import \
 
 from madrona_basketball_tpu_torch import cli
 from madrona_basketball_tpu_torch.utils.wandb_logger import WandbLogger
+from tests import torch_threads  # noqa: F401
 
 SMALL = ["--device", "cpu", "--num-envs", "32", "--num-rollout-steps", "4",
          "--log-every-n-iterations", "1", "--save-model-every-n-iterations",

@@ -18,6 +18,7 @@ from madrona_basketball_tpu_torch.ppo.train import TrainLoop
 from madrona_basketball_tpu_torch.ppo.train_fused import (
     init_train_state, make_train_iteration)
 from madrona_basketball_tpu_torch.utils import profiling as P
+from tests import torch_threads  # noqa: F401
 
 LOOP_SPANS = ("chunk_dispatch", "unstack_metrics", "log_readback",
               "save_agent")

@@ -44,6 +44,7 @@ from madrona_basketball_tpu_torch.ppo.train_fused import (CollectNoise,
                                                           make_train_iteration)
 from madrona_basketball_tpu_torch.utils.jax_params import (agent_from_numpy,
                                                            rows_from_numpy)
+from tests import torch_threads  # noqa: F401
 from tests.test_torch_collect import T, TI, _jax_iteration
 
 W, WB, ITERS = 32, 8, 2

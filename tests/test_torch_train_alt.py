@@ -60,6 +60,7 @@ from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
 from madrona_basketball_tpu_torch.utils.jax_params import (adam_from_numpy,
                                                            agent_from_numpy,
                                                            rows_from_numpy)
+from tests import torch_threads  # noqa: F401
 
 W, T, TI, WB = 32, 4, 1, 8
 OBS = C.OBS_SIZE

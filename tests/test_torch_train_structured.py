@@ -52,6 +52,7 @@ from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
 from madrona_basketball_tpu_torch.utils.jax_params import (adam_from_numpy,
                                                            agent_from_numpy)
 from tests import torch_dist_workers as DW
+from tests import torch_threads  # noqa: F401
 from tests.test_torch_train_alt import _draws, _jax_perms, _metrics, _policy
 
 W, T, TI = 32, 4, 1

@@ -38,6 +38,7 @@ from madrona_basketball_tpu_torch.ppo import train as TT
 from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
 from madrona_basketball_tpu_torch.utils.jax_params import (adam_from_numpy,
                                                            agent_from_numpy)
+from tests import torch_threads  # noqa: F401
 
 D = C.OBS_USED
 T, N = 4, 16

@@ -27,6 +27,7 @@ from madrona_basketball_tpu_torch.models.normalize import rms_update
 from madrona_basketball_tpu_torch.ops import fused_update as FU
 from madrona_basketball_tpu_torch.ppo import train as TT
 from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
+from tests import torch_threads  # noqa: F401
 
 T, W = 4, 256
 
@@ -40,7 +41,8 @@ def host():
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared",
                     "-fPIC", "-o", str(out),
-                    str(_build.CSRC / "host_update.cpp")], check=True)
+                    str(_build.CSRC / "host_update.cpp")], check=True,
+                   timeout=120)
     lib = ctypes.CDLL(str(out))
     for entry in ("mbb_host_update_phase", "mbb_host_minibatch_grad_prefetch",
                   "mbb_host_minibatch_grad", "mbb_host_sample_owner",

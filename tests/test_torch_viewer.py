@@ -29,6 +29,7 @@ from madrona_basketball_tpu_torch.config import SimConfig
 from madrona_basketball_tpu_torch.env import BasketballEnv
 from madrona_basketball_tpu_torch.infer import infer
 from madrona_basketball_tpu_torch.models.agent import init_agent
+from tests import torch_threads  # noqa: F401
 
 os.environ.setdefault("SDL_VIDEODRIVER", "dummy")
 os.environ.setdefault("SDL_AUDIODRIVER", "dummy")

@@ -12,7 +12,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import os
+import time
 
 import numpy as np
 import torch
@@ -28,6 +30,12 @@ from madrona_basketball_tpu_torch.parallel.mesh import (gather_train_state,
 from madrona_basketball_tpu_torch.ppo.hparams import PPOParams
 from madrona_basketball_tpu_torch.ppo.train_fused import (
     CollectNoise, init_train_state, make_train_iteration)
+
+
+# Seconds a rank waits in a gloo rendezvous or collective, and a spawned
+# group's whole run: a cold job takes up to ~20 s on a loaded CPU.
+GLOO_TIMEOUT = 60
+DEADLINE = 120
 
 
 def hparams(spec: dict) -> PPOParams:
@@ -190,7 +198,8 @@ JOBS = {"iterations": _iterations_job, "cli": _cli_job,
 def _entry(rank, world, rdv, job, arg, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank,
-                            world_size=world)
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=GLOO_TIMEOUT))
     try:
         JOBS[job](rank, arg, out_dir)
     finally:
@@ -199,11 +208,23 @@ def _entry(rank, world, rdv, job, arg, out_dir):
 
 def spawn(job: str, arg, out_dir, world: int = 2) -> list:
     """Run JOBS[job](rank, arg, out_dir) on `world` gloo ranks; returns
-    the ranks' saved results (rank{r}.pt), where the job saved any."""
+    the ranks' saved results (rank{r}.pt), where the job saved any.
+    Ranks that have not all ended DEADLINE s after the spawn are killed
+    and the test fails."""
     out_dir = str(out_dir)
     os.makedirs(out_dir, exist_ok=True)
     rdv = os.path.join(out_dir, f"rdv-{job}")
-    mp.spawn(_entry, args=(world, rdv, job, arg, out_dir), nprocs=world)
+    ctx = mp.spawn(_entry, args=(world, rdv, job, arg, out_dir),
+                   nprocs=world, join=False)
+    end = time.monotonic() + DEADLINE
+    while not ctx.join(timeout=max(end - time.monotonic(), 0.0)):
+        if time.monotonic() >= end:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+            raise TimeoutError(f"{job}: {world} ranks still running after "
+                               f"{DEADLINE} s")
     paths = [os.path.join(out_dir, f"rank{r}.pt") for r in range(world)]
     return [torch.load(p, weights_only=False) for p in paths
             if os.path.exists(p)]
